@@ -1,0 +1,109 @@
+"""Where the time of one training step goes on the card.
+
+    python -m k8s_device_plugin_tpu_torch.workload.step_profile --bench
+
+Trains the model for a few warm-up steps, then traces ``--steps`` more
+with ``torch.profiler`` (CPU and CUDA activity) and prints one JSON line:
+the step time from the host clock (synchronised), the device time of
+every kernel summed by group (flash kernels, f32 and other matmuls,
+optimizer, softmax/cross-entropy, other),
+the top kernels by device time, and the device's idle share over the
+traced window (1 - kernel time / wall time). Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import sys
+import time
+
+import torch
+
+from ..device import resolve_device
+from . import train
+from .model import ModelConfig
+
+# Kernel-name patterns, checked in order; the first match names the group.
+GROUPS = (
+    ("flash_fwd", re.compile(r"flash::fwd_kernel")),
+    ("flash_bwd", re.compile(r"flash::(dq|dkv)_kernel")),
+    ("matmul_f32", re.compile(r"sgemm|gemm_f32f32", re.I)),
+    ("matmul", re.compile(r"gemm|xmma|cutlass|cublas|nvjet|sm90_", re.I)),
+    ("optimizer", re.compile(r"multi_tensor|adam", re.I)),
+    ("softmax_xent", re.compile(r"softmax|nll|log_softmax", re.I)),
+)
+
+
+def _group(name: str) -> str:
+    for group, pattern in GROUPS:
+        if pattern.search(name):
+            return group
+    return "other"
+
+
+def profile_steps(cfg: ModelConfig, steps: int = 3, warmup: int = 2,
+                  batch: int = 8, seed: int = 0) -> dict:
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = resolve_device("cuda")
+    model, optimizer = train.make_train_state(cfg, dev, seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len), generator=gen).to(dev)
+    for _ in range(warmup):
+        train.train_step(model, optimizer, tokens)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(steps):
+            train.train_step(model, optimizer, tokens)
+        torch.cuda.synchronize()
+        wall_s = time.monotonic() - t0
+
+    kernels = [
+        e for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+        and not getattr(e, "is_user_annotation", False)  # Optimizer.step ranges
+    ]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    groups: dict[str, float] = {}
+    for e in kernels:
+        g = _group(e.key)
+        groups[g] = groups.get(g, 0.0) + e.self_device_time_total / 1e3 / steps
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    return {
+        "device_kind": torch.cuda.get_device_name(dev),
+        "config": {"d_model": cfg.d_model, "n_layers": cfg.n_layers,
+                   "seq": cfg.max_seq_len, "batch": batch},
+        "traced_steps": steps,
+        "step_time_ms": wall_s * 1e3 / steps,
+        "kernel_ms_per_step": busy_us / 1e3 / steps,
+        "device_idle_share": max(0.0, 1.0 - busy_us / 1e6 / wall_s) if busy_us else None,
+        "group_ms_per_step": dict(sorted(groups.items(), key=lambda kv: -kv[1])),
+        "top_kernels": [
+            {"name": e.key[:120], "calls_per_step": e.count / steps,
+             "ms_per_step": e.self_device_time_total / 1e3 / steps}
+            for e in top
+        ],
+    }
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    p = argparse.ArgumentParser(description=__doc__)
+    p.add_argument("--bench", action="store_true",
+                   help="use the ModelConfig.bench() shape")
+    p.add_argument("--steps", type=int, default=3)
+    p.add_argument("--batch", type=int, default=8)
+    args = p.parse_args(argv)
+    cfg = ModelConfig.bench() if args.bench else ModelConfig()
+    result = profile_steps(cfg, steps=args.steps, batch=args.batch)
+    print(json.dumps(result), flush=True)
+    return 0 if result["kernel_ms_per_step"] > 0 else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
