@@ -70,25 +70,80 @@ def flash_attention_fwd_plain(q, k, v):
     return o.to(q.dtype), lse
 
 
-def flash_attention_bwd_plain(q, k, v, o, lse, do):
-    """(dq, dk, dv) from the saved forward, computed as the backward
-    kernels do: P rebuilt from lse in f32, delta = rowsum(dO*O) in f32,
-    dS = P*(dP - delta), P and dS rounded to the input dtype before their
-    products, f32 accumulation, results in the input dtype."""
+def _bwd_terms(q, k, v, o, lse, do):
+    """(P, dS) in f32, as both backward kernels rebuild them: P from lse,
+    delta = rowsum(dO*O), dS = P*(dP - delta) with dP = dO.V^T."""
     b, h, seq, d = q.shape
-    scale = _scale(d)
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    s = scale * (qf @ kf.transpose(-1, -2))
+    s = _scale(d) * (q.float() @ k.float().transpose(-1, -2))
     s = s.masked_fill(~_causal_mask(seq, q.device), NEG_INF)
     p = torch.exp(s - lse.reshape(b, h, seq, 1))
-    dv = p.to(do.dtype).float().transpose(-1, -2) @ dof
-    dp = dof @ vf.transpose(-1, -2)
-    delta = (dof * o.float()).sum(-1, keepdim=True)
-    ds = p * (dp - delta)
-    ds_lo = ds.to(q.dtype).float()
-    dq = scale * (ds_lo @ kf)
-    dk = scale * (ds_lo.transpose(-1, -2) @ qf)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    dp = do.float() @ v.float().transpose(-1, -2)
+    delta = (do.float() * o.float()).sum(-1, keepdim=True)
+    return p, p * (dp - delta)
+
+
+def flash_dq_plain(q, k, v, o, lse, do):
+    """dq as the dQ kernel computes it: dS rounded to the input dtype
+    before dS.K, f32 accumulation, the result in the input dtype."""
+    _, ds = _bwd_terms(q, k, v, o, lse, do)
+    dq = _scale(q.shape[-1]) * (ds.to(q.dtype).float() @ k.float())
+    return dq.to(q.dtype)
+
+
+def flash_dkv_plain(q, k, v, o, lse, do):
+    """(dk, dv) as the dK/dV kernel computes them: P and dS rounded to the
+    input dtype before P^T.dO and dS^T.Q, f32 accumulation, the results in
+    the input dtype."""
+    p, ds = _bwd_terms(q, k, v, o, lse, do)
+    dv = p.to(do.dtype).float().transpose(-1, -2) @ do.float()
+    dk = _scale(q.shape[-1]) * (ds.to(q.dtype).float().transpose(-1, -2) @ q.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do):
+    """(dq, dk, dv) from the saved forward: the plain versions of both
+    backward kernels."""
+    return (flash_dq_plain(q, k, v, o, lse, do), *flash_dkv_plain(q, k, v, o, lse, do))
+
+
+# How far a kernel's bf16 output may sit from its plain version. Both round
+# the same f32 values to bf16 at the same places and differ only in f32
+# summation order and in exp. That moves an element by about one bf16 ulp,
+# at most 2^-7 of its value, and an element that is the small difference
+# of large terms by a small share of the tensor's rms. Element by element:
+#   |kernel - plain| <= BF16_ULP_SHARE * |plain| + BF16_RMS_SHARE * rms(plain),
+# and over the tensor ||kernel - plain|| <= BF16_REL_NORM * ||plain||.
+# At the bench shape on an H100 the kernels need an rms share of at most
+# 0.014 and reach a relative error of at most 1.5e-3 (chip_smoke.py); a
+# forward that weights each row's diagonal kv tile by 1.01 needs 0.17
+# (tests/test_torch_tolerance.py).
+BF16_ULP_SHARE = 2.0 ** -7
+BF16_RMS_SHARE = 4e-2
+BF16_REL_NORM = 1e-2
+
+
+def bf16_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """How a kernel's bf16 output ``got`` agrees with its plain version
+    ``want``: ``ok`` under the rule above, the largest absolute error,
+    ``worst_share`` (the largest error over its element's limit; at most 1
+    passes), ``rms_share_needed`` (the least BF16_RMS_SHARE that would
+    pass) and ``rel_err`` (the relative Frobenius error)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    rms = w.square().mean().sqrt()
+    ulp_part = BF16_ULP_SHARE * w.abs()
+    limit = ulp_part + BF16_RMS_SHARE * rms
+    worst = float(torch.where(err == 0, 0.0, err / limit).max())
+    needed = float((err - ulp_part).clamp_min(0).max() / rms.clamp_min(1e-30))
+    rel = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w).clamp_min(1e-30))
+    finite = bool(torch.isfinite(g).all())
+    return {
+        "ok": finite and worst <= 1.0 and rel <= BF16_REL_NORM,
+        "max_abs_err": float(err.max()),
+        "worst_share": worst,
+        "rms_share_needed": needed,
+        "rel_err": rel,
+    }
 
 
 def reference_attention(q, k, v):

@@ -18,13 +18,13 @@ PEAK_BF16_FLOPS = (
 )
 
 
-def peak_flops_for(device_kind: str, n_devices: int = 1) -> float | None:
-    """Aggregate dense bf16 peak of ``n_devices`` cards named
-    ``device_kind``; None when the card (or the CPU) is not in the table,
-    so the caller reports ``mfu: None`` instead of dividing."""
+def peak_flops_for(device_kind: str) -> float | None:
+    """Dense bf16 peak of one card named ``device_kind``; None when the
+    card (or the CPU) is not in the table, so the caller reports
+    ``mfu: None`` instead of dividing."""
     for needle, peak in PEAK_BF16_FLOPS:
         if needle in device_kind:
-            return peak * n_devices
+            return peak
     return None
 
 

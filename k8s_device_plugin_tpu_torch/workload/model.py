@@ -15,9 +15,9 @@ where that is not the obvious choice:
 - ``embed[tokens] + pos`` is summed in f32 before the cast; the tied
   unembedding runs in f32.
 
-Parameters are per layer (``blocks.<i>``) whatever ``scan_layers`` says:
-PyTorch runs the layer loop eagerly, and ``workload/params.py`` unstacks
-the JAX scanned layout.
+Parameters are always per layer (``blocks.<i>``): PyTorch runs the layer
+loop eagerly, so the config has no ``scan_layers`` option, and
+``workload/params.py`` unstacks the JAX scanned layout.
 """
 
 from __future__ import annotations
@@ -55,18 +55,15 @@ class ModelConfig:
     xent_chunk: int = 0
     n_experts: int = 0
     moe_top_k: int = 2
-    # Parameters are per layer either way (params.py unstacks the JAX
-    # scanned layout); kept so bench() reads as the reference's.
-    scan_layers: bool = False
     pipeline_microbatches: int = 0
     decode: bool = False
 
     def decode_supported(self) -> bool:
         """Whether this config has a decode-mode (KV cache) equivalent in
-        the JAX reference: the plain dense attention path only."""
+        the JAX reference: the plain dense attention path with per-layer
+        parameters, which is the only layout the port has."""
         return not (
-            self.scan_layers
-            or self.use_ring_attention
+            self.use_ring_attention
             or self.use_flash_attention
             or self.pipeline_microbatches > 0
             or self.n_experts > 0
@@ -98,12 +95,12 @@ class ModelConfig:
     @staticmethod
     def bench() -> "ModelConfig":
         """The smoke pod's ``--bench`` shape: vocab 32768, d_model 2048, 16
-        heads of 128, 4 layers, d_ff 8192, seq 2048, flash attention and
-        stacked layers; about 235 M parameters."""
+        heads of 128, 4 layers, d_ff 8192, seq 2048, flash attention;
+        about 235 M parameters. The JAX reference's bench() also stacks the
+        layers (``scan_layers``); ``params.py`` unstacks that layout."""
         return ModelConfig(
             vocab_size=32768, d_model=2048, n_heads=16, n_layers=4,
             d_ff=8192, max_seq_len=2048, use_flash_attention=True,
-            scan_layers=True,
         )
 
     # --- analytic FLOPs accounting (the MFU numerator) -------------------

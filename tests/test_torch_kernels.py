@@ -7,8 +7,9 @@ file imports no JAX, so it runs on a machine with the card and no JAX:
     python -m pytest tests/test_torch_kernels.py -m cuda
 
 bf16 tolerance: the kernel and its plain version round the same f32
-values to bf16 at the same places, so they differ by a few bf16 ulps:
-2^-5 of the largest |plain| value; lse is f32 in both (1e-4).
+values to bf16 at the same places, so each element is held to about one
+bf16 ulp of itself plus a small share of the tensor's rms
+(``bf16_agreement`` in ``ops/attention.py``); lse is f32 in both (1e-4).
 """
 
 import pytest
@@ -34,13 +35,14 @@ def test_kernels_match_plain_on_card(cuda_device, shape):
     )
     o_p, lse_p = tattn.flash_attention_fwd_plain(q, k, v)
     o, lse = tattn.flash_fwd_kernel(q, k, v)
-    grads = (tattn.flash_dq_kernel(q, k, v, o_p, lse_p, do),
-             *tattn.flash_dkv_kernel(q, k, v, o_p, lse_p, do))
-    grads_p = tattn.flash_attention_bwd_plain(q, k, v, o_p, lse_p, do)
+    bwd = (q, k, v, o_p, lse_p, do)
+    grads = (tattn.flash_dq_kernel(*bwd), *tattn.flash_dkv_kernel(*bwd))
+    grads_p = (tattn.flash_dq_plain(*bwd), *tattn.flash_dkv_plain(*bwd))
     torch.cuda.synchronize()
     assert (lse - lse_p).abs().max() <= 1e-4
     for got, want in zip((o, *grads), (o_p, *grads_p)):
-        assert (got.float() - want.float()).abs().max() <= 2.0 ** -5 * want.float().abs().max()
+        agree = tattn.bf16_agreement(got, want)
+        assert agree["ok"], agree
 
 
 @pytest.mark.cuda

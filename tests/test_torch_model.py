@@ -27,10 +27,12 @@ DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bflo
 SMALL = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64, max_seq_len=16)
 
 
-def _configs(dtype="f32", **kw):
+def _configs(dtype="f32", scan_layers=False, **kw):
+    """The JAX config and the port's; only the JAX one stacks its layers
+    (the port's parameters are always per layer)."""
     jdt, tdt = DTYPES[dtype]
     return (
-        jmodel.ModelConfig(dtype=jdt, **SMALL, **kw),
+        jmodel.ModelConfig(dtype=jdt, scan_layers=scan_layers, **SMALL, **kw),
         tmodel.ModelConfig(dtype=tdt, **SMALL, **kw),
     )
 
@@ -174,7 +176,7 @@ def test_dense_attention_divides_scores_in_bf16():
         dict(use_pallas_norm=True),
         dict(use_ring_attention=True),
         dict(n_experts=2),
-        dict(pipeline_microbatches=2, scan_layers=True),
+        dict(pipeline_microbatches=2),
         dict(decode=True),
         dict(xent_chunk=32),
     ],
@@ -195,4 +197,9 @@ def test_flops_accounting_matches_jax():
         assert tcfg.decode_supported() == jcfg.decode_supported()
     bench = tmodel.ModelConfig.bench()
     assert (bench.d_model // bench.n_heads, bench.dtype) == (128, torch.bfloat16)
-    assert bench.use_flash_attention and bench.scan_layers
+    assert bench.use_flash_attention
+    # Every JAX config field but the layer stacking has its counterpart.
+    jfields = {f.name for f in dataclasses.fields(jmodel.ModelConfig)}
+    tfields = {f.name for f in dataclasses.fields(tmodel.ModelConfig)}
+    assert tfields <= jfields - {"scan_layers"}
+    assert jmodel.ModelConfig.bench().scan_layers

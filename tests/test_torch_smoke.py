@@ -55,7 +55,7 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
 def test_peak_flops_table():
     assert chips.peak_flops_for("NVIDIA H100 80GB HBM3") == 989e12
     assert chips.peak_flops_for("NVIDIA H100 PCIe") == 756e12
-    assert chips.peak_flops_for("NVIDIA H100 NVL", 2) == 2 * 835e12
+    assert chips.peak_flops_for("NVIDIA H100 NVL") == 835e12
     assert chips.peak_flops_for("cpu") is None
     assert chips.peak_flops_for("TPU v5 lite") is None
 

@@ -1,0 +1,114 @@
+"""The rule that holds each flash kernel's bf16 output against its plain
+version (``bf16_agreement`` in ``ops/attention.py``), at the bench's
+sequence length and head dim.
+
+It must pass a correct kernel, which rounds at the same places as the
+plain version but sums in another order and rounds P against a running
+max; stand-ins here are a tiled online-softmax forward and a float64
+backward. It must reject the faults a tiled kernel typically has, emulated
+in plain PyTorch: a dropped rescale, an off-by-one causal mask, a skipped
+or mis-weighted tile, a missing term. Imports no JAX.
+"""
+
+import math
+
+import pytest
+import torch
+
+from k8s_device_plugin_tpu_torch.ops import attention as tattn
+
+SHAPE = (1, 2, 2048, 128)  # one batch row, two heads, of the bench shape
+TILE = 64
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    gen = torch.Generator().manual_seed(0)
+    q, k, v, do = (torch.randn(SHAPE, generator=gen).to(torch.bfloat16) for _ in range(4))
+    o, lse = tattn.flash_attention_fwd_plain(q, k, v)
+    return q, k, v, do, o, lse
+
+
+def _tiled_forward(q, k, v, rescale_acc=True, causal_offset=0, last_tile_weight=1.0):
+    """Online softmax over 64-key tiles, as the forward kernel runs it; the
+    keyword arguments inject faults."""
+    n, d = q.shape[-2:]
+    qf = q.float()
+    rows = torch.arange(n)[:, None]
+    m = torch.full((*q.shape[:-1], 1), -math.inf)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape)
+    for t0 in range(0, n, TILE):
+        cols = torch.arange(t0, min(t0 + TILE, n))[None, :]
+        s = (1.0 / math.sqrt(d)) * (qf @ k[..., t0:t0 + TILE, :].float().transpose(-1, -2))
+        s = s.masked_fill(cols > rows + causal_offset, tattn.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        # The tile that holds each row's diagonal is its last one.
+        weight = torch.where((rows // TILE) == t0 // TILE, last_tile_weight, 1.0)
+        pv = p.to(v.dtype).float() @ v[..., t0:t0 + TILE, :].float()
+        l = alpha * l + p.sum(-1, keepdim=True)
+        acc = (alpha * acc if rescale_acc else acc) + weight * pv
+        m = m_new
+    return (acc / l).to(q.dtype)
+
+
+def _backward(q, k, v, o, lse, do, dtype=torch.float32, fault=None):
+    """(dq, dk, dv) with the kernels' roundings, summed in ``dtype``;
+    ``fault`` injects one."""
+    n, d = q.shape[-2:]
+    qf, kf, vf, of, dof = (t.to(dtype) for t in (q, k, v, o, do))
+    rows, cols = torch.arange(n)[:, None], torch.arange(n)[None, :]
+    s = (1.0 / math.sqrt(d)) * (qf @ kf.transpose(-1, -2))
+    s = s.masked_fill(cols > rows, tattn.NEG_INF)
+    p = torch.exp(s - lse.to(dtype).reshape(*q.shape[:-1], 1))
+    dp = dof @ vf.transpose(-1, -2)
+    delta = 0.0 if fault == "no_delta" else (dof * of).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    if fault == "dq_skips_diagonal_tile":
+        ds_q = ds.masked_fill((rows // TILE) == (cols // TILE), 0.0)
+    else:
+        ds_q = ds
+    if fault == "dkv_skips_last_q_tile":
+        p, ds = p.masked_fill(rows >= n - TILE, 0.0), ds.masked_fill(rows >= n - TILE, 0.0)
+    lo = lambda t: t.to(torch.bfloat16).to(dtype)  # noqa: E731
+    scale = 1.0 / math.sqrt(d)
+    dq = scale * (lo(ds_q) @ kf)
+    dk = scale * (lo(ds).transpose(-1, -2) @ qf)
+    dv = lo(p).transpose(-1, -2) @ dof
+    return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
+
+
+def test_rule_passes_correct_stand_ins(inputs):
+    q, k, v, do, o, lse = inputs
+    fwd = tattn.bf16_agreement(_tiled_forward(q, k, v), o)
+    assert fwd["ok"], fwd
+    assert 0 < fwd["max_abs_err"]  # the stand-in really rounds differently
+    plain = (tattn.flash_dq_plain(q, k, v, o, lse, do),
+             *tattn.flash_dkv_plain(q, k, v, o, lse, do))
+    for got, want in zip(_backward(q, k, v, o, lse, do, torch.float64), plain):
+        agree = tattn.bf16_agreement(got, want)
+        assert agree["ok"], agree
+
+
+@pytest.mark.parametrize(
+    "fault",
+    ["fwd_no_acc_rescale", "fwd_causal_off_by_one", "fwd_diagonal_tile_weight",
+     "no_delta", "dq_skips_diagonal_tile", "dkv_skips_last_q_tile"],
+)
+def test_rule_rejects_kernel_faults(inputs, fault):
+    q, k, v, do, o, lse = inputs
+    if fault.startswith("fwd_"):
+        kw = {
+            "fwd_no_acc_rescale": dict(rescale_acc=False),
+            "fwd_causal_off_by_one": dict(causal_offset=1),
+            "fwd_diagonal_tile_weight": dict(last_tile_weight=1.01),
+        }[fault]
+        outs = [(_tiled_forward(q, k, v, **kw), o)]
+    else:
+        plain = (tattn.flash_dq_plain(q, k, v, o, lse, do),
+                 *tattn.flash_dkv_plain(q, k, v, o, lse, do))
+        outs = zip(_backward(q, k, v, o, lse, do, fault=fault), plain)
+    verdicts = [tattn.bf16_agreement(got, want) for got, want in outs]
+    assert not all(a["ok"] for a in verdicts), verdicts
