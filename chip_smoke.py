@@ -7,26 +7,42 @@ caught while the run goes on:
 
 1. Device: the card's name, and its name and power limit from nvidia-smi.
 2. Build: every CUDA kernel of the port from ``ops/csrc`` (nvcc, sm_90a).
-3. Kernels vs plain: each hand-written kernel (flash forward, dQ, dK/dV)
-   against its own plain PyTorch version on the card, at the bench shape
-   (8, 16, 2048, 128) and a ragged one (2, 4, 100, 64), bf16, element by
-   element (``bf16_agreement`` in ``ops/attention.py``). One JSON line per
-   kernel and shape: errors, tolerance, and at the bench shape kernel,
-   plain and library times (CUDA events, median) beside the bound; then
-   one line setting the two backward kernels beside SDPA's backward.
+3. Kernels vs plain: each hand-written kernel against its own plain
+   PyTorch version on the card, element by element (``bf16_agreement`` in
+   ``ops/attention.py``). The flash kernels (forward, dQ, dK/dV) at the
+   bench shape (8, 16, 2048, 128) and a ragged one (2, 4, 100, 64), bf16;
+   then one line setting the two backward kernels beside SDPA's backward.
+   The RMSNorm kernel at the bench model's (16384, 2048) with an f32 scale,
+   the microbench's (8192, 4096) with a bf16 scale, and a ragged
+   (300, 2048), bf16 x; rrms within relative 1e-5. One JSON line per kernel
+   and shape: errors, tolerance, and at the full shapes kernel, plain and
+   library times (CUDA events, median) beside the bound.
 4. Model: the flash and the dense attention paths of a small model on the
    card agree on the same weights and tokens.
 5. Main path: ``run_smoke`` at ``ModelConfig.bench()`` (10 timed AdamW
    steps, batch 8), with every launch count set to 0 just before and read
-   just after; each flash kernel must have launched.
+   just after; each flash kernel must have launched, and the RMSNorm
+   kernel (off in this config) not at all.
+6. Norm path: the same at ``ModelConfig.bench()`` with
+   ``use_pallas_norm=True``: the RMSNorm kernel must launch 9 times per
+   step (two norms per block and the final one) and each flash kernel 4.
+   Its step time, tokens/s and MFU are printed beside phase 5's.
+7. Microbench: ``run_microbench(tier="full")`` at its defaults (attention
+   seq 8192 and 2048, chunked CE 8192 x 2048 x 32768 with chunk 4096,
+   RMSNorm (8192, 4096), matmul 4096). It must report ok, no suspect
+   timing and no case or side in error or skipped, and must have launched
+   every kernel.
 
-Then one ``{"kernels": [...]}`` line and, last, the device line
-``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
-when CUDA is not available or the port's package is not beside this file.
+Then one ``{"kernels": [...]}`` line (each kernel's launches from the path
+that runs it: K1-K3 from phase 5, K4 from phase 6) and, last, the device
+line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
+result, when CUDA is not available or the port's package is not beside
+this file.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -39,21 +55,30 @@ import torch
 ROOT = Path(__file__).resolve().parent
 PACKAGE = ROOT / "k8s_device_plugin_tpu_torch"
 
-# NVIDIA H100 SXM data sheet, dense, at the full 700 W power limit.
-PEAK_BF16_FLOPS = 989e12
-HBM_BYTES_PER_S = 3.35e12
-
 BENCH_SHAPE = (8, 16, 2048, 128)
 RAGGED_SHAPE = (2, 4, 100, 64)
 # bf16 outputs are held element by element to the rule of
 # ops/attention.py (A.bf16_agreement); lse is f32 in both versions.
 LSE_ATOL = 1e-4
+# (x shape, scale dtype, timed) of the RMSNorm kernel's checks, x in bf16:
+# the bench model's norms (batch 8 x seq 2048 rows), the microbench's case,
+# and a row count no 256-row block divides. The first is the main path's.
+NORM_CASES = (
+    ((16384, 2048), torch.float32, True),
+    ((8192, 4096), torch.bfloat16, True),
+    ((300, 2048), torch.float32, False),
+)
+NORM_EPS = 1e-6
+RRMS_RTOL = 1e-5
 
+# Each kernel's source and the TPU kernel it replaces.
 KERNELS = {
-    "flash_fwd": ("ops/csrc/flash_fwd.cu", "k8s_device_plugin_tpu/ops/attention.py:102", "fwd"),
-    "flash_dq": ("ops/csrc/flash_bwd.cu", "k8s_device_plugin_tpu/ops/attention.py:166", "dq"),
-    "flash_dkv": ("ops/csrc/flash_bwd.cu", "k8s_device_plugin_tpu/ops/attention.py:212", "dkv"),
+    "flash_fwd": ("ops/csrc/flash_fwd.cu", "k8s_device_plugin_tpu/ops/attention.py:102"),
+    "flash_dq": ("ops/csrc/flash_bwd.cu", "k8s_device_plugin_tpu/ops/attention.py:166"),
+    "flash_dkv": ("ops/csrc/flash_bwd.cu", "k8s_device_plugin_tpu/ops/attention.py:212"),
+    "rmsnorm": ("ops/csrc/rmsnorm.cu", "k8s_device_plugin_tpu/ops/rmsnorm.py:41"),
 }
+FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
 
 
 def fail(msg: str) -> None:
@@ -69,6 +94,24 @@ def causal_pairs(seq: int) -> int:
     return seq * (seq + 1) // 2
 
 
+def card():
+    """This card's published rates (``workload/chips.py``)."""
+    from k8s_device_plugin_tpu_torch.workload.chips import card_spec
+
+    spec = card_spec(torch.cuda.get_device_name(0))
+    if spec is None:
+        fail(f"{torch.cuda.get_device_name(0)} is not in workload/chips.py's table")
+    return spec
+
+
+def bound(flops: float, peak_flops: float, nbytes: float) -> tuple[float, str]:
+    """The larger of the operations over their peak and the bytes over the
+    memory rate, in ms, and which of the two it is."""
+    t_ops = flops / peak_flops * 1e3
+    t_bytes = nbytes / card().memory_bytes_per_s * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
 def attention_bound(shape, kind: str) -> tuple[float, str]:
     """Least time in ms for the pass on this data: the larger of its
     tensor-core operations over the bf16 peak (2 per multiply-add over the
@@ -82,10 +125,17 @@ def attention_bound(shape, kind: str) -> tuple[float, str]:
     tensor = rows * d * 2  # one bf16 (b, h, seq, d) tensor
     n_in, n_out = {"fwd": (3, 1), "dq": (5, 1), "dkv": (5, 2)}[kind]
     lse = rows * 4
-    nbytes = (n_in + n_out) * tensor + lse
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return bound(flops, card().peak_bf16_flops, (n_in + n_out) * tensor + lse)
+
+
+def norm_bound(x, scale) -> tuple[float, str]:
+    """Least time in ms for the RMSNorm forward on these inputs: x read
+    once, y (x's dtype) written once, scale read and rrms (f32) written,
+    over the memory rate; against about four f32 operations per element
+    (square, sum, two products) on the CUDA cores."""
+    rows, d = x.shape
+    nbytes = 2 * x.numel() * x.element_size() + scale.numel() * scale.element_size() + rows * 4
+    return bound(4.0 * rows * d, card().peak_f32_flops, nbytes)
 
 
 def time_ms(fn, iters: int, reps: int = 5) -> float:
@@ -179,8 +229,8 @@ def phase_kernels() -> dict:
             )
             del got, want
             if timed:
-                src, replaces, kind = KERNELS[name]
-                bound_ms, bound_by = attention_bound(shape, kind)
+                src, replaces = KERNELS[name]
+                bound_ms, bound_by = attention_bound(shape, name.removeprefix("flash_"))
                 line.update(
                     kernel_ms=time_ms(kernel, 10),
                     plain_ms=time_ms(plain, 1, reps=3),
@@ -215,7 +265,65 @@ def phase_kernels() -> dict:
             emit(backward_yardstick(q, k, v, do, entries))
         del q, k, v, do, o_p, lse_p, bwd, runs
         torch.cuda.empty_cache()
+    entries["rmsnorm"] = phase_norm_kernel()
     return entries
+
+
+def phase_norm_kernel() -> dict:
+    """The RMSNorm kernel against its plain version at NORM_CASES; returns
+    the main path's shape's entry of the kernels line."""
+    import torch.nn.functional as F
+    from k8s_device_plugin_tpu_torch.ops import attention as A
+    from k8s_device_plugin_tpu_torch.ops import rmsnorm as R
+
+    entry = None
+    for shape, scale_dtype, timed in NORM_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(sum(shape))
+        x = torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        scale = (1.0 + 0.1 * torch.randn(shape[1], generator=gen, device="cuda")).to(scale_dtype)
+        (y, rrms), (y_p, rrms_p) = (R.rmsnorm_fwd_kernel(x, scale, NORM_EPS),
+                                    R.rmsnorm_fwd_plain(x, scale, NORM_EPS))
+        torch.cuda.synchronize()
+        agree = A.bf16_agreement(y, y_p)
+        rrms_rel = float(((rrms - rrms_p).abs() / rrms_p.abs()).max())
+        line = {"kernel": "rmsnorm", "shape": list(shape), "dtype": "bfloat16",
+                "scale_dtype": str(scale_dtype).removeprefix("torch."),
+                **{f"{key}_y": agree[key] for key in
+                   ("max_abs_err", "worst_share", "rms_share_needed", "rel_err")},
+                "rel_err_rrms": rrms_rel, "tol_rrms": RRMS_RTOL,
+                "y_dtype": str(y.dtype).removeprefix("torch."),
+                "tolerance": "y: bf16_agreement; rrms: relative error <= 1e-5"}
+        if timed:
+            bound_ms, bound_by = norm_bound(x, scale)
+            line.update(
+                kernel_ms=time_ms(lambda: R.rmsnorm_fwd_kernel(x, scale, NORM_EPS), 50),
+                plain_ms=time_ms(lambda: R.rmsnorm_fwd_plain(x, scale, NORM_EPS), 10),
+                library_ms=time_ms(lambda: F.rms_norm(x, (shape[1],), scale, NORM_EPS), 50),
+                library_call="torch.nn.functional.rms_norm (yardstick only)",
+                bound_ms=bound_ms,
+                bound_by=bound_by,
+            )
+            if entry is None:
+                entry = {
+                    "name": "rmsnorm",
+                    "route": "cuda",
+                    "source": "k8s_device_plugin_tpu_torch/" + KERNELS["rmsnorm"][0],
+                    "replaces": KERNELS["rmsnorm"][1],
+                    "shape": list(shape),
+                    "max_abs_err": agree["max_abs_err"],
+                    "rel_err": agree["rel_err"],
+                    "ms": line["kernel_ms"],
+                    "plain_ms": line["plain_ms"],
+                    "bound_ms": bound_ms,
+                    "bound_by": bound_by,
+                    "library_ms": line["library_ms"],
+                }
+        emit(line)
+        if not (agree["ok"] and rrms_rel <= RRMS_RTOL and y.dtype == x.dtype):
+            fail(f"rmsnorm at {shape} disagrees with its plain version: {line}")
+        del x, scale, y, rrms, y_p, rrms_p
+        torch.cuda.empty_cache()
+    return entry
 
 
 def backward_yardstick(q, k, v, do, entries) -> dict:
@@ -249,8 +357,6 @@ def phase_model() -> None:
     """The flash path against the dense path of the same model on the card
     (bf16): the loss within 1e-2 and the logits within 0.1, the JAX
     package's bf16 tolerance for two attention formulations."""
-    import dataclasses
-
     from k8s_device_plugin_tpu_torch.workload import train
     from k8s_device_plugin_tpu_torch.workload.model import ModelConfig, init_model
 
@@ -274,24 +380,78 @@ def phase_model() -> None:
              f"loss {loss_f} vs {loss_d}")
 
 
-def phase_main() -> tuple[dict, int]:
+def drive_path(cfg) -> tuple[dict, dict, int]:
+    """``run_smoke`` at ``cfg`` (10 timed steps, batch 8) with every launch
+    count set to 0 just before and read just after: (report, launches,
+    steps run, the untimed first step included)."""
     from k8s_device_plugin_tpu_torch.ops import LAUNCHES, reset_launches
-    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
     from k8s_device_plugin_tpu_torch.workload.smoke import run_smoke
 
     reset_launches()
-    report = run_smoke(
-        steps=10, cfg=ModelConfig.bench(), batch_per_device=8, device="cuda",
-        emit=emit,
-    )
+    report = run_smoke(steps=10, cfg=cfg, batch_per_device=8, device="cuda", emit=emit)
     launches = dict(LAUNCHES)
     emit(report)
+    torch.cuda.empty_cache()
     if not (report["ok"] and report["first_loss_sane"] and report["loss_decreased"]):
-        fail(f"run_smoke at ModelConfig.bench() not ok: {report}")
-    for name, n in launches.items():
-        if n <= 0:
+        fail(f"run_smoke at {cfg} not ok: {report}")
+    return report, launches, report["measured_steps"] + 1
+
+
+def phase_main() -> tuple[dict, dict, int]:
+    """The bench step: each flash kernel launched, the RMSNorm kernel (off
+    in ``ModelConfig.bench()``) not at all."""
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
+
+    report, launches, steps = drive_path(ModelConfig.bench())
+    for name in FLASH:
+        if launches[name] <= 0:
             fail(f"kernel {name} never launched on the main path")
-    return launches, report["measured_steps"] + 1  # and the untimed first step
+    if launches["rmsnorm"] != 0:
+        fail(f"the RMSNorm kernel launched {launches['rmsnorm']} times with use_pallas_norm off")
+    return report, launches, steps
+
+
+def phase_norm_path(main_report: dict) -> tuple[dict, int]:
+    """The bench step with ``use_pallas_norm``: 2 norms per block and the
+    final one launch the RMSNorm kernel each step, and attention stays on
+    the flash kernels."""
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
+
+    cfg = dataclasses.replace(ModelConfig.bench(), use_pallas_norm=True)
+    report, launches, steps = drive_path(cfg)
+    want = {"rmsnorm": (2 * cfg.n_layers + 1) * steps,
+            **{name: cfg.n_layers * steps for name in FLASH}}
+    if launches != want:
+        fail(f"norm path launches {launches}, expected {want}")
+    keys = ("step_time_s", "tokens_per_s", "mfu", "first_loss", "final_loss")
+    emit({"norm_path": {k: report[k] for k in keys},
+          "plain_norm_path": {k: main_report[k] for k in keys},
+          "norm_path_launches": launches, "steps": steps})
+    return launches, steps
+
+
+def phase_microbench() -> None:
+    """The port's microbench, full tier at its defaults, with the launch
+    counts read around it."""
+    from k8s_device_plugin_tpu_torch.ops import LAUNCHES, reset_launches
+    from k8s_device_plugin_tpu_torch.ops.microbench import run_microbench
+
+    reset_launches()
+    report = run_microbench(tier="full", device="cuda")
+    launches = dict(LAUNCHES)
+    emit({"microbench": report, "launches": launches})
+    bad = [f"{case}: {body}" for case, body in report["kernels"].items()
+           if "error" in body or "skipped" in body
+           or any(isinstance(side, dict) and ("error" in side or "skipped" in side)
+                  for side in body.values())]
+    norm = report["kernels"].get("rmsnorm_8192x4096", {})
+    if not (report["ok"] and not report.get("timing_suspect") and not bad
+            and report["kernels"]["attention_agreement"].get("ok")
+            and report["kernels"]["xent_8192x2048x32768"].get("ok")
+            and {"kernel", "plain", "speedup_vs_plain"} <= set(norm)):
+        fail(f"microbench not ok: {bad or report}")
+    if min(launches.values()) <= 0:
+        fail(f"the microbench did not launch every kernel: {launches}")
 
 
 def main() -> int:
@@ -311,11 +471,14 @@ def main() -> int:
     phase_build()
     entries = phase_kernels()
     phase_model()
-    launches, steps = phase_main()
+    main_report, launches, steps = phase_main()
+    norm_launches, norm_steps = phase_norm_path(main_report)
+    phase_microbench()
+    path_launches = {name: (launches[name], steps) for name in FLASH}
+    path_launches["rmsnorm"] = (norm_launches["rmsnorm"], norm_steps)
     emit({"kernels": [
-        dict(entries[name], launches=launches[name],
-             launches_per_step=launches[name] / steps)
-        for name in KERNELS
+        dict(entries[name], launches=n, launches_per_step=n / per)
+        for name, (n, per) in path_launches.items()
     ]})
     emit({
         "ok": True,

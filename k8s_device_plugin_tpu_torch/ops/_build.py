@@ -12,6 +12,10 @@ Calling convention of every C entry point: each pointer and the stream
 are ``c_void_p``, sizes ``c_int``, scalars ``c_float``; the function
 returns ``cudaGetLastError()`` after its launch, and ``check()`` raises
 when that is not 0.
+
+``LAUNCHES`` is the one launch table of every kernel wrapper: each adds
+one to its kernel's count where it launches it, and nowhere else, so a run
+can show which kernels its path went through.
 """
 
 from __future__ import annotations
@@ -27,11 +31,19 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 
+# Launches of each hand-written kernel since the last reset_launches().
+LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "rmsnorm": 0}
+
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def nvcc_path() -> str:

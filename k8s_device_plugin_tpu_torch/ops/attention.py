@@ -13,8 +13,9 @@ Numerics, as in the TPU kernels: scores ``scale * q.k`` in f32 with
 with V, dO or Q, and the logsumexp ``lse`` kept in f32 for the backward.
 ``lse`` is stored as ``(batch*heads, seq)``.
 
-Each kernel wrapper counts its launches in ``LAUNCHES`` (and nowhere
-else), so a run can show which kernels its main path went through.
+Each kernel wrapper counts its launches in the shared ``LAUNCHES`` table
+of ``_build.py`` (and nowhere else), so a run can show which kernels its
+main path went through.
 """
 
 from __future__ import annotations
@@ -25,21 +26,14 @@ import torch
 
 from ..device import uses_kernel
 from . import _build
+from ._build import LAUNCHES
 
 NEG_INF = -1e30
-
-# Launches of each hand-written kernel since the last reset_launches().
-LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SUPPORTED_HEAD_DIMS = (64, 128)
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def _scale(d: int) -> float:

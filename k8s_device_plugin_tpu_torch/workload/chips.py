@@ -1,31 +1,50 @@
 """The port's own accelerator table and allocation check: NVIDIA cards'
-dense bf16 peak (the MFU denominator) and the device count the
-allocation promised this container.
+peaks and memory rate (the MFU denominator, the kernels' bounds and the
+microbench's physics guards) and the device count the allocation promised
+this container.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
-# Dense bf16 tensor-core peak in FLOP/s, without sparsity, from NVIDIA's
-# H100 data sheet. Checked in order: the first substring found in the
-# device name wins, so the PCIe and NVL parts come before plain "H100"
+
+@dataclasses.dataclass(frozen=True)
+class CardSpec:
+    """One card's published rates, dense (without sparsity)."""
+
+    name: str
+    peak_bf16_flops: float  # tensor cores
+    peak_f32_flops: float  # CUDA cores, outside the tensor cores
+    memory_bytes_per_s: float  # device memory (HBM)
+
+
+# From NVIDIA's H100 data sheet. Checked in order: the first name found in
+# the device name wins, so the PCIe and NVL parts come before plain "H100"
 # (the SXM part, e.g. "NVIDIA H100 80GB HBM3").
-PEAK_BF16_FLOPS = (
-    ("H100 PCIe", 756e12),
-    ("H100 NVL", 835e12),
-    ("H100", 989e12),
+CARDS = (
+    CardSpec("H100 PCIe", 756e12, 51e12, 2.0e12),
+    CardSpec("H100 NVL", 835e12, 60e12, 3.9e12),
+    CardSpec("H100", 989e12, 67e12, 3.35e12),
 )
+
+
+def card_spec(device_kind: str) -> CardSpec | None:
+    """The table's entry for a card named ``device_kind``; None when the
+    card (or the CPU) is not in the table."""
+    for spec in CARDS:
+        if spec.name in device_kind:
+            return spec
+    return None
 
 
 def peak_flops_for(device_kind: str) -> float | None:
     """Dense bf16 peak of one card named ``device_kind``; None when the
-    card (or the CPU) is not in the table, so the caller reports
-    ``mfu: None`` instead of dividing."""
-    for needle, peak in PEAK_BF16_FLOPS:
-        if needle in device_kind:
-            return peak
-    return None
+    card is not in the table, so the caller reports ``mfu: None`` instead
+    of dividing."""
+    spec = card_spec(device_kind)
+    return spec.peak_bf16_flops if spec else None
 
 
 def _count(raw: str) -> int | None:

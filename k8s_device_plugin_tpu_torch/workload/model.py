@@ -8,7 +8,10 @@ where that is not the obvious choice:
 
 - flax's ``nn.RMSNorm`` (eps 1e-6) reduces in f32 and, with a bf16 input
   and an f32 scale, returns f32; ``Attention`` and ``Mlp`` cast their input
-  back to the compute dtype.
+  back to the compute dtype. Under ``use_pallas_norm`` the norm is the
+  RMSNorm kernel (``ops/rmsnorm.py``), which returns x's dtype: bf16 in a
+  bf16 model, so the final norm's output is rounded to bf16 before the f32
+  unembed.
 - The dense attention divides the scores by ``sqrt(head_dim)`` in the
   compute dtype, masks with -1e9 and takes the softmax in f32.
 - ``jax.nn.gelu`` is the tanh approximation.
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import flash_attention
+from ..ops.rmsnorm import rmsnorm
 
 RMS_EPS = 1e-6  # flax nn.RMSNorm's default
 
@@ -69,11 +73,15 @@ class ModelConfig:
             or self.n_experts > 0
         )
 
+    def __post_init__(self):
+        if self.xent_chunk > 0 and self.vocab_size % self.xent_chunk != 0:
+            raise ValueError(
+                f"xent_chunk {self.xent_chunk} must divide vocab_size {self.vocab_size}"
+            )
+
     def check_ported(self) -> None:
         """Raise NotImplementedError for an option this port does not
         carry yet, naming the ROADMAP item that will."""
-        if self.use_pallas_norm:
-            raise _not_ported("use_pallas_norm (the RMSNorm kernel)", "'RMSNorm kernel path'")
         if self.use_ring_attention:
             raise _not_ported("ring attention", "'Ring attention'")
         if self.n_experts > 0:
@@ -82,8 +90,6 @@ class ModelConfig:
             raise _not_ported("pipeline parallelism", "'Pipeline'")
         if self.decode:
             raise _not_ported("decode mode", "'Decoding'")
-        if self.xent_chunk > 0:
-            raise _not_ported("chunked-vocab cross-entropy", "'Chunked-vocab CE'")
 
     @staticmethod
     def tiny() -> "ModelConfig":
@@ -141,13 +147,18 @@ def _xavier_uniform(shape, generator, device) -> torch.Tensor:
 
 
 class Norm(nn.Module):
-    """flax ``nn.RMSNorm(use_scale=True)``: f32 statistics, f32 output."""
+    """flax ``nn.RMSNorm(use_scale=True)``: f32 statistics, f32 output; or,
+    with ``use_pallas_norm``, the RMSNorm kernel, whose output has x's
+    dtype (the JAX ``Norm`` under ``use_pallas_norm``)."""
 
-    def __init__(self, d: int, device=None):
+    def __init__(self, d: int, device=None, use_pallas_norm: bool = False):
         super().__init__()
+        self.use_pallas_norm = use_pallas_norm
         self.scale = nn.Parameter(torch.ones(d, dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_pallas_norm:
+            return rmsnorm(x, self.scale, RMS_EPS)
         x32 = x.float()
         var = x32.square().mean(-1, keepdim=True)
         return x32 * (torch.rsqrt(var + RMS_EPS) * self.scale)
@@ -208,9 +219,9 @@ class Mlp(nn.Module):
 class Block(nn.Module):
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
-        self.norm1 = Norm(cfg.d_model, device)
+        self.norm1 = Norm(cfg.d_model, device, cfg.use_pallas_norm)
         self.attn = Attention(cfg, generator, device)
-        self.norm2 = Norm(cfg.d_model, device)
+        self.norm2 = Norm(cfg.d_model, device, cfg.use_pallas_norm)
         self.mlp = Mlp(cfg, generator, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -246,13 +257,19 @@ class TransformerLM(nn.Module):
         self.blocks = nn.ModuleList(
             Block(cfg, generator, device) for _ in range(cfg.n_layers)
         )
-        self.norm = Norm(cfg.d_model, device)
+        self.norm = Norm(cfg.d_model, device, cfg.use_pallas_norm)
 
     def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Logits; with ``cfg.xent_chunk`` > 0, the final norm's hidden
+        states instead, which the loss unembeds chunk-wise
+        (``ops/xent.py``) without the full logits."""
         x = embed_tokens(self.cfg, self.embed, self.pos, tokens)
         for block in self.blocks:
             x = block(x)
-        return unembed(self.norm(x), self.embed)
+        x = self.norm(x)
+        if self.cfg.xent_chunk > 0:
+            return x
+        return unembed(x, self.embed)
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> TransformerLM:
@@ -263,5 +280,6 @@ def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> TransformerLM:
 
 
 def forward(model: TransformerLM, tokens: torch.Tensor) -> torch.Tensor:
-    """Logits (batch, seq, vocab) in f32."""
+    """Logits (batch, seq, vocab) in f32 (hidden states under
+    ``xent_chunk``)."""
     return model(tokens)

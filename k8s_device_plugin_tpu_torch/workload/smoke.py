@@ -9,15 +9,17 @@ Checks performed:
    (CUDA_VISIBLE_DEVICES / NVIDIA_VISIBLE_DEVICES / TPU_PLUGIN_ALLOCATED_CHIPS);
 2. the transformer LM trains a few AdamW steps on one device, its first
    loss is not below ln(vocab) and the loss decreases;
-3. step time, tokens/s and MFU are measured, and each flash kernel's
-   launch count over the run is reported.
+3. step time, tokens/s and MFU are measured, and each hand-written
+   kernel's launch count over the run is reported.
 
-Not carried yet (ROADMAP.md, Queue 1): inner_steps > 1, the chunked-vocab
-loss and its A/B, and training over more than one device.
+``--xent-chunk N`` trains with the chunked-vocab loss (``ops/xent.py``).
+Not carried yet (ROADMAP.md, Queue 1): inner_steps > 1 with the
+chunked-vocab A/B, and training over more than one device.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import sys
@@ -43,12 +45,14 @@ def run_smoke(
     batch_per_device: int = 8,
     seed: int = 0,
     device: str | torch.device | None = None,
+    xent_chunk: int = 0,
     emit=None,
 ) -> dict:
     """Train ``steps`` timed steps after one untimed first step on one
     device and return the report. ``device`` defaults to the CUDA card
     (raising when there is none); pass ``device="cpu"`` for the plain
-    PyTorch path.
+    PyTorch path. ``xent_chunk`` > 0 sets the config's chunked-vocab loss
+    at that chunk size.
 
     ``emit``, when given, is called with a snapshot of the report after
     each milestone (devices up, first step), tagged ``partial``, so a
@@ -74,6 +78,8 @@ def run_smoke(
     expected = expected_device_count() if dev.type == "cuda" else None
 
     cfg = cfg or ModelConfig()
+    if xent_chunk:
+        cfg = dataclasses.replace(cfg, xent_chunk=xent_chunk)
     launches0 = dict(LAUNCHES)
     report.update(
         {
@@ -84,6 +90,7 @@ def run_smoke(
             "expected_devices": expected,
             "devices_match": expected is None or expected == n_devices,
             "time_to_devices_s": round(t_devices, 3),
+            "xent_chunk": cfg.xent_chunk,
         }
     )
     _emit("devices_up")
@@ -162,6 +169,11 @@ def main(argv=None) -> int:
         help="use the ModelConfig.bench() shape (d_model 2048, seq 2048)",
     )
     p.add_argument(
+        "--xent-chunk", type=int, default=0,
+        help="train with the chunked-vocab CE (ops/xent.py) at this chunk "
+        "size (0 = full-logits loss)",
+    )
+    p.add_argument(
         "--device", default=None,
         help="'cuda' (the default) or 'cpu' for the plain PyTorch path",
     )
@@ -180,6 +192,7 @@ def main(argv=None) -> int:
         cfg=ModelConfig.bench() if args.bench else None,
         batch_per_device=args.batch_per_device,
         device=args.device,
+        xent_chunk=args.xent_chunk,
         emit=None if args.no_stream else emit,
     )
     print(json.dumps(report), flush=True)

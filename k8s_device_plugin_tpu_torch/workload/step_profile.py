@@ -1,18 +1,19 @@
 """Where the time of one training step goes on the card.
 
-    python -m k8s_device_plugin_tpu_torch.workload.step_profile --bench
+    python -m k8s_device_plugin_tpu_torch.workload.step_profile --bench [--pallas-norm]
 
 Trains the model for a few warm-up steps, then traces ``--steps`` more
 with ``torch.profiler`` (CPU and CUDA activity) and prints one JSON line:
 the step time from the host clock (synchronised), the device time of
-every kernel summed by group (flash kernels, f32 and other matmuls,
-optimizer, softmax/cross-entropy, other),
+every kernel summed by group (flash kernels, the RMSNorm kernel, f32 and
+other matmuls, optimizer, softmax/cross-entropy, other),
 the top kernels by device time, and the device's idle share over the
 traced window (1 - kernel time / wall time). Needs a CUDA card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import sys
@@ -28,6 +29,7 @@ from .model import ModelConfig
 GROUPS = (
     ("flash_fwd", re.compile(r"flash::fwd_kernel")),
     ("flash_bwd", re.compile(r"flash::(dq|dkv)_kernel")),
+    ("rmsnorm", re.compile(r"rmsnorm::fwd_kernel")),
     ("matmul_f32", re.compile(r"sgemm|gemm_f32f32", re.I)),
     ("matmul", re.compile(r"gemm|xmma|cutlass|cublas|nvjet|sm90_", re.I)),
     ("optimizer", re.compile(r"multi_tensor|adam", re.I)),
@@ -76,7 +78,8 @@ def profile_steps(cfg: ModelConfig, steps: int = 3, warmup: int = 2,
     return {
         "device_kind": torch.cuda.get_device_name(dev),
         "config": {"d_model": cfg.d_model, "n_layers": cfg.n_layers,
-                   "seq": cfg.max_seq_len, "batch": batch},
+                   "seq": cfg.max_seq_len, "batch": batch,
+                   "use_pallas_norm": cfg.use_pallas_norm},
         "traced_steps": steps,
         "step_time_ms": wall_s * 1e3 / steps,
         "kernel_ms_per_step": busy_us / 1e3 / steps,
@@ -96,10 +99,13 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--bench", action="store_true",
                    help="use the ModelConfig.bench() shape")
+    p.add_argument("--pallas-norm", action="store_true",
+                   help="run the norms through the RMSNorm kernel (use_pallas_norm)")
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--batch", type=int, default=8)
     args = p.parse_args(argv)
     cfg = ModelConfig.bench() if args.bench else ModelConfig()
+    cfg = dataclasses.replace(cfg, use_pallas_norm=args.pallas_norm)
     result = profile_steps(cfg, steps=args.steps, batch=args.batch)
     print(json.dumps(result), flush=True)
     return 0 if result["kernel_ms_per_step"] > 0 else 1

@@ -16,6 +16,7 @@ import torch
 
 from k8s_device_plugin_tpu.ops import attention as jattn
 from k8s_device_plugin_tpu_torch.device import uses_kernel
+from k8s_device_plugin_tpu_torch.ops import LAUNCHES, reset_launches
 from k8s_device_plugin_tpu_torch.ops import attention as tattn
 
 # (shape, JAX block_q, block_kv): the JAX suite's base case at its default
@@ -103,10 +104,10 @@ def test_bf16_plain_versions_match_jax_interpret_mode():
 
 
 def test_cpu_path_launches_no_kernel():
-    tattn.reset_launches()
+    reset_launches()
     q, k, v = (torch.from_numpy(x).requires_grad_() for x in _inputs((1, 2, 32, 16), 5))
     tattn.flash_attention(q, k, v).sum().backward()
-    assert tattn.LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "rmsnorm": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

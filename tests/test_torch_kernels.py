@@ -9,13 +9,17 @@ file imports no JAX, so it runs on a machine with the card and no JAX:
 bf16 tolerance: the kernel and its plain version round the same f32
 values to bf16 at the same places, so each element is held to about one
 bf16 ulp of itself plus a small share of the tensor's rms
-(``bf16_agreement`` in ``ops/attention.py``); lse is f32 in both (1e-4).
+(``bf16_agreement`` in ``ops/attention.py``); lse is f32 in both (1e-4),
+and the RMSNorm kernel's rrms is held to a relative 1e-5 (f32 sums in
+another order, and rsqrt).
 """
 
 import pytest
 import torch
 
+from k8s_device_plugin_tpu_torch.ops import LAUNCHES, reset_launches
 from k8s_device_plugin_tpu_torch.ops import attention as tattn
+from k8s_device_plugin_tpu_torch.ops import rmsnorm as trms
 
 
 @pytest.fixture
@@ -60,8 +64,66 @@ def test_autograd_function_launches_each_kernel_once(cuda_device):
         .to(torch.bfloat16).requires_grad_()
         for _ in range(3)
     )
-    tattn.reset_launches()
+    reset_launches()
     tattn.flash_attention(q, k, v).float().sum().backward()
     torch.cuda.synchronize()
-    assert tattn.LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1}
+    assert LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1, "rmsnorm": 0}
     assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape,x_dtype,scale_dtype",
+    [
+        ((16384, 2048), torch.bfloat16, torch.float32),  # the bench model's norms
+        ((8192, 4096), torch.bfloat16, torch.bfloat16),  # the microbench's case
+        ((300, 2048), torch.bfloat16, torch.float32),  # no 256-row block divides it
+        ((300, 8192), torch.float32, torch.bfloat16),  # the widest row, f32 x
+        ((7, 8), torch.float32, torch.float32),  # the narrowest row
+    ],
+    ids=["bench", "microbench", "ragged", "f32-widest", "narrowest"],
+)
+def test_rmsnorm_kernel_matches_plain_on_card(cuda_device, shape, x_dtype, scale_dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=gen, device=cuda_device).to(x_dtype)
+    scale = (1.0 + 0.1 * torch.randn(shape[1], generator=gen, device=cuda_device)).to(scale_dtype)
+    y, rrms = trms.rmsnorm_fwd_kernel(x, scale, 1e-6)
+    y_p, rrms_p = trms.rmsnorm_fwd_plain(x, scale, 1e-6)
+    torch.cuda.synchronize()
+    assert y.dtype == x_dtype and rrms.shape == (shape[0], 1)
+    assert ((rrms - rrms_p).abs() / rrms_p).max() <= 1e-5
+    if x_dtype == torch.bfloat16:
+        agree = tattn.bf16_agreement(y, y_p)
+        assert agree["ok"], agree
+    else:
+        torch.testing.assert_close(y, y_p, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_launches_the_kernel_once_per_forward(cuda_device):
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn(2, 50, 256, generator=gen, device=cuda_device).to(torch.bfloat16)
+    x.requires_grad_()
+    scale = torch.ones(256, device=cuda_device, requires_grad=True)
+    reset_launches()
+    y = trms.rmsnorm(x, scale)
+    y.float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "rmsnorm": 1}
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    assert x.grad.dtype == torch.bfloat16 and scale.grad.dtype == torch.float32
+    assert torch.isfinite(x.grad.float()).all() and torch.isfinite(scale.grad).all()
+
+
+@pytest.mark.cuda
+def test_rmsnorm_kernel_refuses_what_it_does_not_take(cuda_device):
+    scale = torch.ones(64, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        trms.rmsnorm_fwd_kernel(torch.zeros(4, 64, device=cuda_device).half(), scale, 1e-6)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        trms.rmsnorm_fwd_kernel(torch.zeros(4, 60, device=cuda_device), scale[:60], 1e-6)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        wide = torch.zeros(2, 8200, device=cuda_device)
+        trms.rmsnorm_fwd_kernel(wide, torch.ones(8200, device=cuda_device), 1e-6)
+    with pytest.raises(ValueError, match="contiguous"):
+        trms.rmsnorm_fwd_kernel(torch.zeros(64, 4, device=cuda_device).T, scale, 1e-6)

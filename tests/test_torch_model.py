@@ -4,8 +4,9 @@ same weights (through ``from_jax_params``) and the same tokens.
 float32: logits within 1e-4 and the loss within rtol 1e-5. bf16: the loss
 within 1e-2 and the logits within 0.1, the JAX package's bf16 tolerance
 for two formulations of one model (workload/generate.py). Both attention
-paths (dense, and flash through its plain version on the CPU) and both
-parameter layouts (unrolled and scan_layers) are covered.
+paths (dense, and flash through its plain version on the CPU), both norms
+(flax's, and the RMSNorm kernel's plain version under use_pallas_norm) and
+both parameter layouts (unrolled and scan_layers) are covered.
 """
 
 import dataclasses
@@ -56,8 +57,10 @@ def _tokens(batch=3, seed=7):
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("scan_layers", [False, True], ids=["unrolled", "scan"])
 @pytest.mark.parametrize("flash", [False, True], ids=["dense", "flash"])
-def test_logits_and_loss_match_jax(flash, scan_layers, dtype):
-    jcfg, tcfg = _configs(dtype, use_flash_attention=flash, scan_layers=scan_layers)
+@pytest.mark.parametrize("pallas_norm", [False, True], ids=["flax_norm", "pallas_norm"])
+def test_logits_and_loss_match_jax(pallas_norm, flash, scan_layers, dtype):
+    jcfg, tcfg = _configs(dtype, use_flash_attention=flash, scan_layers=scan_layers,
+                          use_pallas_norm=pallas_norm)
     params, model = _port_model(jcfg, tcfg)
     tokens = _tokens()
     logits_j = np.asarray(jmodel.forward(jcfg, params, jnp.asarray(tokens)))
@@ -76,19 +79,21 @@ def test_logits_and_loss_match_jax(flash, scan_layers, dtype):
 
 
 def test_pallas_norm_layout_loads_and_matches_jax():
-    """The use_pallas_norm parameter layout (Norm_k/scale) maps onto the
-    port's norm: in f32 the Pallas RMSNorm and flax's compute the same."""
+    """The use_pallas_norm parameter layout (Norm_k/scale) loads straight
+    into the port's model under use_pallas_norm, and into its flax-norm
+    model: in f32 the Pallas RMSNorm and flax's compute the same."""
     jcfg, tcfg = _configs("f32", use_pallas_norm=True, scan_layers=True)
     params = jmodel.init_params(jcfg, jax.random.PRNGKey(1))
     assert "scale" in params["Norm_0"]
-    plain_cfg = dataclasses.replace(tcfg, use_pallas_norm=False)
-    model = tmodel.TransformerLM(plain_cfg)
-    model.load_state_dict(from_jax_params(_numpy_tree(params), plain_cfg))
     tokens = _tokens(seed=8)
     logits_j = np.asarray(jmodel.forward(jcfg, params, jnp.asarray(tokens)))
-    with torch.no_grad():
-        logits_t = model(torch.from_numpy(tokens).long()).numpy()
-    np.testing.assert_allclose(logits_t, logits_j, atol=1e-4, rtol=0)
+    for cfg in (tcfg, dataclasses.replace(tcfg, use_pallas_norm=False)):
+        model = tmodel.TransformerLM(cfg)
+        model.load_state_dict(from_jax_params(_numpy_tree(params), cfg))
+        assert model.norm.use_pallas_norm is cfg.use_pallas_norm
+        with torch.no_grad():
+            logits_t = model(torch.from_numpy(tokens).long()).numpy()
+        np.testing.assert_allclose(logits_t, logits_j, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("scan_layers", [False, True], ids=["unrolled", "scan"])
@@ -149,6 +154,27 @@ def test_rmsnorm_returns_float32_for_bf16_input():
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_pallas_norm_returns_the_input_dtype(dtype):
+    """Under use_pallas_norm the norm is the RMSNorm kernel, whose output
+    has x's dtype: a bf16 input gives bf16 (flax's norm gives f32), so in a
+    bf16 model every block input and the final norm's output are bf16."""
+    jcfg, _ = _configs(dtype, use_pallas_norm=True)
+    jdt, tdt = DTYPES[dtype]
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 5, 32), dtype=np.float32)
+    scale = rng.standard_normal(32, dtype=np.float32)
+    out_j = jmodel.Norm(jcfg).apply({"params": {"scale": scale}}, jnp.asarray(x, jdt))
+    assert out_j.dtype == jdt
+    norm = tmodel.Norm(32, use_pallas_norm=True)
+    norm.load_state_dict({"scale": torch.from_numpy(scale)})
+    with torch.no_grad():
+        out_t = norm(torch.from_numpy(x).to(tdt))
+    assert out_t.dtype == tdt
+    np.testing.assert_allclose(out_t.float().numpy(), np.asarray(out_j, np.float32),
+                               atol=1e-5 if dtype == "f32" else 2.0 ** -6, rtol=2.0 ** -8)
+
+
 def test_dense_attention_divides_scores_in_bf16():
     """The dense branch in bf16: scores divided in bf16 by a bf16
     sqrt(head_dim), masked with -1e9, softmax in f32 and cast back. The
@@ -173,14 +199,12 @@ def test_dense_attention_divides_scores_in_bf16():
 @pytest.mark.parametrize(
     "option",
     [
-        dict(use_pallas_norm=True),
         dict(use_ring_attention=True),
         dict(n_experts=2),
         dict(pipeline_microbatches=2),
         dict(decode=True),
-        dict(xent_chunk=32),
     ],
-    ids=["pallas_norm", "ring", "moe", "pipeline", "decode", "xent_chunk"],
+    ids=["ring", "moe", "pipeline", "decode"],
 )
 def test_options_not_ported_raise_naming_the_roadmap(option):
     cfg = tmodel.ModelConfig(**SMALL, **option)

@@ -30,7 +30,9 @@ def test_run_smoke_on_cpu_tiny_is_ok():
     assert report["ok"] is True
     assert report["first_loss_sane"] and report["loss_decreased"]
     assert report["backend"] == "cpu" and report["mfu"] is None
-    assert report["kernel_launches"] == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0}
+    assert report["kernel_launches"] == {
+        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "rmsnorm": 0}
+    assert report["xent_chunk"] == 0
     assert [s["partial"] for s in streamed] == ["devices_up", "first_step"]
     assert all(s["ok"] is None for s in streamed)
 
@@ -58,6 +60,17 @@ def test_peak_flops_table():
     assert chips.peak_flops_for("NVIDIA H100 NVL") == 835e12
     assert chips.peak_flops_for("cpu") is None
     assert chips.peak_flops_for("TPU v5 lite") is None
+
+
+def test_memory_rate_and_f32_peak_table():
+    rates = {kind: (chips.card_spec(kind).memory_bytes_per_s, chips.card_spec(kind).peak_f32_flops)
+             for kind in ("NVIDIA H100 80GB HBM3", "NVIDIA H100 PCIe", "NVIDIA H100 NVL")}
+    assert rates == {
+        "NVIDIA H100 80GB HBM3": (3.35e12, 67e12),
+        "NVIDIA H100 PCIe": (2.0e12, 51e12),
+        "NVIDIA H100 NVL": (3.9e12, 60e12),
+    }
+    assert chips.card_spec("cpu") is None
 
 
 @pytest.mark.parametrize(
@@ -91,7 +104,7 @@ def test_nvcc_missing_raises(monkeypatch, tmp_path):
 
 def test_every_kernel_source_carries_its_note():
     sources = sorted((PACKAGE / "ops" / "csrc").glob("*.cu"))
-    assert [s.name for s in sources] == ["flash_bwd.cu", "flash_fwd.cu"]
+    assert [s.name for s in sources] == ["flash_bwd.cu", "flash_fwd.cu", "rmsnorm.cu"]
     for src in sources:
         text = src.read_text()
         for needle in ("Replaces:", "What bounds", "What the design does"):
@@ -149,6 +162,8 @@ def test_step_profile_groups_kernels_by_name():
 
     assert _group("void flash::fwd_kernel<128>(__nv_bfloat16 const*)") == "flash_fwd"
     assert _group("void flash::dkv_kernel<128>(__nv_bfloat16 const*)") == "flash_bwd"
+    assert _group("void rmsnorm::fwd_kernel<__nv_bfloat16, float>(__nv_bfloat16 const*)") \
+        == "rmsnorm"
     assert _group("cutlass_80_simt_sgemm_256x128_8x4_nn_align1") == "matmul_f32"
     assert _group("nvjet_tst_256x128_64x4_1x2_h_bz_coopA_NTT") == "matmul"
     assert _group("multi_tensor_apply_kernel") == "optimizer"

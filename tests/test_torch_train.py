@@ -24,12 +24,14 @@ SMALL = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=2, d_ff=64, max_seq_
 
 
 @pytest.mark.parametrize(
-    "flash,n_steps", [(False, 1), (False, 3), (True, 3)],
-    ids=["dense-1", "dense-3", "flash-3"],
+    "flash,n_steps,pallas_norm",
+    [(False, 1, False), (False, 3, False), (True, 3, False), (False, 3, True), (True, 3, True)],
+    ids=["dense-1", "dense-3", "flash-3", "dense-3-pallas_norm", "flash-3-pallas_norm"],
 )
-def test_params_after_adamw_steps_match_jax(flash, n_steps):
-    jcfg = jmodel.ModelConfig(dtype=jnp.float32, use_flash_attention=flash, **SMALL)
-    tcfg = tmodel.ModelConfig(dtype=torch.float32, use_flash_attention=flash, **SMALL)
+def test_params_after_adamw_steps_match_jax(flash, n_steps, pallas_norm):
+    kw = dict(use_flash_attention=flash, use_pallas_norm=pallas_norm, **SMALL)
+    jcfg = jmodel.ModelConfig(dtype=jnp.float32, **kw)
+    tcfg = tmodel.ModelConfig(dtype=torch.float32, **kw)
     mesh = make_mesh(jax.devices()[:1])
     params, opt_state, tx = jtrain.make_train_state(jcfg, mesh, jax.random.PRNGKey(0))
     # Copy out before the donating step consumes the buffers.
