@@ -9,9 +9,11 @@ caught while the run goes on:
 2. Build: every CUDA kernel of the port from ``ops/csrc`` (nvcc, sm_90a).
 3. Kernels vs plain: each hand-written kernel against its own plain
    PyTorch version on the card, element by element (``bf16_agreement`` in
-   ``ops/attention.py``). The flash kernels (forward, dQ, dK/dV) at the
-   bench shape (8, 16, 2048, 128) and a ragged one (2, 4, 100, 64), bf16;
-   then one line setting the two backward kernels beside SDPA's backward.
+   ``ops/attention.py``). The flash kernels (forward, the backward's delta
+   prepass, dQ, dK/dV) at the bench shape (8, 16, 2048, 128) and a ragged
+   one (2, 4, 100, 64), bf16, with dQ and dK/dV given the prepass's delta
+   as the main path runs them, and delta (f32) within relative 1e-5; then
+   one line setting the three backward kernels beside SDPA's backward.
    The RMSNorm kernel at the bench model's (16384, 2048) with an f32 scale,
    the microbench's (8192, 4096) with a bf16 scale, and a ragged
    (300, 2048), bf16 x; rrms within relative 1e-5. One JSON line per kernel
@@ -76,9 +78,12 @@ KERNELS = {
     "flash_fwd": ("ops/csrc/flash_fwd.cu", "k8s_device_plugin_tpu/ops/attention.py:102"),
     "flash_dq": ("ops/csrc/flash_bwd.cu", "k8s_device_plugin_tpu/ops/attention.py:166"),
     "flash_dkv": ("ops/csrc/flash_bwd.cu", "k8s_device_plugin_tpu/ops/attention.py:212"),
+    # delta = rowsum(dO * O), which both TPU backward kernels recompute per tile
+    "flash_bwd_delta": ("ops/csrc/flash_bwd.cu",
+                        "k8s_device_plugin_tpu/ops/attention.py:197,249"),
     "rmsnorm": ("ops/csrc/rmsnorm.cu", "k8s_device_plugin_tpu/ops/rmsnorm.py:41"),
 }
-FLASH = ("flash_fwd", "flash_dq", "flash_dkv")
+FLASH = ("flash_fwd", "flash_dq", "flash_dkv", "flash_bwd_delta")
 
 
 def fail(msg: str) -> None:
@@ -128,6 +133,15 @@ def attention_bound(shape, kind: str) -> tuple[float, str]:
     return bound(flops, card().peak_bf16_flops, (n_in + n_out) * tensor + lse)
 
 
+def delta_bound(shape) -> tuple[float, str]:
+    """Least time in ms for the delta prepass: O and dO (bf16) read once
+    and delta (f32) written once, over the memory rate; against one f32
+    multiply-add per element on the CUDA cores."""
+    b, h, seq, d = shape
+    rows = b * h * seq
+    return bound(2.0 * rows * d, card().peak_f32_flops, 2 * rows * d * 2 + rows * 4)
+
+
 def norm_bound(x, scale) -> tuple[float, str]:
     """Least time in ms for the RMSNorm forward on these inputs: x read
     once, y (x's dtype) written once, scale read and rrms (f32) written,
@@ -173,9 +187,12 @@ def phase_build() -> None:
     logs = _build.build_all()
     print(f"build: {time.monotonic() - t0:.2f} s, sources {sorted(logs)}", flush=True)
     for stem, log in logs.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {stem}: {line.strip()}", flush=True)
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1][:48]  # the mangled name's head
+            elif "registers" in line or "spill" in line:
+                print(f"  ptxas {stem} {entry}: {line.strip()}", flush=True)
 
 
 def phase_kernels() -> dict:
@@ -193,12 +210,17 @@ def phase_kernels() -> dict:
         )
         o_p, lse_p = A.flash_attention_fwd_plain(q, k, v)
         bwd = (q, k, v, o_p, lse_p, do)
+        # dQ and dK/dV take the prepass's delta, as flash_attention_bwd
+        # hands it to them; their plain versions compute their own.
+        delta = A.flash_bwd_delta_kernel(o_p, do)
         runs = {
             "flash_fwd": (lambda: A.flash_fwd_kernel(q, k, v),
                           lambda: A.flash_attention_fwd_plain(q, k, v), ("o", "lse")),
-            "flash_dq": (lambda: (A.flash_dq_kernel(*bwd),),
+            "flash_bwd_delta": (lambda: (A.flash_bwd_delta_kernel(o_p, do),),
+                                lambda: (A.flash_bwd_delta_plain(o_p, do),), ("delta",)),
+            "flash_dq": (lambda: (A.flash_dq_kernel(*bwd, delta=delta),),
                          lambda: (A.flash_dq_plain(*bwd),), ("dq",)),
-            "flash_dkv": (lambda: A.flash_dkv_kernel(*bwd),
+            "flash_dkv": (lambda: A.flash_dkv_kernel(*bwd, delta=delta),
                           lambda: A.flash_dkv_plain(*bwd), ("dk", "dv")),
         }
         timed = shape == BENCH_SHAPE
@@ -215,6 +237,15 @@ def phase_kernels() -> dict:
                     if not err <= LSE_ATOL:
                         bad.append(f"lse max err {err} > {LSE_ATOL}")
                     continue
+                if label == "delta":
+                    err = float((g - w).abs().max())
+                    rel = err / float(w.abs().max())
+                    line.update(max_abs_err_delta=err, rel_err_delta=rel,
+                                tol_delta=f"max |kernel - plain| <= {A.DELTA_RTOL} max |plain|")
+                    if not (g.dtype == torch.float32 and rel <= A.DELTA_RTOL):
+                        bad.append(f"delta relative err {rel} > {A.DELTA_RTOL}")
+                    worst, worst_rel = err, rel
+                    continue
                 agree = A.bf16_agreement(g, w)
                 for key in ("max_abs_err", "worst_share", "rms_share_needed", "rel_err"):
                     line[f"{key}_{label}"] = agree[key]
@@ -222,17 +253,21 @@ def phase_kernels() -> dict:
                     bad.append(f"{label} {agree}")
                 worst = max(worst, agree["max_abs_err"])
                 worst_rel = max(worst_rel, agree["rel_err"])
-            line["tolerance"] = (
-                f"|kernel - plain| <= {A.BF16_ULP_SHARE} |plain| + "
-                f"{A.BF16_RMS_SHARE} rms(plain) per element, and relative "
-                f"Frobenius error <= {A.BF16_REL_NORM}"
-            )
+            if name != "flash_bwd_delta":
+                line["tolerance"] = (
+                    f"|kernel - plain| <= {A.BF16_ULP_SHARE} |plain| + "
+                    f"{A.BF16_RMS_SHARE} rms(plain) per element, and relative "
+                    f"Frobenius error <= {A.BF16_REL_NORM}"
+                )
             del got, want
             if timed:
                 src, replaces = KERNELS[name]
-                bound_ms, bound_by = attention_bound(shape, name.removeprefix("flash_"))
+                if name == "flash_bwd_delta":
+                    bound_ms, bound_by = delta_bound(shape)
+                else:
+                    bound_ms, bound_by = attention_bound(shape, name.removeprefix("flash_"))
                 line.update(
-                    kernel_ms=time_ms(kernel, 10),
+                    kernel_ms=time_ms(kernel, 50 if name == "flash_bwd_delta" else 10),
                     plain_ms=time_ms(plain, 1, reps=3),
                     library_ms=None,
                     bound_ms=bound_ms,
@@ -263,7 +298,7 @@ def phase_kernels() -> dict:
                 fail(f"{name} at {shape} disagrees with its plain version: {bad}")
         if timed:
             emit(backward_yardstick(q, k, v, do, entries))
-        del q, k, v, do, o_p, lse_p, bwd, runs
+        del q, k, v, do, o_p, lse_p, bwd, delta, runs
         torch.cuda.empty_cache()
     entries["rmsnorm"] = phase_norm_kernel()
     return entries
@@ -327,9 +362,10 @@ def phase_norm_kernel() -> dict:
 
 
 def backward_yardstick(q, k, v, do, entries) -> dict:
-    """No library call computes dQ alone or dK/dV alone, so the backward
-    kernels' line carries library_ms null; this one line sets the two
-    together beside SDPA's backward (dQ, dK and dV in one pass) and its
+    """No library call computes dQ alone, dK/dV alone or delta in f32 alone,
+    so the backward kernels' line carries library_ms null; this one line
+    sets the three together (the prepass, dQ, dK/dV: the port's whole
+    backward) beside SDPA's backward (dQ, dK and dV in one pass) and its
     forward plus backward. A yardstick only: the port never calls SDPA."""
     import torch.nn.functional as F
 
@@ -343,11 +379,16 @@ def backward_yardstick(q, k, v, do, entries) -> dict:
         o = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
         torch.autograd.grad(o, (qg, kg, vg), do)
 
+    backward = ("flash_bwd_delta", "flash_dq", "flash_dkv")
+    kernels_ms = sum(entries[name]["ms"] for name in backward)
+    library_bwd_ms = time_ms(sdpa_bwd, 10)
     return {
         "yardstick": "attention backward at the bench shape",
-        "kernels_ms": entries["flash_dq"]["ms"] + entries["flash_dkv"]["ms"],
-        "plain_ms": entries["flash_dq"]["plain_ms"] + entries["flash_dkv"]["plain_ms"],
-        "library_bwd_ms": time_ms(sdpa_bwd, 10),
+        "kernels": list(backward),
+        "kernels_ms": kernels_ms,
+        "plain_ms": sum(entries[name]["plain_ms"] for name in backward),
+        "library_bwd_ms": library_bwd_ms,
+        "kernels_over_library_bwd": kernels_ms / library_bwd_ms,
         "library_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, 10),
         "library_call": "scaled_dot_product_attention(is_causal=True)",
     }

@@ -32,7 +32,9 @@ CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 
 # Launches of each hand-written kernel since the last reset_launches().
-LAUNCHES = {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "rmsnorm": 0}
+LAUNCHES = {
+    "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_bwd_delta": 0, "rmsnorm": 0,
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -2,9 +2,10 @@
 head_dim) tensors: the counterpart of the JAX package's ``ops/attention.py``.
 
 On a CUDA tensor each pass launches a hand-written CUDA kernel for
-``sm_90a`` (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``); on a CPU tensor
-it runs the kernel's plain PyTorch version below, which computes the same
-function with the same casts. The kernels take bf16, contiguous inputs
+``sm_90a`` (``csrc/flash_fwd.cu``; the backward's delta prepass, dQ and
+dK/dV kernels in ``csrc/flash_bwd.cu``); on a CPU tensor it runs the
+kernel's plain PyTorch version below, which computes the same function
+with the same casts. The kernels take bf16, contiguous inputs
 with head_dim 64 or 128; anything else on the card raises.
 
 Numerics, as in the TPU kernels: scores ``scale * q.k`` in f32 with
@@ -64,40 +65,53 @@ def flash_attention_fwd_plain(q, k, v):
     return o.to(q.dtype), lse
 
 
-def _bwd_terms(q, k, v, o, lse, do):
+def flash_bwd_delta_plain(o, do):
+    """delta = rowsum(dO * O) in f32 as ``(b*h, seq)``: the value the TPU
+    kernels recompute in every tile, and the prepass kernel computes once
+    per backward."""
+    b, h, seq, _ = o.shape
+    return (do.float() * o.float()).sum(-1).reshape(b * h, seq)
+
+
+def _bwd_terms(q, k, v, o, lse, do, delta=None):
     """(P, dS) in f32, as both backward kernels rebuild them: P from lse,
-    delta = rowsum(dO*O), dS = P*(dP - delta) with dP = dO.V^T."""
+    dS = P*(dP - delta) with dP = dO.V^T and delta = rowsum(dO*O) unless
+    given."""
     b, h, seq, d = q.shape
     s = _scale(d) * (q.float() @ k.float().transpose(-1, -2))
     s = s.masked_fill(~_causal_mask(seq, q.device), NEG_INF)
     p = torch.exp(s - lse.reshape(b, h, seq, 1))
     dp = do.float() @ v.float().transpose(-1, -2)
-    delta = (do.float() * o.float()).sum(-1, keepdim=True)
-    return p, p * (dp - delta)
+    if delta is None:
+        delta = flash_bwd_delta_plain(o, do)
+    return p, p * (dp - delta.reshape(b, h, seq, 1))
 
 
-def flash_dq_plain(q, k, v, o, lse, do):
+def flash_dq_plain(q, k, v, o, lse, do, delta=None):
     """dq as the dQ kernel computes it: dS rounded to the input dtype
     before dS.K, f32 accumulation, the result in the input dtype."""
-    _, ds = _bwd_terms(q, k, v, o, lse, do)
+    _, ds = _bwd_terms(q, k, v, o, lse, do, delta)
     dq = _scale(q.shape[-1]) * (ds.to(q.dtype).float() @ k.float())
     return dq.to(q.dtype)
 
 
-def flash_dkv_plain(q, k, v, o, lse, do):
+def flash_dkv_plain(q, k, v, o, lse, do, delta=None):
     """(dk, dv) as the dK/dV kernel computes them: P and dS rounded to the
     input dtype before P^T.dO and dS^T.Q, f32 accumulation, the results in
     the input dtype."""
-    p, ds = _bwd_terms(q, k, v, o, lse, do)
+    p, ds = _bwd_terms(q, k, v, o, lse, do, delta)
     dv = p.to(do.dtype).float().transpose(-1, -2) @ do.float()
     dk = _scale(q.shape[-1]) * (ds.to(q.dtype).float().transpose(-1, -2) @ q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd_plain(q, k, v, o, lse, do):
+def flash_attention_bwd_plain(q, k, v, o, lse, do, delta=None):
     """(dq, dk, dv) from the saved forward: the plain versions of both
-    backward kernels."""
-    return (flash_dq_plain(q, k, v, o, lse, do), *flash_dkv_plain(q, k, v, o, lse, do))
+    backward kernels, sharing one delta."""
+    if delta is None:
+        delta = flash_bwd_delta_plain(o, do)
+    return (flash_dq_plain(q, k, v, o, lse, do, delta),
+            *flash_dkv_plain(q, k, v, o, lse, do, delta))
 
 
 # How far a kernel's bf16 output may sit from its plain version. Both round
@@ -114,6 +128,9 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do):
 BF16_ULP_SHARE = 2.0 ** -7
 BF16_RMS_SHARE = 4e-2
 BF16_REL_NORM = 1e-2
+# delta (f32 in both versions, the same exact bf16 products summed in
+# another order): max |kernel - plain| over max |plain|.
+DELTA_RTOL = 1e-5
 
 
 def bf16_agreement(got: torch.Tensor, want: torch.Tensor) -> dict:
@@ -155,7 +172,15 @@ def reference_attention(q, k, v):
 # Kernel wrappers (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
-def _check_kernel_inputs(*tensors: torch.Tensor, lse: torch.Tensor | None = None):
+def _check_rows_f32(name, t, ref, b, h, seq):
+    if (t.device != ref.device or t.dtype != torch.float32
+            or t.shape != (b * h, seq) or not t.is_contiguous() or t.data_ptr() % 16):
+        raise ValueError(f"{name} must be a contiguous, 16-byte aligned float32 "
+                         "(batch*heads, seq) tensor on the inputs' device")
+
+
+def _check_kernel_inputs(*tensors: torch.Tensor, lse: torch.Tensor | None = None,
+                         delta: torch.Tensor | None = None):
     """Raise on anything the kernels do not take."""
     ref = tensors[0]
     if ref.dim() != 4:
@@ -163,7 +188,7 @@ def _check_kernel_inputs(*tensors: torch.Tensor, lse: torch.Tensor | None = None
     b, h, seq, d = ref.shape
     if d not in _SUPPORTED_HEAD_DIMS:
         raise ValueError(f"flash kernels take head_dim in {_SUPPORTED_HEAD_DIMS}, got {d}")
-    if seq < 1 or b * h < 1 or b * h > 65535:
+    if seq < 1 or b * h < 1 or b * h > 65535 or b * h * seq >= 2 ** 31:
         raise ValueError(f"unsupported batch*heads {b * h} or seq {seq}")
     for t in tensors:
         if t.device != ref.device or t.device.type != "cuda":
@@ -175,10 +200,9 @@ def _check_kernel_inputs(*tensors: torch.Tensor, lse: torch.Tensor | None = None
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError("flash kernel inputs must be contiguous and 16-byte aligned")
     if lse is not None:
-        if (lse.device != ref.device or lse.dtype != torch.float32
-                or lse.shape != (b * h, seq) or not lse.is_contiguous()):
-            raise ValueError("lse must be a contiguous float32 (batch*heads, seq) "
-                             "tensor on the inputs' device")
+        _check_rows_f32("lse", lse, ref, b, h, seq)
+    if delta is not None:
+        _check_rows_f32("delta", delta, ref, b, h, seq)
     return b, h, seq, d
 
 
@@ -197,32 +221,51 @@ def flash_fwd_kernel(q, k, v):
     return o, lse
 
 
-def flash_dq_kernel(q, k, v, o, lse, do):
-    """dq from the CUDA dQ kernel (replaces the TPU ``_dq_kernel``)."""
-    b, h, seq, d = _check_kernel_inputs(q, k, v, o, do, lse=lse)
+def flash_bwd_delta_kernel(o, do):
+    """delta = rowsum(dO * O), f32 ``(b*h, seq)``, from the CUDA prepass
+    (the per-tile delta of the TPU ``_dq_kernel`` and ``_dkv_kernel``)."""
+    b, h, seq, d = _check_kernel_inputs(o, do)
+    delta = torch.empty(b * h, seq, dtype=torch.float32, device=o.device)
+    fn = _build.bind("flash_bwd", "flash_bwd_delta", [_P] * 3 + [_I, _I, _P])
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(o.data_ptr(), do.data_ptr(), delta.data_ptr(), b * h * seq, d, stream)
+    _build.check(err, "flash_bwd_delta")
+    LAUNCHES["flash_bwd_delta"] += 1
+    return delta
+
+
+def flash_dq_kernel(q, k, v, o, lse, do, delta=None):
+    """dq from the CUDA dQ kernel (replaces the TPU ``_dq_kernel``). Without
+    ``delta`` it launches the prepass first."""
+    b, h, seq, d = _check_kernel_inputs(q, k, v, o, do, lse=lse, delta=delta)
+    if delta is None:
+        delta = flash_bwd_delta_kernel(o, do)
     dq = torch.empty_like(q)
     fn = _build.bind("flash_bwd", "flash_dq", [_P] * 7 + [_I, _I, _I, _F, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), dq.data_ptr(), b * h, seq, d,
-                 _scale(d), stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dq.data_ptr(), b * h, seq, d, _scale(d), stream)
     _build.check(err, "flash_dq")
     LAUNCHES["flash_dq"] += 1
     return dq
 
 
-def flash_dkv_kernel(q, k, v, o, lse, do):
-    """(dk, dv) from the CUDA dK/dV kernel (replaces the TPU ``_dkv_kernel``)."""
-    b, h, seq, d = _check_kernel_inputs(q, k, v, o, do, lse=lse)
+def flash_dkv_kernel(q, k, v, o, lse, do, delta=None):
+    """(dk, dv) from the CUDA dK/dV kernel (replaces the TPU
+    ``_dkv_kernel``). Without ``delta`` it launches the prepass first."""
+    b, h, seq, d = _check_kernel_inputs(q, k, v, o, do, lse=lse, delta=delta)
+    if delta is None:
+        delta = flash_bwd_delta_kernel(o, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     fn = _build.bind("flash_bwd", "flash_dkv", [_P] * 8 + [_I, _I, _I, _F, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 do.data_ptr(), lse.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                 b * h, seq, d, _scale(d), stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, seq, d, _scale(d),
+                 stream)
     _build.check(err, "flash_dkv")
     LAUNCHES["flash_dkv"] += 1
     return dk, dv
@@ -240,14 +283,17 @@ def flash_attention_fwd(q, k, v):
     return flash_attention_fwd_plain(q, k, v)
 
 
-def flash_attention_bwd(q, k, v, o, lse, do):
-    """(dq, dk, dv): the CUDA dQ and dK/dV kernels for CUDA tensors, the
+def flash_attention_bwd(q, k, v, o, lse, do, delta=None):
+    """(dq, dk, dv): for CUDA tensors the delta prepass (unless ``delta``
+    is given) and the dQ and dK/dV kernels, which share its delta; the
     plain version for CPU tensors."""
     if uses_kernel(q):
-        dq = flash_dq_kernel(q, k, v, o, lse, do)
-        dk, dv = flash_dkv_kernel(q, k, v, o, lse, do)
+        if delta is None:
+            delta = flash_bwd_delta_kernel(o, do)
+        dq = flash_dq_kernel(q, k, v, o, lse, do, delta=delta)
+        dk, dv = flash_dkv_kernel(q, k, v, o, lse, do, delta=delta)
         return dq, dk, dv
-    return flash_attention_bwd_plain(q, k, v, o, lse, do)
+    return flash_attention_bwd_plain(q, k, v, o, lse, do, delta)
 
 
 class FlashAttention(torch.autograd.Function):

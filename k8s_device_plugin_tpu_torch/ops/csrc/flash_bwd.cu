@@ -1,4 +1,5 @@
-// Causal flash-attention backward for Hopper (sm_90a): dQ, and dK with dV.
+// Causal flash-attention backward for Hopper (sm_90a): the delta prepass,
+// dQ, and dK with dV.
 //
 // Replaces: k8s_device_plugin_tpu/ops/attention.py::_dq_kernel (K2) with
 // dq_kernel below, and ::_dkv_kernel (K3) with dkv_kernel below, the two
@@ -10,327 +11,586 @@
 //   dQ = scale * bf16(dS) K,  dK = scale * bf16(dS)^T Q,  dV = bf16(P)^T dO
 // with the products on bf16 operands and f32 accumulation, and P and dS
 // rounded to bf16 before their products, as the TPU kernels cast them to
-// the input dtype.
+// the input dtype. The TPU kernels recompute delta inside every tile to
+// save an HBM residual; bwd_delta_kernel computes it once per backward
+// (the same f32 rowsum, summed in another order) into a (b*h, seq) vector
+// that both kernels read.
 //
-// What bounds them on this card: 6*d (dQ) and 8*d (dK/dV) operations per
-// (query, key) pair against one read of q, k, v, o, dO -- at head_dim 128
-// and seq 2048 both are bound by tensor-core operations, not by memory.
+// What bounds them on this card: 6*d (dQ: Q K^T, dO V^T, dS K) and 8*d
+// (dK/dV: K Q^T, V dO^T, P^T dO, dS^T Q) operations per causal (query, key)
+// pair against one read of q, k, v, dO, lse and delta -- at head_dim 128
+// and seq 2048 both are bound by tensor-core operations. The prepass is
+// bound by bytes: it reads O and dO once.
 //
-// What the design does about it: the TPU grid's sequential axis becomes a
-// loop inside one block of four warps. dq_kernel: one block per
-// (batch*head, 64-row q tile), looping over the kv tiles at or below the
-// diagonal with the dQ accumulator in registers. dkv_kernel: one block per
-// (batch*head, 64-row kv tile), looping over the q tiles at or below it
-// with the dK and dV accumulators in registers. Each output row has one
-// owner, so no atomics are needed. delta is computed once per q tile in
-// f32. Operands that a product reads along the other axis (K for dQ, Q and
-// dO for dK/dV) are also stored transposed in shared memory, so every
-// fragment load is 32-bit and bank-conflict free. mma.sync m16n8k16 on the
-// tensor cores; wgmma/TMA pipelining is later work.
-#include "flash_common.cuh"
+// What the design does about it:
+//  - Warp specialisation. Three warpgroups a block: two consumer
+//    warpgroups that each own 64 rows of the block's 128 resident rows and
+//    one producer warpgroup, of which one thread issues TMA loads. The
+//    producer gives its registers to the consumers (setmaxnreg 40 / 232), who
+//    need them for the f32 accumulators (dK and dV: 2 x 64 a thread at
+//    head_dim 128).
+//  - Tiles arrive by TMA into shared memory, 128-byte swizzled, from 3-D
+//    tensor maps over (b*h, seq, d): a box past seq is zero-filled, never
+//    read from the next head. (lse and delta come through flat maps over
+//    b*h*seq values; what lies past seq is the next head's and is masked.)
+//    dkv_kernel keeps its 128-row K and V tiles
+//    resident and streams (Q, dO, lse, delta) per 64-row q tile; dq_kernel
+//    keeps Q and dO resident and streams (K, V) per 64-row kv tile. The
+//    streamed tiles go through a ring of kStages stages, each guarded by a
+//    full mbarrier (the TMA bytes have landed) and an empty one (both
+//    consumer warpgroups are done with it), so the loads of the next tiles
+//    run while the tensor cores work on this one.
+//  - Products on wgmma (m64nNk16 with N = 32, 64 or head_dim, f32 +=
+//    bf16 x bf16).
+//    S^T = K Q^T and dP^T = V dO^T (dkv), or S = Q K^T and dP = dO V^T
+//    (dq), take both operands from shared memory, K-major. P and dS are
+//    rounded to bf16 in registers, where the TPU kernels cast them, and are
+//    the register A operand of dV += P^T dO, dK += dS^T Q and dQ += dS K;
+//    their B operand (dO, Q, K) is read through the MN-major descriptor, so
+//    no transposed copy of any operand is built.
+//  - Causal scheduling. The blocks run the heaviest tiles first (the
+//    lowest kv blocks for dK/dV, the highest q blocks for dQ): dkv_kernel's
+//    grid has b*h as its fastest axis, dq_kernel's walks groups of kGroup
+//    heads so that the blocks resident together share K and V in L2 (the
+//    same grouping made dkv_kernel slower). A warpgroup skips a tile wholly above the
+//    diagonal and applies the element mask only on a tile that straddles
+//    the diagonal or runs past seq, as a select of the exponent's argument
+//    (kNegInf, whose exp is 0): the loop over a tile has no branch, where
+//    an exp under a condition made ptxas branch and spill per element.
+//  - Registers. A dK/dV consumer holds 2 x D/2 f32 accumulators; the q
+//    tile is taken in slices of kCols columns so that the score tiles and
+//    the A operands made from them fit beside them. At head_dim 128 ptxas
+//    still spills a little in dkv_kernel and serialises its wgmmas (the
+//    build prints its report); dq_kernel does not spill. Slices of 16 or
+//    64 columns, a producer of one warp (nine warps put three on one SM
+//    quarter, which caps every thread at 168 registers) and a separate
+//    wait for each of the two register-A products all spilled as much or
+//    more.
+//  - Each output row has one owner and there are no atomics: the outputs
+//    are the same bits from launch to launch.
+#include "sm90.cuh"
 
 namespace flash {
 
+using bf16 = __nv_bfloat16;
+using namespace sm90;
+
+constexpr int kBlock = 128;     // resident rows a block (two warpgroups of 64)
+constexpr int kStep = 64;       // rows of a streamed tile
+constexpr int kStages = 2;      // depth of the ring of streamed tiles
+constexpr int kCols = 32;       // q columns of one dK/dV slice of a q tile
+constexpr int kGroup = 16;      // heads a dQ grid walks together
+constexpr int kThreads = 384;   // two consumer warpgroups, then the producer
+constexpr int kConsumerThreads = 256;
+constexpr int kProducerRegs = 40;
+constexpr int kConsumerRegs = 232;
+constexpr float kNegInf = -1e30f;  // the JAX kernels' mask value: exp() gives 0
+
+// A 128-byte-swizzled [rows][64] bf16 panel and its size in bytes.
+template <int kRows>
+struct Panel {
+  static constexpr int kBytes = kRows * 128;
+  bf16 x[kRows][64];
+};
+
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-              const bf16* __restrict__ v, const bf16* __restrict__ o,
-              const bf16* __restrict__ d_o, const float* __restrict__ lse,
-              bf16* __restrict__ dq, int seq, float scale) {
-  using L = Layout<D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_q = reinterpret_cast<bf16*>(smem);
-  bf16* s_do = s_q + L::kTileElems;
-  bf16* s_k = s_do + L::kTileElems;
-  bf16* s_v = s_k + L::kTileElems;
-  bf16* s_kt = s_v + L::kTileElems;
-  float* s_delta = reinterpret_cast<float*>(s_kt + L::kTileTElems);
-  float* s_lse = s_delta + kTile;
+struct DkvSmem {
+  static constexpr int kPanels = D / 64;
+  Panel<kBlock> k[kPanels];
+  Panel<kBlock> v[kPanels];
+  Panel<kStep> q[kStages][kPanels];
+  Panel<kStep> d_o[kStages][kPanels];
+  float lse[kStages][kStep];
+  float delta[kStages][kStep];
+  uint64_t kv_full;
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
 
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
-  const size_t base = (size_t)bh * seq * D;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int wrow = warp * 16;
-  const int row_a = q0 + wrow + g;
-  const int row_b = row_a + 8;
+template <int D>
+struct DqSmem {
+  static constexpr int kPanels = D / 64;
+  Panel<kBlock> q[kPanels];
+  Panel<kBlock> d_o[kPanels];
+  Panel<kStep> k[kStages][kPanels];
+  Panel<kStep> v[kStages][kPanels];
+  uint64_t qd_full;
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
 
-  load_tile<D>(s_q, nullptr, q + base, q0, seq);
-  load_tile<D>(s_do, nullptr, d_o + base, q0, seq);
-  __syncthreads();
-  load_row_stats<D>(s_delta, s_lse, o + base, s_do, lse + (size_t)bh * seq, q0, seq);
-  __syncthreads();
-  const float lse_r[2] = {s_lse[wrow + g], s_lse[wrow + g + 8]};
-  const float delta_r[2] = {s_delta[wrow + g], s_delta[wrow + g + 8]};
+template <typename Smem>
+__device__ __forceinline__ Smem& smem_as() {
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzle atoms need 1024-byte alignment; the launch adds the slack.
+  const uint32_t addr = smem_u32(smem_raw);
+  return *reinterpret_cast<Smem*>(smem_raw + ((1024 - (addr & 1023)) & 1023));
+}
 
-  float acc[D / 8][4];
+// S(64 x N) = A(64 rows from a_row0, K-major) . B(N rows from b_row0,
+// K-major)^T over head_dim D: the 16-deep step kk lies in panel kk / 4,
+// 32 * (kk % 4) bytes in.
+template <int D, int N, int kRowsA>
+__device__ __forceinline__ void product_ss(float (&s)[N / 2], const Panel<kRowsA>* a, int a_row0,
+                                           const Panel<kStep>* b, int b_row0) {
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  const int last_row = min(q0 + kTile, seq) - 1;
-  const int n_kv = last_row / kTile + 1;
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * kTile;
-    __syncthreads();
-    load_tile<D>(s_k, s_kt, k + base, k0, seq);
-    load_tile<D>(s_v, nullptr, v + base, k0, seq);
-    __syncthreads();
-
-    float s[kTile / 8][4];
-    float dp[kTile / 8][4];
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a_q[4], a_do[4];
-      load_a(a_q, s_q, L::kLd, wrow, kk * 16, g, t);
-      load_a(a_do, s_do, L::kLd, wrow, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, s_k, L::kLd, n * 8, kk * 16, g, t);
-        mma_16816(s[n], a_q, b0, b1);
-        load_b(b0, b1, s_v, L::kLd, n * 8, kk * 16, g, t);
-        mma_16816(dp[n], a_do, b0, b1);
-      }
-    }
-    // dS = P * (dP - delta), P rebuilt from lse; masked entries are 0.
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + n * 8 + 2 * t + (e & 1);
-        const int row = e < 2 ? row_a : row_b;
-        const float p = col <= row ? expf(scale * s[n][e] - lse_r[e / 2]) : 0.f;
-        s[n][e] = p * (dp[n][e] - delta_r[e / 2]);
-      }
-    }
-    // acc += bf16(dS) . K (K read transposed: the kv axis is the depth).
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, s_kt, L::kLdT, n * 8, kk * 16, g, t);
-        mma_16816(acc[n], a, b0, b1);
-      }
-    }
-  }
-
-  bf16* out = dq + base;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (row_a < seq) {
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row_a * D + col) =
-          __floats2bfloat162_rn(scale * acc[n][0], scale * acc[n][1]);
-    }
-    if (row_b < seq) {
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row_b * D + col) =
-          __floats2bfloat162_rn(scale * acc[n][2], scale * acc[n][3]);
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int p = kk / 4;
+    const int off = (kk % 4) * 16;  // in bf16
+    const uint64_t da = desc_sw128(&a[p].x[a_row0][off], 16, 1024);
+    const uint64_t db = desc_sw128(&b[p].x[b_row0][off], 16, 1024);
+    if constexpr (N == 64) {
+      wgmma_m64n64k16_ss(s, da, db, kk > 0);
+    } else {
+      static_assert(N == 32, "score tiles of 32 or 64 columns");
+      wgmma_m64n32k16_ss(s, da, db, kk > 0);
     }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, const bf16* __restrict__ o,
-               const bf16* __restrict__ d_o, const float* __restrict__ lse,
-               bf16* __restrict__ dk, bf16* __restrict__ dv, int seq,
-               float scale) {
-  using L = Layout<D>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* s_k = reinterpret_cast<bf16*>(smem);
-  bf16* s_v = s_k + L::kTileElems;
-  bf16* s_q = s_v + L::kTileElems;
-  bf16* s_do = s_q + L::kTileElems;
-  bf16* s_qt = s_do + L::kTileElems;
-  bf16* s_dot = s_qt + L::kTileTElems;
-  float* s_delta = reinterpret_cast<float*>(s_dot + L::kTileTElems);
-  float* s_lse = s_delta + kTile;
+// acc(64 x D) += A(64 x 16*kSteps, registers) . B, with B rows
+// b_row0.. of the streamed 64 x D tile read MN-major (its rows are the
+// depth).
+template <int D, int kSteps>
+__device__ __forceinline__ void product_rs(float (&acc)[D / 2], const uint32_t (&a)[kSteps][4],
+                                           const Panel<kStep>* b, int b_row0) {
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const uint64_t db = desc_sw128(&b[0].x[b_row0 + 16 * kk][0], Panel<kStep>::kBytes, 1024);
+    wgmma_rs_mn<D>(acc, a[kk], db);
+  }
+}
 
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * kTile;
-  const size_t base = (size_t)bh * seq * D;
-  const int warp = threadIdx.x / 32;
+// The consumer warpgroups of dkv_kernel: S^T, dP^T, then dV and dK.
+template <int D>
+__device__ __forceinline__ void dkv_consume(DkvSmem<D>& sm, bf16* __restrict__ dk,
+                                            bf16* __restrict__ dv, int bh, int k0, int i0,
+                                            int n_tiles, int seq, float scale) {
+  regs_alloc<kConsumerRegs>();
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;
   const int t = lane % 4;
-  const int wrow = warp * 16;
-  const int kv_a = k0 + wrow + g;  // this thread's two key rows
+  const int kw0 = k0 + wg * 64;          // this warpgroup's first kv row
+  const int kv_a = kw0 + warp * 16 + g;  // this thread's two kv rows
   const int kv_b = kv_a + 8;
 
-  load_tile<D>(s_k, nullptr, k + base, k0, seq);
-  load_tile<D>(s_v, nullptr, v + base, k0, seq);
-
-  float acc_k[D / 8][4];
-  float acc_v[D / 8][4];
+  float acc_k[D / 2], acc_v[D / 2];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    acc_k[n][0] = acc_k[n][1] = acc_k[n][2] = acc_k[n][3] = 0.f;
-    acc_v[n][0] = acc_v[n][1] = acc_v[n][2] = acc_v[n][3] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  mbar_wait(&sm.kv_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const int q0 = (i0 + it) * kStep;
+    mbar_wait(&sm.full[s], (it / kStages) & 1);
+    if (q0 + kStep - 1 < kw0) {  // wholly above the diagonal for these rows
+      mbar_arrive(&sm.empty[s]);
+      continue;
+    }
+
+    // The q tile in slices of kCols columns, so that the score
+    // accumulators (2 x kCols / 2 a thread) and the A operands made from
+    // them (2 x kCols / 4) fit in registers beside dK and dV (2 x 64 at
+    // head_dim 128).
+    const bool masked = q0 < kw0 + 64 || q0 + kStep > seq;
+#pragma unroll
+    for (int h = 0; h < kStep / kCols; ++h) {
+      // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 kv rows.
+      float st[kCols / 2], dpt[kCols / 2];
+      wgmma_fence();
+      product_ss<D, kCols>(st, sm.k, wg * 64, sm.q[s], kCols * h);
+      wgmma_commit();
+      product_ss<D, kCols>(dpt, sm.v, wg * 64, sm.d_o[s], kCols * h);
+      wgmma_commit();
+
+      // P^T (columns are q rows) from lse while dP^T is in flight; masked
+      // only where the tile straddles the diagonal or runs past seq.
+      wgmma_wait<1>();
+      fence_regs(st);
+#pragma unroll
+      for (int j = 0; j < kCols / 8; ++j) {
+        const int qc = kCols * h + 8 * j + 2 * t;
+        const float2 lse2 = *reinterpret_cast<const float2*>(&sm.lse[s][qc]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int q = q0 + qc + (e & 1);
+          const int kv = e < 2 ? kv_a : kv_b;
+          const bool live = !masked || (kv <= q && q < seq);
+          const float x = scale * st[4 * j + e] - ((e & 1) ? lse2.y : lse2.x);
+          st[4 * j + e] = expf(live ? x : kNegInf);
+        }
+      }
+      // dS^T = P^T * (dP^T - delta).
+      wgmma_wait<0>();
+      fence_regs(dpt);
+#pragma unroll
+      for (int j = 0; j < kCols / 8; ++j) {
+        const float2 del2 = *reinterpret_cast<const float2*>(&sm.delta[s][kCols * h + 8 * j + 2 * t]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? del2.y : del2.x));
+        }
+      }
+      uint32_t a_p[kCols / 16][4], a_ds[kCols / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kCols / 16; ++kk) {
+        acc_to_a(a_p[kk], st, kk);
+        acc_to_a(a_ds[kk], dpt, kk);
+      }
+
+      // dV += bf16(P^T) dO and dK += bf16(dS^T) Q, the q rows as the depth.
+      wgmma_fence();
+      product_rs<D>(acc_v, a_p, sm.d_o[s], kCols * h);
+      product_rs<D>(acc_k, a_ds, sm.q[s], kCols * h);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+    }
+    mbar_arrive(&sm.empty[s]);
   }
 
-  // Causal: q tiles ending before this kv tile's first row are skipped.
-  const int n_q = (seq + kTile - 1) / kTile;
-  for (int i = k0 / kTile; i < n_q; ++i) {
-    const int q0 = i * kTile;
-    __syncthreads();
-    load_tile<D>(s_q, s_qt, q + base, q0, seq);
-    load_tile<D>(s_do, s_dot, d_o + base, q0, seq);
-    __syncthreads();
-    load_row_stats<D>(s_delta, s_lse, o + base, s_do, lse + (size_t)bh * seq, q0, seq);
-    __syncthreads();
-
-    // S^T = K Q^T and dP^T = V dO^T for this warp's 16 key rows.
-    float st[kTile / 8][4];
-    float dpt[kTile / 8][4];
+  bf16* dkb = dk + (size_t)bh * seq * D;
+  bf16* dvb = dv + (size_t)bh * seq * D;
 #pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-      st[n][0] = st[n][1] = st[n][2] = st[n][3] = 0.f;
-      dpt[n][0] = dpt[n][1] = dpt[n][2] = dpt[n][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a_k[4], a_v[4];
-      load_a(a_k, s_k, L::kLd, wrow, kk * 16, g, t);
-      load_a(a_v, s_v, L::kLd, wrow, kk * 16, g, t);
-#pragma unroll
-      for (int n = 0; n < kTile / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, s_q, L::kLd, n * 8, kk * 16, g, t);
-        mma_16816(st[n], a_k, b0, b1);
-        load_b(b0, b1, s_do, L::kLd, n * 8, kk * 16, g, t);
-        mma_16816(dpt[n], a_v, b0, b1);
-      }
-    }
-    // P^T rebuilt from lse (columns are query rows), then dS^T.
-#pragma unroll
-    for (int n = 0; n < kTile / 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = n * 8 + 2 * t + (e & 1);  // column within the q tile
-        const int kv = e < 2 ? kv_a : kv_b;
-        const bool live = kv <= q0 + qc && q0 + qc < seq;
-        const float p = live ? expf(scale * st[n][e] - s_lse[qc]) : 0.f;
-        st[n][e] = p;
-        dpt[n][e] = p * (dpt[n][e] - s_delta[qc]);
-      }
-    }
-    // acc_v += bf16(P^T) . dO and acc_k += bf16(dS^T) . Q, the q axis as
-    // the depth (dO and Q read transposed).
-#pragma unroll
-    for (int kk = 0; kk < kTile / 16; ++kk) {
-      uint32_t a_p[4], a_ds[4];
-      c_to_a(a_p, st[2 * kk], st[2 * kk + 1]);
-      c_to_a(a_ds, dpt[2 * kk], dpt[2 * kk + 1]);
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        uint32_t b0, b1;
-        load_b(b0, b1, s_dot, L::kLdT, n * 8, kk * 16, g, t);
-        mma_16816(acc_v[n], a_p, b0, b1);
-        load_b(b0, b1, s_qt, L::kLdT, n * 8, kk * 16, g, t);
-        mma_16816(acc_k[n], a_ds, b0, b1);
-      }
-    }
-  }
-
-  bf16* dkb = dk + base;
-  bf16* dvb = dv + base;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * t;
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
     if (kv_a < seq) {
       *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)kv_a * D + col) =
-          __floats2bfloat162_rn(scale * acc_k[n][0], scale * acc_k[n][1]);
+          __floats2bfloat162_rn(scale * acc_k[4 * j], scale * acc_k[4 * j + 1]);
       *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)kv_a * D + col) =
-          __floats2bfloat162_rn(acc_v[n][0], acc_v[n][1]);
+          __floats2bfloat162_rn(acc_v[4 * j], acc_v[4 * j + 1]);
     }
     if (kv_b < seq) {
       *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)kv_b * D + col) =
-          __floats2bfloat162_rn(scale * acc_k[n][2], scale * acc_k[n][3]);
+          __floats2bfloat162_rn(scale * acc_k[4 * j + 2], scale * acc_k[4 * j + 3]);
       *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)kv_b * D + col) =
-          __floats2bfloat162_rn(acc_v[n][2], acc_v[n][3]);
+          __floats2bfloat162_rn(acc_v[4 * j + 2], acc_v[4 * j + 3]);
     }
   }
 }
 
+// dK, dV for one (b*h, 128-row kv block); q tiles stream through the ring.
 template <int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* o,
-                      const void* d_o, const void* lse, void* dq, int bh, int seq,
-                      float scale, cudaStream_t stream) {
-  using L = Layout<D>;
-  const int smem = (4 * L::kTileElems + L::kTileTElems) * (int)sizeof(bf16) +
-                   2 * kTile * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+__global__ void __launch_bounds__(kThreads, 1)
+    dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+               const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+               const __grid_constant__ CUtensorMap tm_lse,
+               const __grid_constant__ CUtensorMap tm_delta, bf16* __restrict__ dk,
+               bf16* __restrict__ dv, int seq, float scale) {
+  using S = DkvSmem<D>;
+  S& sm = smem_as<S>();
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * kBlock;  // y = 0 is the heaviest block
+  const int i0 = k0 / kStep;           // the first q tile at or below the diagonal
+  const int n_tiles = (seq + kStep - 1) / kStep - i0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumerThreads);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {  // the producer warpgroup
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumerThreads) {
+      mbar_arrive_expect_tx(&sm.kv_full, 2 * S::kPanels * Panel<kBlock>::kBytes);
+      for (int p = 0; p < S::kPanels; ++p) {
+        tma_load_3d(&sm.k[p], &tm_k, &sm.kv_full, 64 * p, k0, bh);
+        tma_load_3d(&sm.v[p], &tm_v, &sm.kv_full, 64 * p, k0, bh);
+      }
+      const int row0 = bh * seq;  // of lse and delta
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&sm.full[s], 2 * S::kPanels * Panel<kStep>::kBytes +
+                                               2 * kStep * (int)sizeof(float));
+        const int q0 = (i0 + it) * kStep;
+        for (int p = 0; p < S::kPanels; ++p) {
+          tma_load_3d(&sm.q[s][p], &tm_q, &sm.full[s], 64 * p, q0, bh);
+          tma_load_3d(&sm.d_o[s][p], &tm_do, &sm.full[s], 64 * p, q0, bh);
+        }
+        // Flat (b*h*seq) maps: a box past seq reads the next head's values,
+        // which the mask of the ragged tile zeroes.
+        tma_load_1d(sm.lse[s], &tm_lse, &sm.full[s], row0 + q0);
+        tma_load_1d(sm.delta[s], &tm_delta, &sm.full[s], row0 + q0);
+      }
+    }
+  } else {
+    dkv_consume<D>(sm, dk, dv, bh, k0, i0, n_tiles, seq, scale);
+  }
+}
+
+// The consumer warpgroups of dq_kernel: S, dP, then dQ.
+template <int D>
+__device__ __forceinline__ void dq_consume(DqSmem<D>& sm, const float* __restrict__ lse,
+                                           const float* __restrict__ delta, bf16* __restrict__ dq,
+                                           int bh, int q0, int n_tiles, int seq, float scale) {
+  regs_alloc<kConsumerRegs>();
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x % 128) / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int qw0 = q0 + wg * 64;           // this warpgroup's first q row
+  const int row_a = qw0 + warp * 16 + g;  // this thread's two q rows
+  const int row_b = row_a + 8;
+  const float* lse_bh = lse + (size_t)bh * seq;
+  const float* delta_bh = delta + (size_t)bh * seq;
+  const float lse_r[2] = {row_a < seq ? lse_bh[row_a] : 0.f, row_b < seq ? lse_bh[row_b] : 0.f};
+  const float delta_r[2] = {row_a < seq ? delta_bh[row_a] : 0.f,
+                            row_b < seq ? delta_bh[row_b] : 0.f};
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(&sm.qd_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kStages;
+    const int k0 = it * kStep;
+    mbar_wait(&sm.full[s], (it / kStages) & 1);
+    if (k0 > qw0 + 63) {  // wholly above the diagonal for these rows
+      mbar_arrive(&sm.empty[s]);
+      continue;
+    }
+
+    // S = Q K^T and dP = dO V^T for this warpgroup's 64 q rows.
+    float s_acc[32], dp[32];
+    wgmma_fence();
+    product_ss<D, 64>(s_acc, sm.q, wg * 64, sm.k[s], 0);
+    product_ss<D, 64>(dp, sm.d_o, wg * 64, sm.v[s], 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s_acc);
+    fence_regs(dp);
+
+    // dS = P * (dP - delta), P from lse; masked only on the diagonal tile
+    // (kv rows past seq lie above every q row below seq).
+    const bool masked = k0 + kStep - 1 > qw0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + 8 * j + 2 * t + (e & 1);
+        const int row = e < 2 ? row_a : row_b;
+        const bool live = !masked || col <= row;
+        const float p = expf(live ? scale * s_acc[4 * j + e] - lse_r[e / 2] : kNegInf);
+        s_acc[4 * j + e] = p * (dp[4 * j + e] - delta_r[e / 2]);
+      }
+    }
+    uint32_t a_ds[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a(a_ds[kk], s_acc, kk);
+
+    // dQ += bf16(dS) K, the kv rows as the depth.
+    wgmma_fence();
+    product_rs<D>(acc, a_ds, sm.k[s], 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&sm.empty[s]);
+  }
+
+  bf16* out = dq + (size_t)bh * seq * D;
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (row_a < seq) {
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row_a * D + col) =
+          __floats2bfloat162_rn(scale * acc[4 * j], scale * acc[4 * j + 1]);
+    }
+    if (row_b < seq) {
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row_b * D + col) =
+          __floats2bfloat162_rn(scale * acc[4 * j + 2], scale * acc[4 * j + 3]);
+    }
+  }
+}
+
+// dQ for one (b*h, 128-row q block); kv tiles stream through the ring.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
+              const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              bf16* __restrict__ dq, int seq, float scale) {
+  using S = DqSmem<D>;
+  S& sm = smem_as<S>();
+  // The blocks walk groups of kGroup heads, and each group's q blocks
+  // heaviest first, so that the blocks resident at once share their heads'
+  // K and V in L2.
+  const int n_q = (seq + kBlock - 1) / kBlock;
+  const int group = blockIdx.x / (kGroup * n_q);
+  const int r = blockIdx.x % (kGroup * n_q);
+  const int heads = min(kGroup, (int)gridDim.x / n_q - group * kGroup);
+  const int bh = group * kGroup + r % heads;
+  const int q0 = (n_q - 1 - r / heads) * kBlock;
+  const int n_tiles = (min(q0 + kBlock, seq) - 1) / kStep + 1;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&sm.qd_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], kConsumerThreads);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumerThreads) {  // the producer warpgroup
+    regs_dealloc<kProducerRegs>();
+    if (threadIdx.x == kConsumerThreads) {
+      mbar_arrive_expect_tx(&sm.qd_full, 2 * S::kPanels * Panel<kBlock>::kBytes);
+      for (int p = 0; p < S::kPanels; ++p) {
+        tma_load_3d(&sm.q[p], &tm_q, &sm.qd_full, 64 * p, q0, bh);
+        tma_load_3d(&sm.d_o[p], &tm_do, &sm.qd_full, 64 * p, q0, bh);
+      }
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kStages;
+        mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&sm.full[s], 2 * S::kPanels * Panel<kStep>::kBytes);
+        for (int p = 0; p < S::kPanels; ++p) {
+          tma_load_3d(&sm.k[s][p], &tm_k, &sm.full[s], 64 * p, it * kStep, bh);
+          tma_load_3d(&sm.v[s][p], &tm_v, &sm.full[s], 64 * p, it * kStep, bh);
+        }
+      }
+    }
+  } else {
+    dq_consume<D>(sm, lse, delta, dq, bh, q0, n_tiles, seq, scale);
+  }
+}
+
+// delta[r] = sum_d dO[r][d] * O[r][d] in f32, D / 8 threads a row, each
+// with one 16-byte load of either tensor.
+template <int D>
+__global__ void __launch_bounds__(256)
+    bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ d_o,
+                     float* __restrict__ delta, int rows) {
+  constexpr int kLanes = D / 8;
+  const int row = blockIdx.x * (256 / kLanes) + threadIdx.x / kLanes;
+  const int col = (threadIdx.x % kLanes) * 8;
+  float acc = 0.f;
+  if (row < rows) {
+    const uint4 a = *reinterpret_cast<const uint4*>(o + (size_t)row * D + col);
+    const uint4 b = *reinterpret_cast<const uint4*>(d_o + (size_t)row * D + col);
+    const __nv_bfloat162* a2 = reinterpret_cast<const __nv_bfloat162*>(&a);
+    const __nv_bfloat162* b2 = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(a2[i]);
+      const float2 y = __bfloat1622float2(b2[i]);
+      acc += x.x * y.x;
+      acc += x.y * y.y;
+    }
+  }
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off /= 2) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (row < rows && threadIdx.x % kLanes == 0) delta[row] = acc;
+}
+
+template <int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* d_o,
+                       const void* lse, const void* delta, void* dk, void* dv, int bh, int seq,
+                       float scale, cudaStream_t stream) {
+  CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_lse, tm_delta;
+  cudaError_t err;
+  if ((err = map_rows_bf16(&tm_q, q, bh, seq, D, kStep)) != cudaSuccess) return err;
+  if ((err = map_rows_bf16(&tm_do, d_o, bh, seq, D, kStep)) != cudaSuccess) return err;
+  if ((err = map_rows_bf16(&tm_k, k, bh, seq, D, kBlock)) != cudaSuccess) return err;
+  if ((err = map_rows_bf16(&tm_v, v, bh, seq, D, kBlock)) != cudaSuccess) return err;
+  if ((err = map_vec_f32(&tm_lse, lse, (long long)bh * seq, kStep)) != cudaSuccess) return err;
+  if ((err = map_vec_f32(&tm_delta, delta, (long long)bh * seq, kStep)) != cudaSuccess) return err;
+  const int smem = (int)sizeof(DkvSmem<D>) + 1024;
+  err = cudaFuncSetAttribute(dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((seq + kTile - 1) / kTile, bh);
+  const dim3 grid(bh, (seq + kBlock - 1) / kBlock);
+  dkv_kernel<D><<<grid, kThreads, smem, stream>>>(tm_q, tm_do, tm_k, tm_v, tm_lse, tm_delta,
+                                                  static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+                                                  seq, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d_o,
+                      const void* lse, const void* delta, void* dq, int bh, int seq, float scale,
+                      cudaStream_t stream) {
+  CUtensorMap tm_q, tm_do, tm_k, tm_v;
+  cudaError_t err;
+  if ((err = map_rows_bf16(&tm_q, q, bh, seq, D, kBlock)) != cudaSuccess) return err;
+  if ((err = map_rows_bf16(&tm_do, d_o, bh, seq, D, kBlock)) != cudaSuccess) return err;
+  if ((err = map_rows_bf16(&tm_k, k, bh, seq, D, kStep)) != cudaSuccess) return err;
+  if ((err = map_rows_bf16(&tm_v, v, bh, seq, D, kStep)) != cudaSuccess) return err;
+  const int smem = (int)sizeof(DqSmem<D>) + 1024;
+  err = cudaFuncSetAttribute(dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(bh * ((seq + kBlock - 1) / kBlock));
   dq_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-      static_cast<const bf16*>(d_o), static_cast<const float*>(lse),
+      tm_q, tm_do, tm_k, tm_v, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dq), seq, scale);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* o,
-                       const void* d_o, const void* lse, void* dk, void* dv,
-                       int bh, int seq, float scale, cudaStream_t stream) {
-  using L = Layout<D>;
-  const int smem = (4 * L::kTileElems + 2 * L::kTileTElems) * (int)sizeof(bf16) +
-                   2 * kTile * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((seq + kTile - 1) / kTile, bh);
-  dkv_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(o),
-      static_cast<const bf16*>(d_o), static_cast<const float*>(lse),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq, scale);
+cudaError_t launch_delta(const void* o, const void* d_o, void* delta, int rows,
+                         cudaStream_t stream) {
+  constexpr int kRowsPerBlock = 256 / (D / 8);
+  const int blocks = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
+  bwd_delta_kernel<D><<<blocks, 256, 0, stream>>>(static_cast<const bf16*>(o),
+                                                  static_cast<const bf16*>(d_o),
+                                                  static_cast<float*>(delta), rows);
   return cudaGetLastError();
 }
 
 }  // namespace flash
 
-// q, k, v, o, d_o, dq: [bh][seq][d] bf16, contiguous; lse: [bh][seq] f32.
-// head_dim d in {64, 128}. Returns the launch's cudaGetLastError().
-extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* o,
-                        const void* d_o, const void* lse, void* dq, int bh,
-                        int seq, int d, float scale, void* stream) {
+// q, k, v, d_o, dq: [bh][seq][d] bf16, contiguous; lse, delta: [bh][seq]
+// f32 (delta from flash_bwd_delta). head_dim d in {64, 128}. Returns the
+// launch's cudaGetLastError() (or the tensor-map encoding's error).
+extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* d_o,
+                        const void* lse, const void* delta, void* dq, int bh, int seq, int d,
+                        float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return flash::launch_dq<64>(q, k, v, o, d_o, lse, dq, bh, seq, scale, s);
+      return flash::launch_dq<64>(q, k, v, d_o, lse, delta, dq, bh, seq, scale, s);
     case 128:
-      return flash::launch_dq<128>(q, k, v, o, d_o, lse, dq, bh, seq, scale, s);
+      return flash::launch_dq<128>(q, k, v, d_o, lse, delta, dq, bh, seq, scale, s);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 // As flash_dq, writing dk and dv ([bh][seq][d] bf16).
-extern "C" int flash_dkv(const void* q, const void* k, const void* v,
-                         const void* o, const void* d_o, const void* lse,
-                         void* dk, void* dv, int bh, int seq, int d, float scale,
-                         void* stream) {
+extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void* d_o,
+                         const void* lse, const void* delta, void* dk, void* dv, int bh, int seq,
+                         int d, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return flash::launch_dkv<64>(q, k, v, o, d_o, lse, dk, dv, bh, seq, scale, s);
+      return flash::launch_dkv<64>(q, k, v, d_o, lse, delta, dk, dv, bh, seq, scale, s);
     case 128:
-      return flash::launch_dkv<128>(q, k, v, o, d_o, lse, dk, dv, bh, seq, scale, s);
+      return flash::launch_dkv<128>(q, k, v, d_o, lse, delta, dk, dv, bh, seq, scale, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// delta = rowsum(d_o * o) in f32 for `rows` rows of head_dim d ([rows][d]
+// bf16 in, [rows] f32 out).
+extern "C" int flash_bwd_delta(const void* o, const void* d_o, void* delta, int rows, int d,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (d) {
+    case 64:
+      return flash::launch_delta<64>(o, d_o, delta, rows, s);
+    case 128:
+      return flash::launch_delta<128>(o, d_o, delta, rows, s);
     default:
       return cudaErrorInvalidValue;
   }

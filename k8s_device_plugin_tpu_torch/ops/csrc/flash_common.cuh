@@ -1,6 +1,7 @@
-// Shared pieces of the causal flash-attention kernels (flash_fwd.cu,
-// flash_bwd.cu): tile loads into shared memory and the bf16 tensor-core
-// product m16n8k16 (mma.sync, f32 accumulation).
+// Pieces of the causal flash-attention forward (flash_fwd.cu): tile loads
+// into shared memory and the bf16 tensor-core product m16n8k16 (mma.sync,
+// f32 accumulation). The backward kernels (flash_bwd.cu) are built from the
+// Hopper pieces of sm90.cuh instead.
 //
 // Register fragments of mma.sync.m16n8k16 (PTX ISA), with g = lane / 4 and
 // t = lane % 4, each 32-bit register holding two bf16 of adjacent columns
@@ -108,29 +109,6 @@ __device__ __forceinline__ void load_tile(bf16* dst, bf16* dst_t, const bf16* sr
 #pragma unroll
       for (int i = 0; i < 8; ++i) dst_t[(c + i) * Layout<D>::kLdT + r] = e[i];
     }
-  }
-}
-
-// delta[r] = sum_d dO[row0 + r][d] * O[row0 + r][d] in f32 for the kTile
-// rows of a tile (0 past seq), two threads per row. Also stages lse.
-template <int D>
-__device__ __forceinline__ void load_row_stats(float* s_delta, float* s_lse,
-                                               const bf16* o, const bf16* s_do,
-                                               const float* lse, int row0, int seq) {
-  const int r = threadIdx.x / 2;
-  const int half = threadIdx.x % 2;
-  float acc = 0.f;
-  if (row0 + r < seq) {
-    const bf16* orow = o + (size_t)(row0 + r) * D;
-    const bf16* drow = s_do + r * Layout<D>::kLd;
-    for (int d = half; d < D; d += 2) {
-      acc += __bfloat162float(drow[d]) * __bfloat162float(orow[d]);
-    }
-  }
-  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
-  if (half == 0) {
-    s_delta[r] = acc;
-    s_lse[r] = (row0 + r < seq) ? lse[row0 + r] : 0.f;
   }
 }
 

@@ -26,9 +26,12 @@ from . import train
 from .model import ModelConfig
 
 # Kernel-name patterns, checked in order; the first match names the group.
+# Every kernel of flash_bwd.cu (the delta prepass, dQ, dK/dV) lives in
+# namespace flash and names itself after its pass, so the backward group
+# comes before "matmul", whose pattern also matches cutlass and sm90_.
 GROUPS = (
     ("flash_fwd", re.compile(r"flash::fwd_kernel")),
-    ("flash_bwd", re.compile(r"flash::(dq|dkv)_kernel")),
+    ("flash_bwd", re.compile(r"flash::\w*(dq|dkv|bwd)\w*")),
     ("rmsnorm", re.compile(r"rmsnorm::fwd_kernel")),
     ("matmul_f32", re.compile(r"sgemm|gemm_f32f32", re.I)),
     ("matmul", re.compile(r"gemm|xmma|cutlass|cublas|nvjet|sm90_", re.I)),

@@ -103,11 +103,51 @@ def test_bf16_plain_versions_match_jax_interpret_mode():
         assert diff <= 2.0 ** -5 * scale, (diff, scale)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_bwd_delta_plain_matches_numpy_and_the_jax_backward(dtype):
+    """delta = rowsum(dO * O) in f32: the expression the JAX ``_dq_kernel``
+    and ``_dkv_kernel`` evaluate per tile, on the JAX forward's own O (Pallas
+    in interpret mode), against the port's plain prepass and numpy."""
+    shape = (2, 2, 100, 32)
+    b, h, seq, d = shape
+    q, k, v, g = _inputs(shape, 7, n=4)
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    jq, jk, jv, jg = (jnp.asarray(x, jdt) for x in (q, k, v, g))
+    _, res = jattn._flash_fwd(jq, jk, jv, 0, 0)
+    out_j = res[3]  # (b*h, seq, d), the O the JAX backward reads
+    do_j = jg.reshape(b * h, seq, d)
+    delta_j = np.asarray(jnp.sum(do_j.astype(jnp.float32) * out_j.astype(jnp.float32), axis=-1))
+    tdt = getattr(torch, dtype)
+    o_t = torch.from_numpy(np.array(out_j, np.float32)).to(tdt).reshape(shape)
+    do_t = torch.from_numpy(np.array(jg, np.float32)).to(tdt)
+    got = tattn.flash_bwd_delta_plain(o_t, do_t)
+    assert got.dtype == torch.float32 and got.shape == (b * h, seq)
+    want_np = (np.asarray(do_j, np.float64) * np.asarray(out_j, np.float64)).sum(-1)
+    tol = tattn.DELTA_RTOL * np.abs(want_np).max()
+    np.testing.assert_allclose(got.numpy(), delta_j, atol=tol, rtol=0)
+    np.testing.assert_allclose(got.numpy(), want_np, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("shape,bq,bkv", CASES, ids=IDS)
+def test_backward_with_a_precomputed_delta_matches_the_one_without(shape, bq, bkv):
+    q, k, v, do = (torch.from_numpy(x) for x in _inputs(shape, 8, n=4))
+    o, lse = tattn.flash_attention_fwd(q, k, v)
+    delta = tattn.flash_bwd_delta_plain(o, do)
+    given = tattn.flash_attention_bwd(q, k, v, o, lse, do, delta=delta)
+    derived = tattn.flash_attention_bwd(q, k, v, o, lse, do)
+    for got, want in zip(given, derived):
+        assert torch.equal(got, want)
+    assert torch.equal(tattn.flash_dq_plain(q, k, v, o, lse, do, delta), given[0])
+    assert all(torch.equal(a, b_) for a, b_ in
+               zip(tattn.flash_dkv_plain(q, k, v, o, lse, do, delta), given[1:]))
+
+
 def test_cpu_path_launches_no_kernel():
     reset_launches()
     q, k, v = (torch.from_numpy(x).requires_grad_() for x in _inputs((1, 2, 32, 16), 5))
     tattn.flash_attention(q, k, v).sum().backward()
-    assert LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "rmsnorm": 0}
+    assert LAUNCHES == {
+        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_bwd_delta": 0, "rmsnorm": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -117,5 +157,7 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         tattn.flash_fwd_kernel(q, k, v)
     with pytest.raises(ValueError, match="head_dim"):
         tattn.flash_fwd_kernel(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match="CUDA"):
+        tattn.flash_bwd_delta_kernel(q, v)
     with pytest.raises(ValueError):
         uses_kernel(torch.empty(1, device="meta"))

@@ -10,8 +10,9 @@ bf16 tolerance: the kernel and its plain version round the same f32
 values to bf16 at the same places, so each element is held to about one
 bf16 ulp of itself plus a small share of the tensor's rms
 (``bf16_agreement`` in ``ops/attention.py``); lse is f32 in both (1e-4),
-and the RMSNorm kernel's rrms is held to a relative 1e-5 (f32 sums in
-another order, and rsqrt).
+the backward's delta (f32, the same products summed in another order) is
+held to a relative 1e-5, and the RMSNorm kernel's rrms to a relative 1e-5
+(f32 sums in another order, and rsqrt).
 """
 
 import pytest
@@ -29,8 +30,32 @@ def cuda_device():
     return torch.device("cuda")
 
 
+FLASH_SHAPES = [
+    (2, 4, 100, 64),  # ragged: the last q and kv tiles run past seq
+    (1, 2, 256, 128),
+    (2, 3, 200, 128),
+    (1, 2, 64, 128),  # one tile
+    (1, 1, 1, 64),  # seq 1
+    (1, 1, 1, 128),
+    (1, 132, 128, 64),  # b*h >= 132: more heads than the card has SMs
+    (1, 1, 8192, 128),  # the microbench's seq
+]
+
+
+def _seq1_residue_bound(o, do, other):
+    """At seq 1 each query sees only its own key, so O = V and dS = P (dP -
+    delta) is zero in exact arithmetic: dq and dk are the f32 rounding
+    residue of dP - delta in either version, summed in different orders,
+    and no two such residues agree. Each is held to the residue's bound
+    instead, d * 2^-24 * sum_d |dO O| a row (a float32 sum's worst case)
+    times scale * |K| (for dq) or |Q| (for dk)."""
+    d = o.shape[-1]
+    row = d * 2.0 ** -24 * (do.float() * o.float()).abs().sum(-1, keepdim=True)
+    return row * d ** -0.5 * other.float().abs()
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 4, 100, 64), (1, 2, 256, 128), (2, 3, 200, 128)])
+@pytest.mark.parametrize("shape", FLASH_SHAPES, ids=lambda s: "x".join(map(str, s)))
 def test_kernels_match_plain_on_card(cuda_device, shape):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v, do = (
@@ -40,13 +65,40 @@ def test_kernels_match_plain_on_card(cuda_device, shape):
     o_p, lse_p = tattn.flash_attention_fwd_plain(q, k, v)
     o, lse = tattn.flash_fwd_kernel(q, k, v)
     bwd = (q, k, v, o_p, lse_p, do)
+    delta = tattn.flash_bwd_delta_kernel(o_p, do)
+    delta_p = tattn.flash_bwd_delta_plain(o_p, do)
     grads = (tattn.flash_dq_kernel(*bwd), *tattn.flash_dkv_kernel(*bwd))
     grads_p = (tattn.flash_dq_plain(*bwd), *tattn.flash_dkv_plain(*bwd))
     torch.cuda.synchronize()
     assert (lse - lse_p).abs().max() <= 1e-4
-    for got, want in zip((o, *grads), (o_p, *grads_p)):
+    assert (delta - delta_p).abs().max() <= tattn.DELTA_RTOL * delta_p.abs().max()
+    pairs = list(zip((o, *grads), (o_p, *grads_p)))
+    if shape[2] == 1:
+        for (got, want), other in zip(pairs[1:3], (k, q)):
+            bound = _seq1_residue_bound(o_p, do, other)
+            assert (got.float().abs() <= bound).all() and (want.float().abs() <= bound).all()
+        del pairs[1:3]
+    for got, want in pairs:
         agree = tattn.bf16_agreement(got, want)
         assert agree["ok"], agree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 100, 64), (2, 8, 1024, 128)])
+def test_backward_kernels_repeat_bit_for_bit(cuda_device, shape):
+    """One owner per output row and no atomics: two launches on the same
+    inputs give the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v, do = (
+        torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+        for _ in range(4)
+    )
+    o, lse = tattn.flash_fwd_kernel(q, k, v)
+    first = tattn.flash_attention_bwd(q, k, v, o, lse, do)
+    second = tattn.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -67,7 +119,8 @@ def test_autograd_function_launches_each_kernel_once(cuda_device):
     reset_launches()
     tattn.flash_attention(q, k, v).float().sum().backward()
     torch.cuda.synchronize()
-    assert LAUNCHES == {"flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1, "rmsnorm": 0}
+    assert LAUNCHES == {
+        "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1, "flash_bwd_delta": 1, "rmsnorm": 0}
     assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
 
 
@@ -109,7 +162,8 @@ def test_rmsnorm_launches_the_kernel_once_per_forward(cuda_device):
     y = trms.rmsnorm(x, scale)
     y.float().square().sum().backward()
     torch.cuda.synchronize()
-    assert LAUNCHES == {"flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "rmsnorm": 1}
+    assert LAUNCHES == {
+        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_bwd_delta": 0, "rmsnorm": 1}
     assert y.dtype == torch.bfloat16 and y.shape == x.shape
     assert x.grad.dtype == torch.bfloat16 and scale.grad.dtype == torch.float32
     assert torch.isfinite(x.grad.float()).all() and torch.isfinite(scale.grad).all()

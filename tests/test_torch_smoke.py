@@ -31,7 +31,7 @@ def test_run_smoke_on_cpu_tiny_is_ok():
     assert report["first_loss_sane"] and report["loss_decreased"]
     assert report["backend"] == "cpu" and report["mfu"] is None
     assert report["kernel_launches"] == {
-        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "rmsnorm": 0}
+        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_bwd_delta": 0, "rmsnorm": 0}
     assert report["xent_chunk"] == 0
     assert [s["partial"] for s in streamed] == ["devices_up", "first_step"]
     assert all(s["ok"] is None for s in streamed)
@@ -162,6 +162,10 @@ def test_step_profile_groups_kernels_by_name():
 
     assert _group("void flash::fwd_kernel<128>(__nv_bfloat16 const*)") == "flash_fwd"
     assert _group("void flash::dkv_kernel<128>(__nv_bfloat16 const*)") == "flash_bwd"
+    assert _group("void flash::dkv_kernel<128>(CUtensorMap_st, CUtensorMap_st)") == "flash_bwd"
+    assert _group("void flash::dq_kernel<64>(CUtensorMap_st, float const*)") == "flash_bwd"
+    assert _group("void flash::bwd_delta_kernel<128>(__nv_bfloat16 const*, float*, int)") \
+        == "flash_bwd"
     assert _group("void rmsnorm::fwd_kernel<__nv_bfloat16, float>(__nv_bfloat16 const*)") \
         == "rmsnorm"
     assert _group("cutlass_80_simt_sgemm_256x128_8x4_nn_align1") == "matmul_f32"

@@ -7,7 +7,10 @@ plain version but sums in another order and rounds P against a running
 max; stand-ins here are a tiled online-softmax forward and a float64
 backward. It must reject the faults a tiled kernel typically has, emulated
 in plain PyTorch: a dropped rescale, an off-by-one causal mask, a skipped
-or mis-weighted tile, a missing term. Imports no JAX.
+or mis-weighted tile, a missing term; and those of a ring-buffered,
+warp-specialised backward: a stage read one tile late (lse, delta or dO),
+a diagonal tile left unmasked, a ragged tile filled from the next head's
+rows instead of zeros. Imports no JAX.
 """
 
 import math
@@ -19,6 +22,9 @@ from k8s_device_plugin_tpu_torch.ops import attention as tattn
 
 SHAPE = (1, 2, 2048, 128)  # one batch row, two heads, of the bench shape
 TILE = 64
+# A ring stage read one tile late in the dK/dV kernel: dS built from the
+# previous q tile's lse or delta, or dO taken from the previous stage.
+STALE_STAGE_FAULTS = ("dkv_stale_lse_stage", "dkv_stale_delta_stage", "dkv_stale_do_stage")
 
 
 @pytest.fixture(scope="module")
@@ -54,15 +60,27 @@ def _tiled_forward(q, k, v, rescale_acc=True, causal_offset=0, last_tile_weight=
     return (acc / l).to(q.dtype)
 
 
+def _previous_tile(t):
+    """Each 64-row tile of ``t`` (rows on dim -2) replaced by the one before
+    it, the first kept: what a ring stage read one tile late holds."""
+    return torch.cat([t[..., :TILE, :], t[..., :-TILE, :]], dim=-2)
+
+
 def _backward(q, k, v, o, lse, do, dtype=torch.float32, fault=None):
     """(dq, dk, dv) with the kernels' roundings, summed in ``dtype``;
-    ``fault`` injects one."""
+    ``fault`` injects one. The ring faults reach only the pass that streams
+    the operand: lse, delta and dO stream through the dK/dV kernel's ring,
+    while the dQ kernel keeps its q rows resident."""
     n, d = q.shape[-2:]
     qf, kf, vf, of, dof = (t.to(dtype) for t in (q, k, v, o, do))
     rows, cols = torch.arange(n)[:, None], torch.arange(n)[None, :]
     s = (1.0 / math.sqrt(d)) * (qf @ kf.transpose(-1, -2))
-    s = s.masked_fill(cols > rows, tattn.NEG_INF)
-    p = torch.exp(s - lse.to(dtype).reshape(*q.shape[:-1], 1))
+    masked = cols > rows
+    if fault == "diagonal_tile_unmasked":
+        masked = masked & ((rows // TILE) != (cols // TILE))
+    s = s.masked_fill(masked, tattn.NEG_INF)
+    lse = lse.to(dtype).reshape(*q.shape[:-1], 1)
+    p = torch.exp(s - lse)
     dp = dof @ vf.transpose(-1, -2)
     delta = 0.0 if fault == "no_delta" else (dof * of).sum(-1, keepdim=True)
     ds = p * (dp - delta)
@@ -70,13 +88,22 @@ def _backward(q, k, v, o, lse, do, dtype=torch.float32, fault=None):
         ds_q = ds.masked_fill((rows // TILE) == (cols // TILE), 0.0)
     else:
         ds_q = ds
+    dof_kv = dof
+    if fault == "dkv_stale_do_stage":
+        dof_kv = _previous_tile(dof)
+    elif fault == "dkv_stale_lse_stage":
+        p = torch.exp(s - _previous_tile(lse))
+    elif fault == "dkv_stale_delta_stage":
+        delta = _previous_tile(delta)
+    if fault in STALE_STAGE_FAULTS:
+        ds = p * (dof_kv @ vf.transpose(-1, -2) - delta)
     if fault == "dkv_skips_last_q_tile":
         p, ds = p.masked_fill(rows >= n - TILE, 0.0), ds.masked_fill(rows >= n - TILE, 0.0)
     lo = lambda t: t.to(torch.bfloat16).to(dtype)  # noqa: E731
     scale = 1.0 / math.sqrt(d)
     dq = scale * (lo(ds_q) @ kf)
     dk = scale * (lo(ds).transpose(-1, -2) @ qf)
-    dv = lo(p).transpose(-1, -2) @ dof
+    dv = lo(p).transpose(-1, -2) @ dof_kv
     return tuple(t.to(torch.bfloat16) for t in (dq, dk, dv))
 
 
@@ -95,7 +122,8 @@ def test_rule_passes_correct_stand_ins(inputs):
 @pytest.mark.parametrize(
     "fault",
     ["fwd_no_acc_rescale", "fwd_causal_off_by_one", "fwd_diagonal_tile_weight",
-     "no_delta", "dq_skips_diagonal_tile", "dkv_skips_last_q_tile"],
+     "no_delta", "dq_skips_diagonal_tile", "dkv_skips_last_q_tile",
+     *STALE_STAGE_FAULTS, "diagonal_tile_unmasked"],
 )
 def test_rule_rejects_kernel_faults(inputs, fault):
     q, k, v, do, o, lse = inputs
@@ -112,3 +140,48 @@ def test_rule_rejects_kernel_faults(inputs, fault):
         outs = zip(_backward(q, k, v, o, lse, do, fault=fault), plain)
     verdicts = [tattn.bf16_agreement(got, want) for got, want in outs]
     assert not all(a["ok"] for a in verdicts), verdicts
+
+
+RAGGED = (1, 3, 100, 128)  # seq 100: the second 64-row q tile runs 28 rows past seq
+
+
+def _dkv_padded(q, k, v, lse, do, delta, fill):
+    """(dk, dv) as a dK/dV kernel computes them that streams whole 64-row q
+    tiles and masks only causally, trusting the load to zero the rows past
+    seq. ``fill`` is what those rows of q, dO, lse and delta hold: "zeros"
+    (a load per head that fills past seq), or "next_head" (a load from the
+    flattened (b*h*seq, d) view, which reads the next head's first rows)."""
+    b, h, n, d = q.shape
+    extra = -n % TILE
+
+    def pad(t):  # t: (b*h, n, ...) -> (b*h, n + extra, ...)
+        if fill == "zeros":
+            tail = t.new_zeros((b * h, extra, *t.shape[2:]))
+        else:
+            tail = torch.cat([t[1:, :extra], t.new_zeros((1, extra, *t.shape[2:]))])
+        return torch.cat([t, tail], dim=1)
+
+    qp, dop = (pad(t.double().reshape(b * h, n, d)) for t in (q, do))
+    lsep, deltap = (pad(t.double().reshape(b * h, n))[..., None] for t in (lse, delta))
+    kf, vf = (t.double().reshape(b * h, n, d) for t in (k, v))
+    rows, cols = torch.arange(n + extra)[:, None], torch.arange(n)[None, :]
+    scale = 1.0 / math.sqrt(d)
+    s = (scale * (qp @ kf.transpose(-1, -2))).masked_fill(cols > rows, tattn.NEG_INF)
+    p = torch.exp(s - lsep)
+    ds = p * (dop @ vf.transpose(-1, -2) - deltap)
+    lo = lambda t: t.to(torch.bfloat16).double()  # noqa: E731
+    dk = scale * (lo(ds).transpose(-1, -2) @ qp)
+    dv = lo(p).transpose(-1, -2) @ dop
+    return tuple(t.reshape(b, h, n, d).to(torch.bfloat16) for t in (dk, dv))
+
+
+@pytest.mark.parametrize("fill,passes", [("zeros", True), ("next_head", False)])
+def test_rule_rejects_a_ragged_tile_read_from_the_next_head(fill, passes):
+    gen = torch.Generator().manual_seed(1)
+    q, k, v, do = (torch.randn(RAGGED, generator=gen).to(torch.bfloat16) for _ in range(4))
+    o, lse = tattn.flash_attention_fwd_plain(q, k, v)
+    delta = tattn.flash_bwd_delta_plain(o, do)
+    got = _dkv_padded(q, k, v, lse, do, delta, fill)
+    verdicts = [tattn.bf16_agreement(g, w)
+                for g, w in zip(got, tattn.flash_dkv_plain(q, k, v, o, lse, do))]
+    assert all(a["ok"] for a in verdicts) == passes, verdicts
