@@ -6,14 +6,16 @@ Phases, in order; any failure exits non-zero and no phase's exception is
 caught while the run goes on:
 
 1. Device: the card's name, and its name and power limit from nvidia-smi.
-2. Build: every CUDA kernel of the port from ``ops/csrc`` (nvcc, sm_90a).
+2. Build: every CUDA kernel of the port from ``ops/csrc`` (nvcc, sm_90a),
+   with ptxas' registers, spills and any serialised ``wgmma`` per kernel.
 3. Kernels vs plain: each hand-written kernel against its own plain
    PyTorch version on the card, element by element (``bf16_agreement`` in
    ``ops/attention.py``). The flash kernels (forward, the backward's delta
    prepass, dQ, dK/dV) at the bench shape (8, 16, 2048, 128) and a ragged
    one (2, 4, 100, 64), bf16, with dQ and dK/dV given the prepass's delta
    as the main path runs them, and delta (f32) within relative 1e-5; then
-   one line setting the three backward kernels beside SDPA's backward.
+   one line setting the three backward kernels beside SDPA's backward (the
+   forward's line carries its own ratio to SDPA's forward).
    The RMSNorm kernel at the bench model's (16384, 2048) with an f32 scale,
    the microbench's (8192, 4096) with a bf16 scale, and a ragged
    (300, 2048), bf16 x; rrms within relative 1e-5. One JSON line per kernel
@@ -62,6 +64,10 @@ RAGGED_SHAPE = (2, 4, 100, 64)
 # bf16 outputs are held element by element to the rule of
 # ops/attention.py (A.bf16_agreement); lse is f32 in both versions.
 LSE_ATOL = 1e-4
+# Back-to-back calls per timing window of a flash kernel or its SDPA
+# yardstick at the bench shape: the window opens on an idle card, so the
+# host's time to issue the first call is spread over this many.
+FLASH_ITERS = 30
 # (x shape, scale dtype, timed) of the RMSNorm kernel's checks, x in bf16:
 # the bench model's norms (batch 8 x seq 2048 rows), the microbench's case,
 # and a row count no 256-row block divides. The first is the main path's.
@@ -191,7 +197,7 @@ def phase_build() -> None:
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 entry = line.split("'")[1][:48]  # the mangled name's head
-            elif "registers" in line or "spill" in line:
+            elif "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"  ptxas {stem} {entry}: {line.strip()}", flush=True)
 
 
@@ -267,7 +273,7 @@ def phase_kernels() -> dict:
                 else:
                     bound_ms, bound_by = attention_bound(shape, name.removeprefix("flash_"))
                 line.update(
-                    kernel_ms=time_ms(kernel, 50 if name == "flash_bwd_delta" else 10),
+                    kernel_ms=time_ms(kernel, 50 if name == "flash_bwd_delta" else FLASH_ITERS),
                     plain_ms=time_ms(plain, 1, reps=3),
                     library_ms=None,
                     bound_ms=bound_ms,
@@ -278,8 +284,9 @@ def phase_kernels() -> dict:
                         with torch.no_grad():
                             F.scaled_dot_product_attention(q, k, v, is_causal=True)
 
-                    line["library_ms"] = time_ms(sdpa_fwd, 10)
+                    line["library_ms"] = time_ms(sdpa_fwd, FLASH_ITERS)
                     line["library_call"] = "scaled_dot_product_attention(is_causal=True) fwd"
+                    line["kernel_over_library"] = line["kernel_ms"] / line["library_ms"]
                 entries[name] = {
                     "name": name,
                     "route": "cuda",
@@ -381,7 +388,7 @@ def backward_yardstick(q, k, v, do, entries) -> dict:
 
     backward = ("flash_bwd_delta", "flash_dq", "flash_dkv")
     kernels_ms = sum(entries[name]["ms"] for name in backward)
-    library_bwd_ms = time_ms(sdpa_bwd, 10)
+    library_bwd_ms = time_ms(sdpa_bwd, FLASH_ITERS)
     return {
         "yardstick": "attention backward at the bench shape",
         "kernels": list(backward),
@@ -389,7 +396,7 @@ def backward_yardstick(q, k, v, do, entries) -> dict:
         "plain_ms": sum(entries[name]["plain_ms"] for name in backward),
         "library_bwd_ms": library_bwd_ms,
         "kernels_over_library_bwd": kernels_ms / library_bwd_ms,
-        "library_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, 10),
+        "library_fwd_bwd_ms": time_ms(sdpa_fwd_bwd, FLASH_ITERS),
         "library_call": "scaled_dot_product_attention(is_causal=True)",
     }
 

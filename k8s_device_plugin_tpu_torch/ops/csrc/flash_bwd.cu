@@ -32,7 +32,11 @@
 //  - Tiles arrive by TMA into shared memory, 128-byte swizzled, from 3-D
 //    tensor maps over (b*h, seq, d): a box past seq is zero-filled, never
 //    read from the next head. (lse and delta come through flat maps over
-//    b*h*seq values; what lies past seq is the next head's and is masked.)
+//    b*h*seq values; what lies past seq is the next head's and is masked.
+//    A TMA box must start on a 16-byte boundary, so each of their boxes
+//    starts up to three values early, at a multiple of 4, and is
+//    kVecBox = 68 values long; where seq is a multiple of 4 no box starts
+//    early, and the consumers read the values in pairs.)
 //    dkv_kernel keeps its 128-row K and V tiles
 //    resident and streams (Q, dO, lse, delta) per 64-row q tile; dq_kernel
 //    keeps Q and dO resident and streams (K, V) per 64-row kv tile. The
@@ -85,23 +89,21 @@ constexpr int kConsumerThreads = 256;
 constexpr int kProducerRegs = 40;
 constexpr int kConsumerRegs = 232;
 constexpr float kNegInf = -1e30f;  // the JAX kernels' mask value: exp() gives 0
+// A streamed tile's lse or delta box where seq is not a multiple of 4:
+// kStep values from a 16-byte aligned start up to three values early;
+// kVecPad keeps each stage 128-byte aligned.
+constexpr int kVecBox = kStep + 4;
+constexpr int kVecPad = 96;
 
-// A 128-byte-swizzled [rows][64] bf16 panel and its size in bytes.
-template <int kRows>
-struct Panel {
-  static constexpr int kBytes = kRows * 128;
-  bf16 x[kRows][64];
-};
-
-template <int D>
+template <int D, bool kAligned>
 struct DkvSmem {
   static constexpr int kPanels = D / 64;
   Panel<kBlock> k[kPanels];
   Panel<kBlock> v[kPanels];
   Panel<kStep> q[kStages][kPanels];
   Panel<kStep> d_o[kStages][kPanels];
-  float lse[kStages][kStep];
-  float delta[kStages][kStep];
+  float lse[kStages][kAligned ? kStep : kVecPad];
+  float delta[kStages][kAligned ? kStep : kVecPad];
   uint64_t kv_full;
   uint64_t full[kStages];
   uint64_t empty[kStages];
@@ -119,51 +121,25 @@ struct DqSmem {
   uint64_t empty[kStages];
 };
 
-template <typename Smem>
-__device__ __forceinline__ Smem& smem_as() {
-  extern __shared__ unsigned char smem_raw[];
-  // Swizzle atoms need 1024-byte alignment; the launch adds the slack.
-  const uint32_t addr = smem_u32(smem_raw);
-  return *reinterpret_cast<Smem*>(smem_raw + ((1024 - (addr & 1023)) & 1023));
-}
-
-// S(64 x N) = A(64 rows from a_row0, K-major) . B(N rows from b_row0,
-// K-major)^T over head_dim D: the 16-deep step kk lies in panel kk / 4,
-// 32 * (kk % 4) bytes in.
-template <int D, int N, int kRowsA>
-__device__ __forceinline__ void product_ss(float (&s)[N / 2], const Panel<kRowsA>* a, int a_row0,
-                                           const Panel<kStep>* b, int b_row0) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int p = kk / 4;
-    const int off = (kk % 4) * 16;  // in bf16
-    const uint64_t da = desc_sw128(&a[p].x[a_row0][off], 16, 1024);
-    const uint64_t db = desc_sw128(&b[p].x[b_row0][off], 16, 1024);
-    if constexpr (N == 64) {
-      wgmma_m64n64k16_ss(s, da, db, kk > 0);
-    } else {
-      static_assert(N == 32, "score tiles of 32 or 64 columns");
-      wgmma_m64n32k16_ss(s, da, db, kk > 0);
-    }
-  }
-}
-
-// acc(64 x D) += A(64 x 16*kSteps, registers) . B, with B rows
-// b_row0.. of the streamed 64 x D tile read MN-major (its rows are the
-// depth).
-template <int D, int kSteps>
-__device__ __forceinline__ void product_rs(float (&acc)[D / 2], const uint32_t (&a)[kSteps][4],
-                                           const Panel<kStep>* b, int b_row0) {
-#pragma unroll
-  for (int kk = 0; kk < kSteps; ++kk) {
-    const uint64_t db = desc_sw128(&b[0].x[b_row0 + 16 * kk][0], Panel<kStep>::kBytes, 1024);
-    wgmma_rs_mn<D>(acc, a[kk], db);
+// Two consecutive f32 values of shared memory, as one 8-byte read where
+// they are known to be 8-byte aligned.
+template <bool kAligned>
+__device__ __forceinline__ void load_pair(float (&x)[2], const float* p) {
+  if constexpr (kAligned) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    x[0] = v.x;
+    x[1] = v.y;
+  } else {
+    x[0] = p[0];
+    x[1] = p[1];
   }
 }
 
 // The consumer warpgroups of dkv_kernel: S^T, dP^T, then dV and dK.
-template <int D>
-__device__ __forceinline__ void dkv_consume(DkvSmem<D>& sm, bf16* __restrict__ dk,
+// kAligned: seq is a multiple of 4, so every lse and delta box starts at
+// its tile's first value.
+template <int D, bool kAligned>
+__device__ __forceinline__ void dkv_consume(DkvSmem<D, kAligned>& sm, bf16* __restrict__ dk,
                                             bf16* __restrict__ dv, int bh, int k0, int i0,
                                             int n_tiles, int seq, float scale) {
   regs_alloc<kConsumerRegs>();
@@ -175,6 +151,8 @@ __device__ __forceinline__ void dkv_consume(DkvSmem<D>& sm, bf16* __restrict__ d
   const int kw0 = k0 + wg * 64;          // this warpgroup's first kv row
   const int kv_a = kw0 + warp * 16 + g;  // this thread's two kv rows
   const int kv_b = kv_a + 8;
+  // Where a tile's lse and delta start in their boxes.
+  const int vec0 = kAligned ? 0 : (bh * seq) & 3;
 
   float acc_k[D / 2], acc_v[D / 2];
 #pragma unroll
@@ -212,13 +190,14 @@ __device__ __forceinline__ void dkv_consume(DkvSmem<D>& sm, bf16* __restrict__ d
 #pragma unroll
       for (int j = 0; j < kCols / 8; ++j) {
         const int qc = kCols * h + 8 * j + 2 * t;
-        const float2 lse2 = *reinterpret_cast<const float2*>(&sm.lse[s][qc]);
+        float lse2[2];
+        load_pair<kAligned>(lse2, &sm.lse[s][vec0 + qc]);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int q = q0 + qc + (e & 1);
           const int kv = e < 2 ? kv_a : kv_b;
           const bool live = !masked || (kv <= q && q < seq);
-          const float x = scale * st[4 * j + e] - ((e & 1) ? lse2.y : lse2.x);
+          const float x = scale * st[4 * j + e] - lse2[e & 1];
           st[4 * j + e] = expf(live ? x : kNegInf);
         }
       }
@@ -227,10 +206,11 @@ __device__ __forceinline__ void dkv_consume(DkvSmem<D>& sm, bf16* __restrict__ d
       fence_regs(dpt);
 #pragma unroll
       for (int j = 0; j < kCols / 8; ++j) {
-        const float2 del2 = *reinterpret_cast<const float2*>(&sm.delta[s][kCols * h + 8 * j + 2 * t]);
+        float del2[2];
+        load_pair<kAligned>(del2, &sm.delta[s][vec0 + kCols * h + 8 * j + 2 * t]);
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - ((e & 1) ? del2.y : del2.x));
+          dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - del2[e & 1]);
         }
       }
       uint32_t a_p[kCols / 16][4], a_ds[kCols / 16][4];
@@ -273,14 +253,14 @@ __device__ __forceinline__ void dkv_consume(DkvSmem<D>& sm, bf16* __restrict__ d
 }
 
 // dK, dV for one (b*h, 128-row kv block); q tiles stream through the ring.
-template <int D>
+template <int D, bool kAligned>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
                const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
                const __grid_constant__ CUtensorMap tm_lse,
                const __grid_constant__ CUtensorMap tm_delta, bf16* __restrict__ dk,
                bf16* __restrict__ dv, int seq, float scale) {
-  using S = DkvSmem<D>;
+  using S = DkvSmem<D, kAligned>;
   S& sm = smem_as<S>();
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kBlock;  // y = 0 is the heaviest block
@@ -306,11 +286,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         tma_load_3d(&sm.v[p], &tm_v, &sm.kv_full, 64 * p, k0, bh);
       }
       const int row0 = bh * seq;  // of lse and delta
+      const int vec0 = row0 & 3;   // their boxes start 16-byte aligned
+      constexpr int kVecBytes = (kAligned ? kStep : kVecBox) * (int)sizeof(float);
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
         mbar_arrive_expect_tx(&sm.full[s], 2 * S::kPanels * Panel<kStep>::kBytes +
-                                               2 * kStep * (int)sizeof(float));
+                                               2 * kVecBytes);
         const int q0 = (i0 + it) * kStep;
         for (int p = 0; p < S::kPanels; ++p) {
           tma_load_3d(&sm.q[s][p], &tm_q, &sm.full[s], 64 * p, q0, bh);
@@ -318,12 +300,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         // Flat (b*h*seq) maps: a box past seq reads the next head's values,
         // which the mask of the ragged tile zeroes.
-        tma_load_1d(sm.lse[s], &tm_lse, &sm.full[s], row0 + q0);
-        tma_load_1d(sm.delta[s], &tm_delta, &sm.full[s], row0 + q0);
+        tma_load_1d(sm.lse[s], &tm_lse, &sm.full[s], row0 + q0 - vec0);
+        tma_load_1d(sm.delta[s], &tm_delta, &sm.full[s], row0 + q0 - vec0);
       }
     }
   } else {
-    dkv_consume<D>(sm, dk, dv, bh, k0, i0, n_tiles, seq, scale);
+    dkv_consume<D, kAligned>(sm, dk, dv, bh, k0, i0, n_tiles, seq, scale);
   }
 }
 
@@ -504,15 +486,18 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   if ((err = map_rows_bf16(&tm_do, d_o, bh, seq, D, kStep)) != cudaSuccess) return err;
   if ((err = map_rows_bf16(&tm_k, k, bh, seq, D, kBlock)) != cudaSuccess) return err;
   if ((err = map_rows_bf16(&tm_v, v, bh, seq, D, kBlock)) != cudaSuccess) return err;
-  if ((err = map_vec_f32(&tm_lse, lse, (long long)bh * seq, kStep)) != cudaSuccess) return err;
-  if ((err = map_vec_f32(&tm_delta, delta, (long long)bh * seq, kStep)) != cudaSuccess) return err;
-  const int smem = (int)sizeof(DkvSmem<D>) + 1024;
-  err = cudaFuncSetAttribute(dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const bool aligned = seq % 4 == 0;
+  const int vec_box = aligned ? kStep : kVecBox;
+  if ((err = map_vec_f32(&tm_lse, lse, (long long)bh * seq, vec_box)) != cudaSuccess) return err;
+  if ((err = map_vec_f32(&tm_delta, delta, (long long)bh * seq, vec_box)) != cudaSuccess) return err;
+  const auto kernel = aligned ? dkv_kernel<D, true> : dkv_kernel<D, false>;
+  const int smem = (int)(aligned ? sizeof(DkvSmem<D, true>) : sizeof(DkvSmem<D, false>)) + 1024;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (seq + kBlock - 1) / kBlock);
-  dkv_kernel<D><<<grid, kThreads, smem, stream>>>(tm_q, tm_do, tm_k, tm_v, tm_lse, tm_delta,
-                                                  static_cast<bf16*>(dk), static_cast<bf16*>(dv),
-                                                  seq, scale);
+  kernel<<<grid, kThreads, smem, stream>>>(tm_q, tm_do, tm_k, tm_v, tm_lse, tm_delta,
+                                           static_cast<bf16*>(dk), static_cast<bf16*>(dv), seq,
+                                           scale);
   return cudaGetLastError();
 }
 

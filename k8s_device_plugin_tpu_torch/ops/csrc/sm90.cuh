@@ -1,6 +1,8 @@
-// Hopper (sm_90a) building blocks of the flash-attention backward kernels:
-// mbarriers, TMA tile loads from host-encoded tensor maps, and warpgroup
-// matrix multiply (wgmma) on 128-byte-swizzled shared-memory tiles.
+// Hopper (sm_90a) building blocks of the flash-attention kernels, forward
+// (flash_fwd.cu) and backward (flash_bwd.cu): mbarriers, TMA tile loads
+// from host-encoded tensor maps, warpgroup matrix multiply (wgmma) on
+// 128-byte-swizzled shared-memory tiles, and the two products every pass
+// is made of.
 //
 // Shared-memory tiles. A TMA box of 64 bf16 columns (128 bytes) by R rows
 // with CU_TENSOR_MAP_SWIZZLE_128B lands as R rows of 128 bytes, the 16-byte
@@ -240,6 +242,55 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c)[kReg
   a[1] = pack_bf16(c[8 * kk + 2], c[8 * kk + 3]);
   a[2] = pack_bf16(c[8 * kk + 4], c[8 * kk + 5]);
   a[3] = pack_bf16(c[8 * kk + 6], c[8 * kk + 7]);
+}
+
+// A 128-byte-swizzled [rows][64] bf16 panel and its size in bytes.
+template <int kRows>
+struct Panel {
+  static constexpr int kBytes = kRows * 128;
+  __nv_bfloat16 x[kRows][64];
+};
+
+// The kernel's dynamic shared memory as `Smem`, 1024-byte aligned.
+template <typename Smem>
+__device__ __forceinline__ Smem& smem_as() {
+  extern __shared__ unsigned char smem_raw[];
+  // Swizzle atoms need 1024-byte alignment; the launch adds the slack.
+  const uint32_t addr = smem_u32(smem_raw);
+  return *reinterpret_cast<Smem*>(smem_raw + ((1024 - (addr & 1023)) & 1023));
+}
+
+// S(64 x N) = A(64 rows from a_row0, K-major) . B(N rows from b_row0,
+// K-major)^T over head_dim D: the 16-deep step kk lies in panel kk / 4,
+// 32 * (kk % 4) bytes in.
+template <int D, int N, int kRowsA, int kRowsB>
+__device__ __forceinline__ void product_ss(float (&s)[N / 2], const Panel<kRowsA>* a, int a_row0,
+                                           const Panel<kRowsB>* b, int b_row0) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int p = kk / 4;
+    const int off = (kk % 4) * 16;  // in bf16
+    const uint64_t da = desc_sw128(&a[p].x[a_row0][off], 16, 1024);
+    const uint64_t db = desc_sw128(&b[p].x[b_row0][off], 16, 1024);
+    if constexpr (N == 64) {
+      wgmma_m64n64k16_ss(s, da, db, kk > 0);
+    } else {
+      static_assert(N == 32, "score tiles of 32 or 64 columns");
+      wgmma_m64n32k16_ss(s, da, db, kk > 0);
+    }
+  }
+}
+
+// acc(64 x D) += A(64 x 16*kSteps, registers) . B, with B rows
+// b_row0.. of a kRowsB x D tile read MN-major (its rows are the depth).
+template <int D, int kSteps, int kRowsB>
+__device__ __forceinline__ void product_rs(float (&acc)[D / 2], const uint32_t (&a)[kSteps][4],
+                                           const Panel<kRowsB>* b, int b_row0) {
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    const uint64_t db = desc_sw128(&b[0].x[b_row0 + 16 * kk][0], Panel<kRowsB>::kBytes, 1024);
+    wgmma_rs_mn<D>(acc, a[kk], db);
+  }
 }
 
 // ---------------------------------------------------------------------------

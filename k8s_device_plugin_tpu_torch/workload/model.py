@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..device import resolve_device
 from ..ops import flash_attention
 from ..ops.rmsnorm import rmsnorm
 
@@ -273,8 +274,9 @@ class TransformerLM(nn.Module):
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> TransformerLM:
-    """A model with random weights drawn from ``seed`` on ``device``."""
-    device = torch.device(device) if device is not None else torch.device("cpu")
+    """A model with random weights drawn from ``seed`` on ``device``: the
+    card unless the caller asks for the CPU (``device.resolve_device``)."""
+    device = resolve_device(device)
     generator = torch.Generator(device=device).manual_seed(seed)
     return TransformerLM(cfg, generator, device)
 

@@ -18,7 +18,7 @@ held to a relative 1e-5, and the RMSNorm kernel's rrms to a relative 1e-5
 import pytest
 import torch
 
-from k8s_device_plugin_tpu_torch.ops import LAUNCHES, reset_launches
+from k8s_device_plugin_tpu_torch.ops import LAUNCHES, _build, reset_launches
 from k8s_device_plugin_tpu_torch.ops import attention as tattn
 from k8s_device_plugin_tpu_torch.ops import rmsnorm as trms
 
@@ -39,6 +39,14 @@ FLASH_SHAPES = [
     (1, 1, 1, 128),
     (1, 132, 128, 64),  # b*h >= 132: more heads than the card has SMs
     (1, 1, 8192, 128),  # the microbench's seq
+    # around the forward's 128-row q block: one row short, one and two over;
+    # with b*h > 1 they also start the dK/dV kernel's lse and delta tiles
+    # off 16-byte boundaries
+    (1, 2, 127, 128),
+    (1, 2, 129, 128),
+    (2, 2, 130, 64),
+    (1, 1, 2, 64),  # seq not a multiple of 4
+    (1, 1, 3, 128),
 ]
 
 
@@ -99,6 +107,53 @@ def test_backward_kernels_repeat_bit_for_bit(cuda_device, shape):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 4, 100, 64), (8, 16, 2048, 128)])
+def test_forward_kernel_repeats_bit_for_bit(cuda_device, shape):
+    """One owner per output row and no atomics: two forward launches on the
+    same inputs give the same bits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v = (
+        torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+        for _ in range(3)
+    )
+    first = tattn.flash_fwd_kernel(q, k, v)
+    second = tattn.flash_fwd_kernel(q, k, v)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq", [100, 127, 129, 2])
+def test_forward_writes_nothing_past_each_heads_rows(cuda_device, seq):
+    """The forward's C entry point given O and lse buffers longer than
+    b*h*seq rows, filled with a sentinel: every head's rows hold the plain
+    version's values and the rows past the last head keep the sentinel, so
+    no ragged q block stores past its head's seq."""
+    shape, pad = (1, 3, seq, 64), 128
+    gen = torch.Generator(device=cuda_device).manual_seed(seq)
+    q, k, v = (
+        torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+        for _ in range(3)
+    )
+    rows = 3 * seq
+    o_buf = torch.full((rows + pad, 64), 7.0, dtype=torch.bfloat16, device=cuda_device)
+    lse_buf = torch.full((rows + pad,), 7.0, dtype=torch.float32, device=cuda_device)
+    fn = _build.bind("flash_fwd", "flash_fwd", [tattn._P] * 5 + [tattn._I] * 3
+                     + [tattn._F, tattn._P])
+    stream = torch.cuda.current_stream().cuda_stream
+    _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o_buf.data_ptr(),
+                    lse_buf.data_ptr(), 3, seq, 64, 64 ** -0.5, stream), "flash_fwd")
+    o_p, lse_p = tattn.flash_attention_fwd_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.equal(o_buf[rows:], torch.full_like(o_buf[rows:], 7.0))
+    assert torch.equal(lse_buf[rows:], torch.full_like(lse_buf[rows:], 7.0))
+    assert (lse_buf[:rows] - lse_p.reshape(-1)).abs().max() <= 1e-4
+    agree = tattn.bf16_agreement(o_buf[:rows].reshape(shape), o_p)
+    assert agree["ok"], agree
 
 
 @pytest.mark.cuda

@@ -14,7 +14,7 @@ import torch
 from k8s_device_plugin_tpu_torch import device as tdevice
 from k8s_device_plugin_tpu_torch.ops import _build
 from k8s_device_plugin_tpu_torch.workload import chips, smoke
-from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
+from k8s_device_plugin_tpu_torch.workload.model import ModelConfig, init_model
 
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = ROOT / "k8s_device_plugin_tpu_torch"
@@ -50,6 +50,10 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         tdevice.resolve_device("cuda")
     assert tdevice.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_model(ModelConfig.tiny())
+    model = init_model(ModelConfig.tiny(), device="cpu")
+    assert {p.device.type for p in model.parameters()} == {"cpu"}
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
 
@@ -161,6 +165,8 @@ def test_step_profile_groups_kernels_by_name():
     from k8s_device_plugin_tpu_torch.workload.step_profile import _group
 
     assert _group("void flash::fwd_kernel<128>(__nv_bfloat16 const*)") == "flash_fwd"
+    assert _group("void flash::fwd_kernel<128>(CUtensorMap_st, CUtensorMap_st, float*)") \
+        == "flash_fwd"
     assert _group("void flash::dkv_kernel<128>(__nv_bfloat16 const*)") == "flash_bwd"
     assert _group("void flash::dkv_kernel<128>(CUtensorMap_st, CUtensorMap_st)") == "flash_bwd"
     assert _group("void flash::dq_kernel<64>(CUtensorMap_st, float const*)") == "flash_bwd"

@@ -8,9 +8,12 @@ max; stand-ins here are a tiled online-softmax forward and a float64
 backward. It must reject the faults a tiled kernel typically has, emulated
 in plain PyTorch: a dropped rescale, an off-by-one causal mask, a skipped
 or mis-weighted tile, a missing term; and those of a ring-buffered,
-warp-specialised backward: a stage read one tile late (lse, delta or dO),
-a diagonal tile left unmasked, a ragged tile filled from the next head's
-rows instead of zeros. Imports no JAX.
+warp-specialised kernel: in the backward a stage read one tile late (lse,
+delta or dO), a diagonal tile left unmasked, a ragged tile filled from the
+next head's rows instead of zeros; in the forward a K/V stage read one tile
+late, the second consumer warpgroup's rows given the first's softmax
+state, a ragged q block's rows past seq stored over the next head's first
+rows. Imports no JAX.
 """
 
 import math
@@ -21,7 +24,9 @@ import torch
 from k8s_device_plugin_tpu_torch.ops import attention as tattn
 
 SHAPE = (1, 2, 2048, 128)  # one batch row, two heads, of the bench shape
+RAGGED = (1, 3, 100, 128)  # seq 100: the second 64-row q tile runs 28 rows past seq
 TILE = 64
+BLOCK = 128  # q rows of a forward block: two consumer warpgroups of 64
 # A ring stage read one tile late in the dK/dV kernel: dS built from the
 # previous q tile's lse or delta, or dO taken from the previous stage.
 STALE_STAGE_FAULTS = ("dkv_stale_lse_stage", "dkv_stale_delta_stage", "dkv_stale_do_stage")
@@ -35,10 +40,13 @@ def inputs():
     return q, k, v, do, o, lse
 
 
-def _tiled_forward(q, k, v, rescale_acc=True, causal_offset=0, last_tile_weight=1.0):
+def _tiled_forward(q, k, v, rescale_acc=True, causal_offset=0, last_tile_weight=1.0,
+                   stale_kv=False, shared_state=False):
     """Online softmax over 64-key tiles, as the forward kernel runs it; the
     keyword arguments inject faults."""
     n, d = q.shape[-2:]
+    if stale_kv:
+        k, v = _previous_tile(k), _previous_tile(v)
     qf = q.float()
     rows = torch.arange(n)[:, None]
     m = torch.full((*q.shape[:-1], 1), -math.inf)
@@ -49,15 +57,44 @@ def _tiled_forward(q, k, v, rescale_acc=True, causal_offset=0, last_tile_weight=
         s = (1.0 / math.sqrt(d)) * (qf @ k[..., t0:t0 + TILE, :].float().transpose(-1, -2))
         s = s.masked_fill(cols > rows + causal_offset, tattn.NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        if shared_state:
+            m_new = _first_warpgroup_rows(m_new)
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         # The tile that holds each row's diagonal is its last one.
         weight = torch.where((rows // TILE) == t0 // TILE, last_tile_weight, 1.0)
         pv = p.to(v.dtype).float() @ v[..., t0:t0 + TILE, :].float()
         l = alpha * l + p.sum(-1, keepdim=True)
+        if shared_state:
+            l = _first_warpgroup_rows(l)
         acc = (alpha * acc if rescale_acc else acc) + weight * pv
         m = m_new
     return (acc / l).to(q.dtype)
+
+
+def _first_warpgroup_rows(t):
+    """``t`` (rows on dim -2) with rows 64..127 of every 128-row block
+    replaced by rows 0..63: the second consumer warpgroup of a forward block
+    given the first's softmax state (running max or denominator)."""
+    rows = torch.arange(t.shape[-2])
+    return t[..., torch.where(rows % BLOCK >= TILE, rows - TILE, rows), :]
+
+
+def _fwd_ragged_spill(q, k, v):
+    """O as a forward computes it that stores whole 128-row q blocks through
+    the flattened (b*h*seq, d) view: each head's rows past seq (zero q rows,
+    attending causally over zero-filled keys) land on the next head's first
+    rows, after that head's own stores."""
+    b, h, n, d = q.shape
+    extra = -n % BLOCK
+
+    def pad(t):
+        return torch.cat([t, t.new_zeros(b, h, extra, d)], dim=2)
+
+    o_pad, _ = tattn.flash_attention_fwd_plain(pad(q), pad(k), pad(v))
+    o = o_pad[..., :n, :].reshape(b * h, n, d).clone()
+    o[1:, :extra] = o_pad[..., n:, :].reshape(b * h, extra, d)[:-1]
+    return o.reshape(b, h, n, d)
 
 
 def _previous_tile(t):
@@ -122,16 +159,23 @@ def test_rule_passes_correct_stand_ins(inputs):
 @pytest.mark.parametrize(
     "fault",
     ["fwd_no_acc_rescale", "fwd_causal_off_by_one", "fwd_diagonal_tile_weight",
-     "no_delta", "dq_skips_diagonal_tile", "dkv_skips_last_q_tile",
+     "fwd_stale_kv_stage", "fwd_second_warpgroup_shares_state",
+     "fwd_ragged_rows_into_next_head", "no_delta", "dq_skips_diagonal_tile", "dkv_skips_last_q_tile",
      *STALE_STAGE_FAULTS, "diagonal_tile_unmasked"],
 )
 def test_rule_rejects_kernel_faults(inputs, fault):
     q, k, v, do, o, lse = inputs
-    if fault.startswith("fwd_"):
+    if fault == "fwd_ragged_rows_into_next_head":
+        gen = torch.Generator().manual_seed(1)
+        rq, rk, rv = (torch.randn(RAGGED, generator=gen).to(torch.bfloat16) for _ in range(3))
+        outs = [(_fwd_ragged_spill(rq, rk, rv), tattn.flash_attention_fwd_plain(rq, rk, rv)[0])]
+    elif fault.startswith("fwd_"):
         kw = {
             "fwd_no_acc_rescale": dict(rescale_acc=False),
             "fwd_causal_off_by_one": dict(causal_offset=1),
             "fwd_diagonal_tile_weight": dict(last_tile_weight=1.01),
+            "fwd_stale_kv_stage": dict(stale_kv=True),
+            "fwd_second_warpgroup_shares_state": dict(shared_state=True),
         }[fault]
         outs = [(_tiled_forward(q, k, v, **kw), o)]
     else:
@@ -140,9 +184,6 @@ def test_rule_rejects_kernel_faults(inputs, fault):
         outs = zip(_backward(q, k, v, o, lse, do, fault=fault), plain)
     verdicts = [tattn.bf16_agreement(got, want) for got, want in outs]
     assert not all(a["ok"] for a in verdicts), verdicts
-
-
-RAGGED = (1, 3, 100, 128)  # seq 100: the second 64-row q tile runs 28 rows past seq
 
 
 def _dkv_padded(q, k, v, lse, do, delta, fill):
