@@ -11,8 +11,10 @@ caught while the run goes on:
 3. Kernels vs plain: each hand-written kernel against its own plain
    PyTorch version on the card, element by element (``bf16_agreement`` in
    ``ops/attention.py``). The flash kernels (forward, the backward's delta
-   prepass, dQ, dK/dV) at the bench shape (8, 16, 2048, 128) and a ragged
-   one (2, 4, 100, 64), bf16, with dQ and dK/dV given the prepass's delta
+   prepass, dQ, dK/dV) at the bench shape (8, 16, 2048, 128), the
+   multi-step path's (4, 16, 2048, 128) and a ragged one (2, 4, 100, 64),
+   bf16 (timed at the bench shape only), with dQ and dK/dV given the
+   prepass's delta
    as the main path runs them, and delta (f32) within relative 1e-5; then
    one line setting the three backward kernels beside SDPA's backward (the
    forward's line carries its own ratio to SDPA's forward).
@@ -31,17 +33,36 @@ caught while the run goes on:
    ``use_pallas_norm=True``: the RMSNorm kernel must launch 9 times per
    step (two norms per block and the final one) and each flash kernel 4.
    Its step time, tokens/s and MFU are printed beside phase 5's.
-7. Microbench: ``run_microbench(tier="full")`` at its defaults (attention
+7. Multi-step path: ``run_smoke`` at ``ModelConfig.bench()`` as the JAX
+   bench leg drives it, cut to 24 steps (batch 4, ``inner_steps`` 8, so
+   each call replays a CUDA graph of the step, and the chunked-CE A/B at
+   chunk 4096 on a second graph), counts set to 0 just before and read
+   just after. It must report ok with ``ab.vs_plain_step`` and no
+   ``ab.error``, and each flash kernel must have launched ``n_layers``
+   times per step actually run (main and A/B, replays included). Then,
+   from one seed and one stack, 8 graphed steps against 8 eager steps:
+   every loss within 1e-6 relative. Its line
+   carries the gaps, the capture times, the peak device memory, and the
+   eager step's time at the same batch (a single-step ``run_smoke`` just
+   before, outside the counted window).
+8. Generation: ``run_generation_smoke`` at ``ModelConfig.bench()`` widths,
+   batch 8, prompt 256, 32 new tokens, counts set to 0 around each call:
+   (a) dense attention, whose KV decoder must be ok (prefill logits within
+   0.1 of the full forward's) with no flash launch; (b) flash attention
+   with ``use_pallas_norm``, forward only: ``flash_fwd`` exactly
+   ``n_layers`` x 32 launches, ``rmsnorm`` (2 ``n_layers`` + 1) x 32, no
+   backward kernel, the prompt preserved. Tokens/s of each decoder.
+9. Microbench: ``run_microbench(tier="full")`` at its defaults (attention
    seq 8192 and 2048, chunked CE 8192 x 2048 x 32768 with chunk 4096,
    RMSNorm (8192, 4096), matmul 4096). It must report ok, no suspect
    timing and no case or side in error or skipped, and must have launched
    every kernel.
 
 Then one ``{"kernels": [...]}`` line (each kernel's launches from the path
-that runs it: K1-K3 from phase 5, K4 from phase 6) and, last, the device
-line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
-result, when CUDA is not available or the port's package is not beside
-this file.
+that runs it: K1-K3 from phase 5, K4 from phase 6; every path's counts
+under ``launches_by_path``) and, last, the device line ``{"ok": true,
+"device": {...}}``. Exits non-zero, printing no result, when CUDA is not
+available or the port's package is not beside this file.
 """
 
 from __future__ import annotations
@@ -60,6 +81,9 @@ ROOT = Path(__file__).resolve().parent
 PACKAGE = ROOT / "k8s_device_plugin_tpu_torch"
 
 BENCH_SHAPE = (8, 16, 2048, 128)
+# The bench widths at the multi-step path's batch 4: the persistent forward
+# deals its (b*h, q block) items to the blocks differently at b*h = 64.
+MULTI_STEP_SHAPE = (4, 16, 2048, 128)
 RAGGED_SHAPE = (2, 4, 100, 64)
 # bf16 outputs are held element by element to the rule of
 # ops/attention.py (A.bf16_agreement); lse is f32 in both versions.
@@ -208,7 +232,7 @@ def phase_kernels() -> dict:
     from k8s_device_plugin_tpu_torch.ops import attention as A
 
     entries = {}
-    for shape in (RAGGED_SHAPE, BENCH_SHAPE):
+    for shape in (RAGGED_SHAPE, MULTI_STEP_SHAPE, BENCH_SHAPE):
         gen = torch.Generator(device="cuda").manual_seed(sum(shape))
         q, k, v, do = (
             torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
@@ -478,6 +502,138 @@ def phase_norm_path(main_report: dict) -> tuple[dict, int]:
     return launches, steps
 
 
+# The JAX bench leg's multi-step smoke (--batch-per-device 4 --inner-steps 40
+# --ab-xent-chunk 4096), cut from 80 to 24 steps and 8 steps a call. The
+# stack's 8 distinct random batches are learnt slowly: the mean loss of the
+# second pass over them rises above the first loss (Adam's first steps at
+# lr 1e-3 grow the logits) and comes back under it only from the fourth,
+# so 16 steps (three passes) would fail the falling-loss check.
+MULTI_STEP = dict(steps=24, batch_per_device=4, inner_steps=8, ab_xent_chunk=4096)
+# The replays run the eager step's kernels on the same inputs, and no kernel
+# of the step sums with atomics: every reading so far was equal bit for bit.
+GRAPH_RTOL = 1e-6
+GENERATION = dict(batch=8, prompt_len=256, steps=32, seed=0)
+DECODE_LOGITS_TOL = 0.1  # the JAX generation smoke's bf16 tolerance
+
+
+def phase_multi_step() -> tuple[dict, int]:
+    """The multi-step path (CUDA graphs of the step) with the chunked-CE
+    A/B, then graphed against eager steps from one seed."""
+    from k8s_device_plugin_tpu_torch.ops import LAUNCHES, reset_launches
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
+    from k8s_device_plugin_tpu_torch.workload.smoke import run_smoke
+
+    cfg = ModelConfig.bench()
+    # The eager step at the same batch, for the graph's step time.
+    eager = run_smoke(cfg=cfg, device="cuda", steps=MULTI_STEP["steps"],
+                      batch_per_device=MULTI_STEP["batch_per_device"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    report = run_smoke(cfg=cfg, device="cuda", emit=emit, **MULTI_STEP)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    emit(report)
+    torch.cuda.empty_cache()
+    ab = report.get("ab", {})
+    if not (report["ok"] and "vs_plain_step" in ab and "error" not in ab):
+        fail(f"multi-step run_smoke not ok: {report}")
+    steps = report["steps_run"]
+    want = {"rmsnorm": 0, **{name: cfg.n_layers * steps for name in FLASH}}
+    if launches != want or report["kernel_launches"] != launches:
+        fail(f"multi-step launches {launches} (reported {report['kernel_launches']}), "
+             f"expected {want} over {steps} steps")
+    gaps = graph_vs_eager(cfg, MULTI_STEP["batch_per_device"], MULTI_STEP["inner_steps"])
+    emit({"multi_step": {k: report[k] for k in (
+              "step_time_s", "tokens_per_s", "mfu", "time_to_first_step_s", "time_to_ready_s",
+              "capture_s", "first_loss", "final_loss", "steps_run")},
+          "eager_step_time_s": eager["step_time_s"],
+          "graph_over_eager_step": report["step_time_s"] / eager["step_time_s"],
+          "ab": ab, "launches": launches,
+          "max_memory_allocated_gib": peak / 2 ** 30,
+          "graph_vs_eager": gaps})
+    return launches, steps
+
+
+def graph_vs_eager(cfg, batch: int, steps: int) -> dict:
+    """``steps`` eager train steps, then as many graphed steps (one call of
+    the multi-step) on a fresh model from the same seed, over one stack:
+    the relative gap of each loss."""
+    from k8s_device_plugin_tpu_torch.workload import train
+
+    gen = torch.Generator().manual_seed(1)
+    stack = torch.randint(0, cfg.vocab_size, (steps, batch, cfg.max_seq_len),
+                          generator=gen).cuda()
+    model, optimizer = train.make_train_state(cfg, "cuda", seed=0)
+    eager = torch.stack([train.train_step(model, optimizer, t) for t in stack]).cpu()
+    del model, optimizer
+    torch.cuda.empty_cache()
+    model, optimizer = train.make_train_state(cfg, "cuda", seed=0)
+    step = train.make_multi_train_step(model, optimizer, steps)
+    graphed = step(stack).cpu()
+    rel = ((graphed - eager).abs() / eager.abs()).tolist()
+    out = {"steps": steps, "warmup_steps": train.WARMUP_STEPS, "capture_s": step.capture_s,
+           "eager_losses": eager.tolist(), "graph_losses": graphed.tolist(), "rel_gaps": rel,
+           "tolerance": f"each <= {GRAPH_RTOL} relative"}
+    del model, optimizer, step
+    torch.cuda.empty_cache()
+    if not max(rel) <= GRAPH_RTOL:
+        fail(f"graphed steps disagree with eager steps: {out}")
+    return out
+
+
+def phase_generation() -> tuple[dict, dict]:
+    """Greedy decoding at the bench widths: the dense KV decoder against the
+    full forward, and the flash + RMSNorm kernel path forward only."""
+    from k8s_device_plugin_tpu_torch.ops import LAUNCHES, reset_launches
+    from k8s_device_plugin_tpu_torch.workload import generate
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig, init_model
+
+    new_tokens = GENERATION["batch"] * GENERATION["steps"]
+    dense = dataclasses.replace(ModelConfig.bench(), use_flash_attention=False)
+    reset_launches()
+    report = generate.run_generation_smoke(dense, device="cuda", **GENERATION)
+    dense_launches = dict(LAUNCHES)
+    torch.cuda.empty_cache()
+    emit({"generation": "dense", "report": report, "launches": dense_launches,
+          "kv_tokens_per_s": new_tokens / report["kv_decode_s"],
+          "full_tokens_per_s": new_tokens / report["full_decode_s"]})
+    if not (report["ok"] is True and report["kv_prefill_logits_maxdiff"] < DECODE_LOGITS_TOL
+            and report["prompt_preserved"] and report["tokens_in_vocab"]):
+        fail(f"dense generation not ok: {report}")
+    if any(dense_launches.values()):
+        fail(f"dense generation launched a kernel: {dense_launches}")
+
+    cfg = dataclasses.replace(ModelConfig.bench(), use_pallas_norm=True)
+    reset_launches()
+    report = generate.run_generation_smoke(cfg, device="cuda", **GENERATION)
+    flash_launches = dict(LAUNCHES)
+    n = GENERATION["steps"]
+    want = {"flash_fwd": cfg.n_layers * n, "flash_dq": 0, "flash_dkv": 0,
+            "flash_bwd_delta": 0, "rmsnorm": (2 * cfg.n_layers + 1) * n}
+    shape = [GENERATION["batch"], GENERATION["prompt_len"] + n]
+    if not (report["prompt_preserved"] and report["tokens_in_vocab"]
+            and report["output_shape"] == shape):
+        fail(f"flash generation not ok: {report}")
+    if flash_launches != want:
+        fail(f"flash generation launches {flash_launches}, expected {want}")
+    # Its tokens/s from one more call after that (warm) one, outside the
+    # counted window.
+    model = init_model(cfg, GENERATION["seed"], "cuda")
+    gen = torch.Generator().manual_seed(GENERATION["seed"] + 1)
+    prompt = torch.randint(0, cfg.vocab_size, (GENERATION["batch"], GENERATION["prompt_len"]),
+                           generator=gen).cuda()
+    t0 = time.monotonic()
+    generate.greedy_generate(model, prompt, n)
+    torch.cuda.synchronize()
+    full_s = time.monotonic() - t0
+    del model
+    torch.cuda.empty_cache()
+    emit({"generation": "flash+pallas_norm", "report": report, "launches": flash_launches,
+          "full_decode_s": full_s, "full_tokens_per_s": new_tokens / full_s})
+    return dense_launches, flash_launches
+
+
 def phase_microbench() -> None:
     """The port's microbench, full tier at its defaults, with the launch
     counts read around it."""
@@ -521,13 +677,18 @@ def main() -> int:
     phase_model()
     main_report, launches, steps = phase_main()
     norm_launches, norm_steps = phase_norm_path(main_report)
+    multi_launches, multi_steps = phase_multi_step()
+    dense_gen, flash_gen = phase_generation()
     phase_microbench()
     path_launches = {name: (launches[name], steps) for name in FLASH}
     path_launches["rmsnorm"] = (norm_launches["rmsnorm"], norm_steps)
+    by_path = {"bench": launches, "norm": norm_launches, "multi_step": multi_launches,
+               "generate_dense": dense_gen, "generate_flash": flash_gen}
     emit({"kernels": [
-        dict(entries[name], launches=n, launches_per_step=n / per)
+        dict(entries[name], launches=n, launches_per_step=n / per,
+             launches_by_path={path: counts[name] for path, counts in by_path.items()})
         for name, (n, per) in path_launches.items()
-    ]})
+    ], "multi_step_steps": multi_steps})
     emit({
         "ok": True,
         "device": {

@@ -21,6 +21,10 @@ where that is not the obvious choice:
 Parameters are always per layer (``blocks.<i>``): PyTorch runs the layer
 loop eagerly, so the config has no ``scan_layers`` option, and
 ``workload/params.py`` unstacks the JAX scanned layout.
+
+Decode mode (``cfg.decode``) takes one position per call and attends over
+an explicit ``KVCache`` (the JAX model's flax "cache" collection), which
+the forward updates in place; ``workload/generate.py`` drives it.
 """
 
 from __future__ import annotations
@@ -64,9 +68,10 @@ class ModelConfig:
     decode: bool = False
 
     def decode_supported(self) -> bool:
-        """Whether this config has a decode-mode (KV cache) equivalent in
-        the JAX reference: the plain dense attention path with per-layer
-        parameters, which is the only layout the port has."""
+        """Whether this config has a decode-mode (KV cache) equivalent, as
+        in the JAX reference: the plain dense attention path with per-layer
+        parameters (the only layout the port has). MoE is excluded because
+        its capacity-based dispatch depends on the sequence length."""
         return not (
             self.use_ring_attention
             or self.use_flash_attention
@@ -75,6 +80,11 @@ class ModelConfig:
         )
 
     def __post_init__(self):
+        if self.decode and not self.decode_supported():
+            raise ValueError(
+                "decode mode supports the plain dense attention path only "
+                "(no ring/flash/pipeline/MoE)"
+            )
         if self.xent_chunk > 0 and self.vocab_size % self.xent_chunk != 0:
             raise ValueError(
                 f"xent_chunk {self.xent_chunk} must divide vocab_size {self.vocab_size}"
@@ -89,8 +99,6 @@ class ModelConfig:
             raise _not_ported("MoE", "'MoE'")
         if self.pipeline_microbatches > 0:
             raise _not_ported("pipeline parallelism", "'Pipeline'")
-        if self.decode:
-            raise _not_ported("decode mode", "'Decoding'")
 
     @staticmethod
     def tiny() -> "ModelConfig":
@@ -178,29 +186,54 @@ class Attention(nn.Module):
             _xavier_uniform((cfg.n_heads, hd, cfg.d_model), generator, device)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, kv=None) -> torch.Tensor:
+        """``kv``: in decode mode, this layer's ``(cache_k, cache_v,
+        position)``; None otherwise."""
         cfg = self.cfg
         dt = cfg.dtype
         x = x.to(dt)
         q = torch.einsum("bsd,dhk->bshk", x, self.wq.to(dt))
         k = torch.einsum("bsd,dhk->bshk", x, self.wk.to(dt))
         v = torch.einsum("bsd,dhk->bshk", x, self.wv.to(dt))
-        if cfg.use_flash_attention:
+        if cfg.decode:
+            out = self._decode_attend(q, k, v, *kv)
+        elif cfg.use_flash_attention:
             # (b,s,h,k) -> (b,h,s,k); flash_attention makes them contiguous.
             out = flash_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
             ).transpose(1, 2)
         else:
-            head_dim = q.shape[-1]
-            scores = torch.einsum("bshk,bthk->bhst", q, k) / torch.sqrt(
-                torch.tensor(head_dim, dtype=dt, device=x.device)
-            )
+            scores = torch.einsum("bshk,bthk->bhst", q, k) / _sqrt_in(q.shape[-1], dt, x.device)
             seq = x.shape[1]
             causal = torch.ones(seq, seq, dtype=torch.bool, device=x.device).tril()
             scores = scores.masked_fill(~causal, -1e9)
             probs = torch.softmax(scores.float(), dim=-1).to(dt)
             out = torch.einsum("bhst,bthk->bshk", probs, v)
         return torch.einsum("bshk,hkd->bsd", out, self.wo.to(dt))
+
+    def _decode_attend(self, q, k, v, cache_k, cache_v, i: int) -> torch.Tensor:
+        """One-position attention over the K/V cache (q, k, v: (b, 1, h,
+        kd)), as the JAX ``_decode_attend``: the new K/V are written at
+        position ``i`` (in place), the scores cover the whole cache and
+        every slot past ``i`` is masked to -1e9."""
+        dt = self.cfg.dtype
+        cache_k[:, i] = k[:, 0]
+        cache_v[:, i] = v[:, 0]
+        scores = torch.einsum("bqhk,bthk->bhqt", q, cache_k) / _sqrt_in(q.shape[-1], dt, q.device)
+        valid = torch.arange(cache_k.shape[1], device=q.device) <= i
+        scores = scores.masked_fill(~valid, -1e9)
+        probs = torch.softmax(scores.float(), dim=-1).to(dt)
+        return torch.einsum("bhqt,bthk->bqhk", probs, cache_v)
+
+
+def _sqrt_in(n: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """``sqrt(n)`` in ``dtype`` (11.3125 for 128 in bf16) as a 0-d tensor on
+    ``device``, the JAX ``jnp.sqrt(jnp.asarray(n, dtype))``. It is made by a
+    fill on the device, so no host-to-device copy is issued (a CUDA graph
+    capture refuses one). A tensor divisor keeps the division a true one on
+    the card: with a Python-float divisor CUDA multiplies by its reciprocal,
+    which can differ from the quotient by one bf16 ulp."""
+    return torch.full((), n, dtype=dtype, device=device).sqrt()
 
 
 class Mlp(nn.Module):
@@ -225,8 +258,8 @@ class Block(nn.Module):
         self.norm2 = Norm(cfg.d_model, device, cfg.use_pallas_norm)
         self.mlp = Mlp(cfg, generator, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.norm1(x))
+    def forward(self, x: torch.Tensor, kv=None) -> torch.Tensor:
+        x = x + self.attn(self.norm1(x), kv)
         return x + self.mlp(self.norm2(x))
 
 
@@ -260,17 +293,62 @@ class TransformerLM(nn.Module):
         )
         self.norm = Norm(cfg.d_model, device, cfg.use_pallas_norm)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Logits; with ``cfg.xent_chunk`` > 0, the final norm's hidden
-        states instead, which the loss unembeds chunk-wise
-        (``ops/xent.py``) without the full logits."""
-        x = embed_tokens(self.cfg, self.embed, self.pos, tokens)
-        for block in self.blocks:
-            x = block(x)
-        x = self.norm(x)
-        if self.cfg.xent_chunk > 0:
+    def hidden_states(self, tokens: torch.Tensor, cache: KVCache | None = None) -> torch.Tensor:
+        """The final norm's output. In decode mode ``tokens`` is one
+        position (batch, 1) and ``cache`` the K/V cache, which this call
+        extends by that position; otherwise no cache is taken."""
+        cfg = self.cfg
+        if not cfg.decode:
+            if cache is not None:
+                raise ValueError("a KV cache is read only in decode mode (cfg.decode)")
+            x = embed_tokens(cfg, self.embed, self.pos, tokens)
+            for block in self.blocks:
+                x = block(x)
+            return self.norm(x)
+        if tokens.shape[1] != 1:
+            raise ValueError(
+                f"decode mode consumes one position per call, got tokens "
+                f"{tuple(tokens.shape)}; the cache position only advances by 1"
+            )
+        if cache is None:
+            raise ValueError("decode mode needs the KV cache (init_cache)")
+        i = cache.pos
+        x = (self.embed[tokens] + self.pos[i][None, None, :]).to(cfg.dtype)
+        for block, cache_k, cache_v in zip(self.blocks, cache.k, cache.v):
+            x = block(x, (cache_k, cache_v, i))
+        cache.pos = i + 1
+        return self.norm(x)
+
+    def forward(self, tokens: torch.Tensor, cache: KVCache | None = None) -> torch.Tensor:
+        """Logits; with ``cfg.xent_chunk`` > 0 outside decode mode, the
+        final norm's hidden states instead, which the loss unembeds
+        chunk-wise (``ops/xent.py``) without the full logits."""
+        x = self.hidden_states(tokens, cache)
+        if self.cfg.xent_chunk > 0 and not self.cfg.decode:
             return x
         return unembed(x, self.embed)
+
+
+@dataclasses.dataclass
+class KVCache:
+    """Decode mode's cache: per layer, K and V of shape (batch,
+    max_seq_len, heads, head_dim) in ``cfg.dtype``, and the position the
+    next token takes. The forward writes into it in place."""
+
+    k: list[torch.Tensor]
+    v: list[torch.Tensor]
+    pos: int = 0
+
+
+def init_cache(cfg: ModelConfig, batch: int, device) -> KVCache:
+    """An empty (zero) cache for ``batch`` sequences of decode-mode
+    ``cfg``."""
+    shape = (batch, cfg.max_seq_len, cfg.n_heads, cfg.d_model // cfg.n_heads)
+
+    def zeros():
+        return [torch.zeros(shape, dtype=cfg.dtype, device=device) for _ in range(cfg.n_layers)]
+
+    return KVCache(zeros(), zeros())
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device=None) -> TransformerLM:

@@ -1,6 +1,6 @@
 """Smoke workload on the CUDA card: validate the allocated device end to
 end and measure training throughput. The counterpart of the JAX package's
-``workload/smoke.py`` (single-step path); the pod entry point is
+``workload/smoke.py``; the pod entry point is
 
     python -m k8s_device_plugin_tpu_torch.workload.smoke --bench
 
@@ -13,8 +13,11 @@ Checks performed:
    kernel's launch count over the run is reported.
 
 ``--xent-chunk N`` trains with the chunked-vocab loss (``ops/xent.py``).
-Not carried yet (ROADMAP.md, Queue 1): inner_steps > 1 with the
-chunked-vocab A/B, and training over more than one device.
+``--inner-steps N`` takes N steps per call of ``train.make_multi_train_step``
+(on the card, replays of one CUDA graph of the step), and
+``--ab-xent-chunk N`` then A/Bs the other cross-entropy formulation in the
+same process. Not carried yet (ROADMAP.md, Queue 1): training over more
+than one device.
 """
 
 from __future__ import annotations
@@ -33,6 +36,9 @@ from . import train
 from .chips import expected_device_count, peak_flops_for
 from .model import ModelConfig
 
+# Interleaved main/variant call pairs of the chunked-CE A/B.
+AB_PAIRS = 3
+
 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
@@ -47,16 +53,33 @@ def run_smoke(
     device: str | torch.device | None = None,
     xent_chunk: int = 0,
     emit=None,
+    inner_steps: int = 1,
+    ab_xent_chunk: int = 0,
 ) -> dict:
-    """Train ``steps`` timed steps after one untimed first step on one
-    device and return the report. ``device`` defaults to the CUDA card
-    (raising when there is none); pass ``device="cpu"`` for the plain
-    PyTorch path. ``xent_chunk`` > 0 sets the config's chunked-vocab loss
-    at that chunk size.
+    """Train on one device and return the report. ``device`` defaults to
+    the CUDA card (raising when there is none); pass ``device="cpu"`` for
+    the plain PyTorch path. ``xent_chunk`` > 0 sets the config's
+    chunked-vocab loss at that chunk size.
+
+    With ``inner_steps`` == 1, ``steps`` timed steps follow one untimed
+    first step. With ``inner_steps`` > 1 every call of
+    ``train.make_multi_train_step`` takes ``inner_steps`` steps over one
+    fixed stack of ``inner_steps`` distinct batches, with one host sync a
+    call; ``steps`` rounds up to whole calls, which follow one untimed
+    first call (on the card: the warm-up steps, the capture of the graph
+    and its first replays).
 
     ``emit``, when given, is called with a snapshot of the report after
-    each milestone (devices up, first step), tagged ``partial``, so a
-    caller that must kill the process keeps the best partial report."""
+    each milestone (devices up, first step, each measured window but the
+    last), tagged ``partial``, so a caller that must kill the process
+    keeps the best partial report. Partial snapshots carry ``ok: None``,
+    except the ``ab_pending`` one, emitted before the A/B below, which
+    carries the final verdict already (only ``ab`` missing).
+
+    ``ab_xent_chunk`` > 0 (with ``inner_steps`` > 1) measures the other
+    cross-entropy formulation on the same model, optimizer and stack,
+    interleaved with the main one (``_ab_xent``); reported under ``ab``
+    with ``vs_plain_step`` (> 1: the chunked loss is faster)."""
     report: dict = {"ok": None}
 
     def _emit(stage: str) -> None:
@@ -80,6 +103,7 @@ def run_smoke(
     cfg = cfg or ModelConfig()
     if xent_chunk:
         cfg = dataclasses.replace(cfg, xent_chunk=xent_chunk)
+    inner_steps = max(inner_steps, 1)
     launches0 = dict(LAUNCHES)
     report.update(
         {
@@ -90,6 +114,7 @@ def run_smoke(
             "expected_devices": expected,
             "devices_match": expected is None or expected == n_devices,
             "time_to_devices_s": round(t_devices, 3),
+            "inner_steps": inner_steps,
             "xent_chunk": cfg.xent_chunk,
         }
     )
@@ -102,60 +127,195 @@ def run_smoke(
     # value below the floor means the computation is wrong.
     loss_floor = math.log(cfg.vocab_size)
     gen = torch.Generator().manual_seed(seed + 1)
-    tokens = torch.randint(
-        0, cfg.vocab_size, (batch, cfg.max_seq_len), generator=gen
-    ).to(dev)
 
-    t1 = time.monotonic()
-    first_loss = float(train.train_step(model, optimizer, tokens))
-    t_first = time.monotonic() - t1
-    report.update(
-        {
-            "time_to_first_step_s": round(t_first, 3),
-            "time_to_ready_s": round(t_first, 3),
-            "first_loss": round(first_loss, 4),
-            "first_loss_floor": round(loss_floor, 4),
-            "first_loss_sane": first_loss > loss_floor - 0.25,
-        }
-    )
-    _emit("first_step")
+    def token_batches(n: int) -> torch.Tensor:
+        return torch.randint(
+            0, cfg.vocab_size, (n, batch, cfg.max_seq_len), generator=gen
+        ).to(dev)
 
-    # The same batch every step: memorising it makes the loss fall even
-    # on a short run (fresh data would pin it at the ln(vocab) floor).
-    _sync(dev)
-    t2 = time.monotonic()
-    loss = torch.tensor(first_loss)
-    for _ in range(steps):
-        loss = train.train_step(model, optimizer, tokens)
-    _sync(dev)
-    step_time = (time.monotonic() - t2) / max(steps, 1)
-    final_loss = float(loss)
+    def note_first_step(first_loss: float, t_first_step: float) -> None:
+        report.update(
+            {
+                "time_to_first_step_s": round(t_first_step, 3),
+                # Until a steady-state rate exists, readiness is the whole
+                # first call; refined after the windows.
+                "time_to_ready_s": round(t_first_step, 3),
+                "first_loss": round(first_loss, 4),
+                "first_loss_floor": round(loss_floor, 4),
+                "first_loss_sane": first_loss > loss_floor - 0.25,
+            }
+        )
+        _emit("first_step")
 
-    flops_step = cfg.train_flops_per_step(batch)
-    peak = peak_flops_for(kind) if dev.type == "cuda" else None
-    mfu = flops_step / step_time / peak if peak else None
-    report.update(
-        {
-            "step_time_s": round(step_time, 5),
-            "tokens_per_s": round(batch * cfg.max_seq_len / step_time, 1),
-            "model_flops_per_step": flops_step,
-            "peak_flops_bf16": peak,
-            "mfu": round(mfu, 4) if mfu is not None else None,
-            "final_loss": round(final_loss, 4),
-            "loss_decreased": final_loss < first_loss,
-            "measured_steps": steps,
-            "kernel_launches": {
-                name: LAUNCHES[name] - launches0[name] for name in LAUNCHES
-            },
-        }
-    )
+    def note_window(loss: float, step_time: float, windows_done: int, windows: int) -> None:
+        flops_step = cfg.train_flops_per_step(batch)
+        peak = peak_flops_for(kind) if dev.type == "cuda" else None
+        mfu = flops_step / step_time / peak if peak else None
+        report.update(
+            {
+                # Readiness, not throughput: the first call takes one step
+                # and then inner_steps - 1 more before the host sees
+                # anything; those run at the steady rate, so they are
+                # subtracted at the measured rate (never below 0).
+                "time_to_ready_s": round(
+                    max(report["time_to_first_step_s"] - (inner_steps - 1) * step_time, 0.0),
+                    3,
+                ),
+                "step_time_s": round(step_time, 5),
+                "tokens_per_s": round(batch * cfg.max_seq_len / step_time, 1),
+                "model_flops_per_step": flops_step,
+                "peak_flops_bf16": peak,
+                "mfu": round(mfu, 4) if mfu is not None else None,
+                "final_loss": round(loss, 4),
+                "loss_decreased": loss < report["first_loss"],
+                "measured_windows": f"{windows_done}/{windows}",
+            }
+        )
+        if windows_done < windows:
+            _emit(f"window_{windows_done}/{windows}")
+
+    stack = mstep = None
+    if inner_steps > 1:
+        mstep = train.make_multi_train_step(model, optimizer, inner_steps)
+        # One fixed stack of inner_steps distinct batches, reused every
+        # call: memorising them makes the loss fall even on a short run
+        # (fresh data would pin it at the ln(vocab) floor).
+        stack = token_batches(inner_steps)
+
+        t1 = time.monotonic()
+        first_loss = float(mstep(stack)[0])
+        note_first_step(first_loss, time.monotonic() - t1)
+        report["capture_s"] = _capture_s(mstep)
+
+        calls = max((steps + inner_steps - 1) // inner_steps, 1)
+        t2 = time.monotonic()
+        for i in range(calls):
+            # The mean over the pass: one batch's loss is noisy, and the
+            # mean sits below the first (pre-update) loss once the stack is
+            # being learned. float() is the window's one host sync.
+            loss = float(mstep(stack).mean())
+            step_time = (time.monotonic() - t2) / ((i + 1) * inner_steps)
+            note_window(loss, step_time, i + 1, calls)
+        measured = calls * inner_steps
+        report["steps_run"] = measured + inner_steps
+    else:
+        # The same batch every step: memorising it makes the loss fall.
+        tokens = token_batches(1)[0]
+        t1 = time.monotonic()
+        first_loss = float(train.train_step(model, optimizer, tokens))
+        note_first_step(first_loss, time.monotonic() - t1)
+
+        _sync(dev)
+        t2 = time.monotonic()
+        loss_t = torch.tensor(first_loss)
+        for _ in range(steps):
+            loss_t = train.train_step(model, optimizer, tokens)
+        _sync(dev)
+        loss = float(loss_t)
+        measured = steps
+        report["steps_run"] = steps + 1
+        note_window(loss, (time.monotonic() - t2) / max(steps, 1), 1, 1)
+    report["measured_steps"] = measured
+
     report["ok"] = (
         bool(report["devices_match"])
         and report["loss_decreased"]
         and report["first_loss_sane"]
-        and math.isfinite(final_loss)
+        and math.isfinite(loss)
     )
+
+    if ab_xent_chunk > 0 and stack is not None:
+        if cfg.xent_chunk not in (0, ab_xent_chunk):
+            # A main run chunked at another size would make the "plain"
+            # side of vs_plain_step a second chunked variant.
+            report["ab"] = {
+                "skipped": f"main xent_chunk {cfg.xent_chunk} != ab chunk "
+                f"{ab_xent_chunk}; vs_plain_step would compare two chunked variants"
+            }
+        else:
+            # The verdict above is final: stream it before the A/B, so a
+            # kill in there costs the A/B alone.
+            _emit("ab_pending")
+            report["ab"] = _ab_xent(
+                model, optimizer, cfg.xent_chunk, stack, inner_steps, ab_xent_chunk,
+                report.get("step_time_s"), mstep,
+            )
+            report["steps_run"] += report["ab"]["steps_run"]
+    elif ab_xent_chunk > 0:
+        report["ab"] = {"skipped": "A/B needs inner_steps > 1 (the multi-step path)"}
+    report["kernel_launches"] = {
+        name: LAUNCHES[name] - launches0[name] for name in LAUNCHES
+    }
     return report
+
+
+def _capture_s(step) -> float | None:
+    """The host time of a graphed step's capture; None for the eager loop."""
+    t = getattr(step, "capture_s", None)
+    return round(t, 3) if t is not None else None
+
+
+def _ab_xent(
+    model, optimizer, main_chunk: int, stack, inner_steps: int, chunk: int,
+    main_step_time, main_step,
+) -> dict:
+    """Measure the other cross-entropy formulation on the same model,
+    optimizer and stack, interleaved with the one the main run used: when
+    the main run trained full-logits, the variant is the chunked CE at
+    ``chunk``; when it trained chunked at ``chunk``, full-logits.
+
+    Interleaved because on a shared card the drift between two sequential
+    phases can exceed the effect: calls alternate main/variant for
+    ``AB_PAIRS`` pairs and each side takes its median. Every call chains
+    from the previous one's parameters and optimizer state (the loss
+    trajectory does not matter to the timing). On the card the variant is
+    a second CUDA graph over the same parameters and optimizer state
+    (``train.GraphedTrainStep`` says how the two hold their gradients and
+    pools).
+
+    ``vs_plain_step`` is plain step time over chunked step time, so > 1
+    means the chunked loss is faster. ``main_phase_step_s`` (the main
+    phase's own windows) is reported for drift, not used in the ratio.
+    ``first_call_s`` is the variant's first call: on the card its warm-up
+    steps, capture and first replays. An exception here becomes ``error``
+    and does not void the run's verdict."""
+    variant_chunk = 0 if main_chunk == chunk else chunk
+    out = {
+        "xent_chunk": chunk,
+        "main_xent_chunk": main_chunk,
+        "variant_xent_chunk": variant_chunk,
+        "interleaved": True,
+        "main_phase_step_s": main_step_time,
+        "steps_run": 0,
+    }
+    try:
+        var_step = train.make_multi_train_step(model, optimizer, inner_steps, variant_chunk)
+        t0 = time.monotonic()
+        first = float(var_step(stack)[0])
+        out["first_call_s"] = round(time.monotonic() - t0, 3)
+        out["capture_s"] = _capture_s(var_step)
+        out["first_loss"] = round(first, 4)
+        out["steps_run"] += inner_steps
+
+        def timed(step_fn) -> float:
+            t = time.monotonic()
+            float(step_fn(stack).mean())  # the call's host sync
+            return (time.monotonic() - t) / inner_steps
+
+        main_ts, var_ts = [], []
+        for _ in range(AB_PAIRS):
+            main_ts.append(timed(main_step))
+            var_ts.append(timed(var_step))
+            out["steps_run"] += 2 * inner_steps
+        main_t = sorted(main_ts)[AB_PAIRS // 2]
+        var_t = sorted(var_ts)[AB_PAIRS // 2]
+        out["step_time_s"] = round(var_t, 5)
+        out["interleaved_main_step_s"] = round(main_t, 5)
+        plain_t, chunked_t = (main_t, var_t) if variant_chunk > 0 else (var_t, main_t)
+        out["vs_plain_step"] = round(plain_t / chunked_t, 3)
+    except Exception as e:  # noqa: BLE001 -- the A/B must not void the run
+        out["error"] = f"{type(e).__name__}: {str(e)[:300]}"
+    return out
 
 
 def main(argv=None) -> int:
@@ -165,6 +325,11 @@ def main(argv=None) -> int:
     p.add_argument("--steps", type=int, default=20)
     p.add_argument("--batch-per-device", type=int, default=8)
     p.add_argument(
+        "--inner-steps", type=int, default=1,
+        help="steps per call of the multi-step dispatch (on the card, replays "
+        "of one CUDA graph of the step; 1 = the eager host loop)",
+    )
+    p.add_argument(
         "--bench", action="store_true",
         help="use the ModelConfig.bench() shape (d_model 2048, seq 2048)",
     )
@@ -172,6 +337,11 @@ def main(argv=None) -> int:
         "--xent-chunk", type=int, default=0,
         help="train with the chunked-vocab CE (ops/xent.py) at this chunk "
         "size (0 = full-logits loss)",
+    )
+    p.add_argument(
+        "--ab-xent-chunk", type=int, default=0,
+        help="after the main measurement, A/B the chunked-vocab CE at this "
+        "chunk size in-process (reports ab.vs_plain_step; needs --inner-steps > 1)",
     )
     p.add_argument(
         "--device", default=None,
@@ -194,6 +364,8 @@ def main(argv=None) -> int:
         device=args.device,
         xent_chunk=args.xent_chunk,
         emit=None if args.no_stream else emit,
+        inner_steps=args.inner_steps,
+        ab_xent_chunk=args.ab_xent_chunk,
     )
     print(json.dumps(report), flush=True)
     return 0 if report["ok"] else 1

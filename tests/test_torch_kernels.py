@@ -236,3 +236,66 @@ def test_rmsnorm_kernel_refuses_what_it_does_not_take(cuda_device):
         trms.rmsnorm_fwd_kernel(wide, torch.ones(8200, device=cuda_device), 1e-6)
     with pytest.raises(ValueError, match="contiguous"):
         trms.rmsnorm_fwd_kernel(torch.zeros(64, 4, device=cuda_device).T, scale, 1e-6)
+
+
+@pytest.mark.cuda
+def test_graphed_steps_match_eager_and_count_replayed_launches(cuda_device):
+    """The multi-step dispatch on the card: a CUDA graph of the step
+    (flash attention, the RMSNorm kernel) against eager steps from the same
+    weights and stack, every loss within 1e-6 relative (the replays run
+    the eager step's kernels on the same inputs, none of which sums with
+    atomics); the capture's own launches are taken back, and each replay
+    adds one step's."""
+    from k8s_device_plugin_tpu_torch.workload import train
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
+
+    cfg = ModelConfig(vocab_size=1024, d_model=256, n_heads=2, n_layers=2, d_ff=1024,
+                      max_seq_len=256, use_flash_attention=True, use_pallas_norm=True)
+    gen = torch.Generator().manual_seed(0)
+    stack = torch.randint(0, cfg.vocab_size, (6, 2, cfg.max_seq_len), generator=gen)
+    stack = stack.to(cuda_device)
+    model, optimizer = train.make_train_state(cfg, cuda_device, seed=1)
+    eager = torch.stack([train.train_step(model, optimizer, t) for t in stack])
+    model, optimizer = train.make_train_state(cfg, cuda_device, seed=1)
+    step = train.make_multi_train_step(model, optimizer, 6)
+    reset_launches()
+    graphed = step(stack)
+    torch.cuda.synchronize()
+    per_step = {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2, "flash_bwd_delta": 2,
+                "rmsnorm": 5}
+    assert isinstance(step, train.GraphedTrainStep) and step.capture_s > 0
+    assert step.launches == per_step
+    assert LAUNCHES == {name: 6 * n for name, n in per_step.items()}
+    rel = ((graphed - eager).abs() / eager.abs()).cpu()
+    assert rel.max() <= 1e-6, rel
+    again = step(stack)  # replays only
+    torch.cuda.synchronize()
+    assert LAUNCHES == {name: 12 * n for name, n in per_step.items()}
+    assert torch.isfinite(again).all() and float(again.mean()) < float(graphed[0])
+
+
+@pytest.mark.cuda
+def test_graphed_step_refuses_a_stack_on_the_cpu(cuda_device):
+    from k8s_device_plugin_tpu_torch.workload import train
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
+
+    model, optimizer = train.make_train_state(ModelConfig.tiny(), cuda_device)
+    step = train.make_multi_train_step(model, optimizer, 2)
+    with pytest.raises(ValueError, match="on the card"):
+        step(torch.zeros(2, 1, 16, dtype=torch.long))
+
+
+@pytest.mark.cuda
+def test_attention_scores_are_divided_truly_on_card(cuda_device):
+    """The dense attention and the KV decoder divide the scores by the bf16
+    sqrt(head_dim), a 0-d tensor on the card: a true division, the f32
+    quotient rounded to bf16, bit for bit. (With a Python-float divisor CUDA
+    multiplies by the reciprocal instead, one bf16 ulp off on some scores.)"""
+    from k8s_device_plugin_tpu_torch.workload.model import _sqrt_in
+
+    gen = torch.Generator().manual_seed(0)
+    scores = (40.0 * torch.randn(1 << 20, generator=gen)).to(torch.bfloat16)
+    divisor = _sqrt_in(128, torch.bfloat16, cuda_device)
+    assert divisor.device.type == "cuda" and float(divisor) == 11.3125
+    want = (scores.float() / 11.3125).to(torch.bfloat16)
+    assert torch.equal((scores.to(cuda_device) / divisor).cpu(), want)

@@ -43,6 +43,17 @@ def test_main_on_cpu_prints_the_report(capsys):
     assert len(lines) == 1 and json.loads(lines[0])["ok"] is True
 
 
+def test_main_takes_the_bench_legs_flags(capsys):
+    """The JAX bench leg's smoke flags: --inner-steps and --ab-xent-chunk."""
+    assert smoke.main(["--device", "cpu", "--steps", "2", "--inner-steps", "2",
+                       "--ab-xent-chunk", "32", "--no-stream"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    report = json.loads(lines[-1])
+    assert len(lines) == 1 and report["ok"] is True and report["inner_steps"] == 2
+    assert report["ab"]["variant_xent_chunk"] == 32 and "vs_plain_step" in report["ab"]
+    assert "error" not in report["ab"]
+
+
 def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -146,7 +157,7 @@ print(len(names), bad)
         [sys.executable, "-c", code], capture_output=True, text=True,
         timeout=120, cwd=ROOT, env=env, check=True,
     ).stdout.split()
-    assert int(out[0]) >= 9  # every module of the port was imported
+    assert int(out[0]) >= 15  # every module of the port, generate.py included, was imported
     assert out[1:] == ["[]"]
 
 
