@@ -28,7 +28,9 @@ caught while the run goes on:
 5. Main path: ``run_smoke`` at ``ModelConfig.bench()`` (10 timed AdamW
    steps, batch 8), with every launch count set to 0 just before and read
    just after; each flash kernel must have launched, and the RMSNorm
-   kernel (off in this config) not at all.
+   kernel (off in this config) not at all. Like every ``run_smoke`` below,
+   it brings up (the first time) a one-rank NCCL process group and trains
+   through a size-1 six-axis mesh, which leaves the model unsharded.
 6. Norm path: the same at ``ModelConfig.bench()`` with
    ``use_pallas_norm=True``: the RMSNorm kernel must launch 9 times per
    step (two norms per block and the final one) and each flash kernel 4.
@@ -57,12 +59,24 @@ caught while the run goes on:
    RMSNorm (8192, 4096), matmul 4096). It must report ok, no suspect
    timing and no case or side in error or skipped, and must have launched
    every kernel.
+10. Sharded path, a world of one: (a) phase 5's report must show the mesh
+   all ones, ``devices_used`` 1 and ok, and its step time is set beside an
+   unsharded eager loop's (same batch, 10 steps after 1, timed here);
+   (b) the same seed's weights with ``apply_tp`` and ``apply_fsdp``
+   applied explicitly over the size-1 axes (FSDP2's all-gather and
+   reduce-scatter over NCCL, the tensor-parallel sums around the flash
+   kernels on local tensors) train 5 steps after 1 on the same tokens:
+   every loss within 1e-5 relative of the unsharded loop's, each flash
+   kernel and delta launched exactly ``n_layers`` x 6 times, with counts set
+   to 0 just before and read just after. Its line carries both step times,
+   the peak device memory and the group's bring-up.
 
 Then one ``{"kernels": [...]}`` line (each kernel's launches from the path
 that runs it: K1-K3 from phase 5, K4 from phase 6; every path's counts
-under ``launches_by_path``) and, last, the device line ``{"ok": true,
-"device": {...}}``. Exits non-zero, printing no result, when CUDA is not
-available or the port's package is not beside this file.
+under ``launches_by_path``, phase 10's as ``sharded``) and, last, the
+device line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
+result, when CUDA is not available or the port's package is not beside
+this file.
 """
 
 from __future__ import annotations
@@ -76,6 +90,7 @@ import time
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 
 ROOT = Path(__file__).resolve().parent
 PACKAGE = ROOT / "k8s_device_plugin_tpu_torch"
@@ -658,6 +673,92 @@ def phase_microbench() -> None:
         fail(f"the microbench did not launch every kernel: {launches}")
 
 
+# Phase 10: steps of the explicitly sharded model after its first, the
+# unsharded loop's timed steps after its first (phase 5's count), and the
+# loss tolerance: a size-1 axis splits nothing, and its collectives copy.
+SHARDED_STEPS = 5
+PLAIN_STEPS = 10
+SHARDED_RTOL = 1e-5
+
+
+def phase_sharded(main_report: dict) -> tuple[dict, int]:
+    """The sharded path on a one-rank NCCL group and a size-1 mesh."""
+    from k8s_device_plugin_tpu_torch.ops import LAUNCHES, reset_launches
+    from k8s_device_plugin_tpu_torch.parallel.mesh import AXES, axis_sizes, make_mesh
+    from k8s_device_plugin_tpu_torch.workload import train
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig, init_model
+
+    ones = {axis: 1 for axis in AXES}
+    if not (main_report["ok"] and main_report["mesh"] == ones
+            and main_report["devices_used"] == 1 and main_report["devices"] == 1):
+        fail(f"the main path's run_smoke did not run on a size-1 mesh: {main_report}")
+    mesh = make_mesh(1, device="cuda")  # the group is up since phase 5
+    if not (axis_sizes(mesh) == ones and dist.get_backend() == "nccl"):
+        fail(f"expected a size-1 mesh over NCCL: {axis_sizes(mesh)}, {dist.get_backend()}")
+    # NCCL builds its communicator at the group's first collective.
+    t0 = time.monotonic()
+    one = torch.ones(1, device="cuda")
+    dist.all_reduce(one)
+    torch.cuda.synchronize()
+    first_collective_s = time.monotonic() - t0
+
+    cfg = ModelConfig.bench()
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (8, cfg.max_seq_len), generator=gen).cuda()
+
+    def steps(model, optimizer, n: int) -> tuple[list, float]:
+        """One untimed step, then n timed: every loss, and s a timed step."""
+        first = float(train.train_step(model, optimizer, tokens))
+        torch.cuda.synchronize()
+        t = time.monotonic()
+        losses = [train.train_step(model, optimizer, tokens) for _ in range(n)]
+        torch.cuda.synchronize()
+        return [first] + [float(x) for x in losses], (time.monotonic() - t) / n
+
+    torch.cuda.reset_peak_memory_stats()
+    model, optimizer = train.make_train_state(cfg, "cuda", seed=0)
+    plain, plain_s = steps(model, optimizer, PLAIN_STEPS)
+    plain_peak = torch.cuda.max_memory_allocated()
+    del model, optimizer
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    model = init_model(cfg, 0, "cuda")
+    train.apply_tp(model, mesh["model"])
+    train.apply_fsdp(model, mesh)
+    optimizer = train.make_optimizer(model)
+    reset_launches()
+    sharded, sharded_s = steps(model, optimizer, SHARDED_STEPS)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    del model, optimizer
+    torch.cuda.empty_cache()
+    n_steps = 1 + SHARDED_STEPS
+    rel = [abs(a - b) / abs(b) for a, b in zip(sharded, plain)]
+    want = {"rmsnorm": 0, **{name: cfg.n_layers * n_steps for name in FLASH}}
+    emit({"sharded": {
+        "mesh": axis_sizes(mesh), "backend": dist.get_backend(),
+        "main_path_mesh": main_report["mesh"],
+        "main_path_step_s": main_report["step_time_s"],
+        "unsharded_step_s": plain_s,
+        "main_over_unsharded_step": main_report["step_time_s"] / plain_s,
+        "sharded_step_s": sharded_s,
+        "sharded_over_unsharded_step": sharded_s / plain_s,
+        "unsharded_losses": plain, "sharded_losses": sharded, "rel_gaps": rel,
+        "tolerance": f"each <= {SHARDED_RTOL} relative",
+        "launches": launches, "steps": n_steps,
+        "max_memory_allocated_gib": peak / 2 ** 30,
+        "unsharded_max_memory_allocated_gib": plain_peak / 2 ** 30,
+        "time_to_mesh_s": main_report["time_to_mesh_s"],
+        "first_collective_s": first_collective_s,
+    }})
+    if not max(rel) <= SHARDED_RTOL:
+        fail(f"the explicitly sharded steps disagree with the unsharded ones: {rel}")
+    if launches != want:
+        fail(f"sharded path launches {launches}, expected {want}")
+    return launches, n_steps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA "
@@ -680,10 +781,13 @@ def main() -> int:
     multi_launches, multi_steps = phase_multi_step()
     dense_gen, flash_gen = phase_generation()
     phase_microbench()
+    sharded_launches, _ = phase_sharded(main_report)
+    dist.destroy_process_group()
     path_launches = {name: (launches[name], steps) for name in FLASH}
     path_launches["rmsnorm"] = (norm_launches["rmsnorm"], norm_steps)
     by_path = {"bench": launches, "norm": norm_launches, "multi_step": multi_launches,
-               "generate_dense": dense_gen, "generate_flash": flash_gen}
+               "generate_dense": dense_gen, "generate_flash": flash_gen,
+               "sharded": sharded_launches}
     emit({"kernels": [
         dict(entries[name], launches=n, launches_per_step=n / per,
              launches_by_path={path: counts[name] for path, counts in by_path.items()})

@@ -39,12 +39,13 @@ def card_spec(device_kind: str) -> CardSpec | None:
     return None
 
 
-def peak_flops_for(device_kind: str) -> float | None:
-    """Dense bf16 peak of one card named ``device_kind``; None when the
-    card is not in the table, so the caller reports ``mfu: None`` instead
-    of dividing."""
+def peak_flops_for(device_kind: str, n_devices: int = 1) -> float | None:
+    """Dense bf16 peak of ``n_devices`` cards named ``device_kind`` (the
+    MFU denominator of a run over all of them); None when the card is not
+    in the table, so the caller reports ``mfu: None`` instead of
+    dividing."""
     spec = card_spec(device_kind)
-    return spec.peak_bf16_flops if spec else None
+    return spec.peak_bf16_flops * n_devices if spec else None
 
 
 def _count(raw: str) -> int | None:

@@ -25,6 +25,17 @@ loop eagerly, so the config has no ``scan_layers`` option, and
 Decode mode (``cfg.decode``) takes one position per call and attends over
 an explicit ``KVCache`` (the JAX model's flax "cache" collection), which
 the forward updates in place; ``workload/generate.py`` drives it.
+
+Tensor parallelism (``train.apply_tp``): ``PARAM_AXES`` holds each
+parameter's logical axes, as the JAX model's ``param_with_axes`` names
+them. Where the ``model`` mesh axis splits the heads or the MLP, each rank
+holds its slice of the weights, and the block runs on its local heads or
+its local ``mlp`` columns between Megatron's pair of functions: an identity
+forward whose backward sums the input gradient over the axis
+(``_CopyToModel``), and a sum over the axis after ``wo`` and ``w2`` whose
+backward is the identity (``_ReduceFromModel``). The split embedding is
+gathered whole (``TransformerLM.tied_embedding``) for the lookup, the
+unembed and the chunked CE.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -41,6 +53,88 @@ from ..ops import flash_attention
 from ..ops.rmsnorm import rmsnorm
 
 RMS_EPS = 1e-6  # flax nn.RMSNorm's default
+
+# Each parameter's logical axes, by its name inside ``blocks.<i>`` or the
+# root, from the JAX model (model.py:233-248, 340-344, 402-407). The norm
+# scale's ("embed",) holds under ``use_pallas_norm`` only (model.py:37-40):
+# flax's nn.RMSNorm scale has no axes and stays replicated.
+PARAM_AXES = {
+    "attn.wq": ("embed", "heads", "kv"),
+    "attn.wk": ("embed", "heads", "kv"),
+    "attn.wv": ("embed", "heads", "kv"),
+    "attn.wo": ("heads", "kv", "embed"),
+    "mlp.w1": ("embed", "mlp"),
+    "mlp.w2": ("mlp", "embed"),
+    "embed": ("vocab", "embed"),
+    "pos": ("seq", "embed"),
+}
+PALLAS_NORM_AXES = ("embed",)
+
+
+def param_axes(cfg: "ModelConfig", name: str) -> tuple[str, ...] | None:
+    """The logical axes of parameter ``name`` of ``TransformerLM(cfg)``;
+    None where the JAX model gives it none (flax's norm scale)."""
+    if name.endswith("scale"):
+        return PALLAS_NORM_AXES if cfg.use_pallas_norm else None
+    return PARAM_AXES[name.split(".", 2)[2] if name.startswith("blocks.") else name]
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f at a split block's input: the identity forward; the
+    backward sums the input gradient over the model axis, since each rank
+    backpropagates through its own heads or columns only."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.contiguous().clone()
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g after ``wo`` and ``w2``: the sum of the ranks' partial
+    outputs over the model axis; the backward is the identity (every rank
+    of the axis computes the same loss, so each already holds the whole
+    gradient of the sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The whole tensor from the ranks' slices along ``dim`` over the model
+    axis; the backward keeps this rank's slice of the (replicated)
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.cat(parts, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n, rank = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
+        return grad.chunk(n, ctx.dim)[rank].contiguous(), None, None
+
+
+def gather_split(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The whole tensor of which each rank of the model axis ``group``
+    holds a slice along ``dim`` (differentiable)."""
+    return _GatherFromModel.apply(x, group, dim)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -185,6 +279,9 @@ class Attention(nn.Module):
         self.wo = nn.Parameter(
             _xavier_uniform((cfg.n_heads, hd, cfg.d_model), generator, device)
         )
+        # The model axis's group when apply_tp split the heads; the head
+        # count is then the weights' own, never cfg.n_heads.
+        self.tp_group = None
 
     def forward(self, x: torch.Tensor, kv=None) -> torch.Tensor:
         """``kv``: in decode mode, this layer's ``(cache_k, cache_v,
@@ -192,6 +289,8 @@ class Attention(nn.Module):
         cfg = self.cfg
         dt = cfg.dtype
         x = x.to(dt)
+        if self.tp_group is not None:
+            x = _CopyToModel.apply(x, self.tp_group)
         q = torch.einsum("bsd,dhk->bshk", x, self.wq.to(dt))
         k = torch.einsum("bsd,dhk->bshk", x, self.wk.to(dt))
         v = torch.einsum("bsd,dhk->bshk", x, self.wv.to(dt))
@@ -209,7 +308,10 @@ class Attention(nn.Module):
             scores = scores.masked_fill(~causal, -1e9)
             probs = torch.softmax(scores.float(), dim=-1).to(dt)
             out = torch.einsum("bhst,bthk->bshk", probs, v)
-        return torch.einsum("bshk,hkd->bsd", out, self.wo.to(dt))
+        out = torch.einsum("bshk,hkd->bsd", out, self.wo.to(dt))
+        if self.tp_group is not None:
+            out = _ReduceFromModel.apply(out, self.tp_group)
+        return out
 
     def _decode_attend(self, q, k, v, cache_k, cache_v, i: int) -> torch.Tensor:
         """One-position attention over the K/V cache (q, k, v: (b, 1, h,
@@ -242,12 +344,17 @@ class Mlp(nn.Module):
         self.cfg = cfg
         self.w1 = nn.Parameter(_xavier_uniform((cfg.d_model, cfg.d_ff), generator, device))
         self.w2 = nn.Parameter(_xavier_uniform((cfg.d_ff, cfg.d_model), generator, device))
+        self.tp_group = None  # the model axis's group when apply_tp split the mlp columns
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.cfg.dtype
         x = x.to(dt)
-        h = F.gelu(x @ self.w1.to(dt), approximate="tanh")
-        return h @ self.w2.to(dt)
+        if self.tp_group is not None:
+            x = _CopyToModel.apply(x, self.tp_group)
+        out = F.gelu(x @ self.w1.to(dt), approximate="tanh") @ self.w2.to(dt)
+        if self.tp_group is not None:
+            out = _ReduceFromModel.apply(out, self.tp_group)
+        return out
 
 
 class Block(nn.Module):
@@ -292,6 +399,18 @@ class TransformerLM(nn.Module):
             Block(cfg, generator, device) for _ in range(cfg.n_layers)
         )
         self.norm = Norm(cfg.d_model, device, cfg.use_pallas_norm)
+        # Set by train.apply_tp: the model axis's group, and the dim each
+        # split parameter is split along, by name.
+        self.tp_group = None
+        self.tp_dims: dict[str, int] = {}
+
+    def tied_embedding(self) -> torch.Tensor:
+        """The whole (vocab, d_model) embedding: the parameter itself, or,
+        where tensor parallelism split the vocabulary, gathered over the
+        model axis."""
+        if "embed" in self.tp_dims:
+            return gather_split(self.embed, self.tp_group, self.tp_dims["embed"])
+        return self.embed
 
     def hidden_states(self, tokens: torch.Tensor, cache: KVCache | None = None) -> torch.Tensor:
         """The final norm's output. In decode mode ``tokens`` is one
@@ -301,7 +420,7 @@ class TransformerLM(nn.Module):
         if not cfg.decode:
             if cache is not None:
                 raise ValueError("a KV cache is read only in decode mode (cfg.decode)")
-            x = embed_tokens(cfg, self.embed, self.pos, tokens)
+            x = embed_tokens(cfg, self.tied_embedding(), self.pos, tokens)
             for block in self.blocks:
                 x = block(x)
             return self.norm(x)
@@ -326,7 +445,7 @@ class TransformerLM(nn.Module):
         x = self.hidden_states(tokens, cache)
         if self.cfg.xent_chunk > 0 and not self.cfg.decode:
             return x
-        return unembed(x, self.embed)
+        return unembed(x, self.tied_embedding())
 
 
 @dataclasses.dataclass

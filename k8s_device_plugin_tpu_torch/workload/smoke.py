@@ -1,23 +1,33 @@
-"""Smoke workload on the CUDA card: validate the allocated device end to
+"""Smoke workload on the CUDA cards: validate the allocated devices end to
 end and measure training throughput. The counterpart of the JAX package's
 ``workload/smoke.py``; the pod entry point is
 
     python -m k8s_device_plugin_tpu_torch.workload.smoke --bench
 
+It trains over every card it is given, one rank per card: with more than
+one visible card, or on a multi-host slice (``TPU_WORKER_HOSTNAMES``),
+``main`` starts a rank per local card against one store
+(``parallel/distributed.py``), rank 0 streams the report, and a rank that
+fails stops them all. With one card it runs in its own process, a world of
+one.
+
 Checks performed:
-1. torch initialises CUDA and sees the device count the allocation promised
-   (CUDA_VISIBLE_DEVICES / NVIDIA_VISIBLE_DEVICES / TPU_PLUGIN_ALLOCATED_CHIPS);
-2. the transformer LM trains a few AdamW steps on one device, its first
-   loss is not below ln(vocab) and the loss decreases;
-3. step time, tokens/s and MFU are measured, and each hand-written
-   kernel's launch count over the run is reported.
+1. torch initialises CUDA, the ranks join one process group and build the
+   six-axis mesh over it, and the world matches the device count the
+   allocation promised this host (CUDA_VISIBLE_DEVICES /
+   NVIDIA_VISIBLE_DEVICES / TPU_PLUGIN_ALLOCATED_CHIPS);
+2. the transformer LM, sharded over the mesh, trains a few AdamW steps on
+   a global batch of ``batch_per_device`` x world rows; its first loss is
+   not below ln(vocab) and the loss decreases;
+3. step time, tokens/s and MFU (over the world's peak) are measured, and
+   each hand-written kernel's launch count over the run (on rank 0) is
+   reported.
 
 ``--xent-chunk N`` trains with the chunked-vocab loss (``ops/xent.py``).
 ``--inner-steps N`` takes N steps per call of ``train.make_multi_train_step``
-(on the card, replays of one CUDA graph of the step), and
-``--ab-xent-chunk N`` then A/Bs the other cross-entropy formulation in the
-same process. Not carried yet (ROADMAP.md, Queue 1): training over more
-than one device.
+(on the card, replays of one CUDA graph of the step of an unsharded
+model), and ``--ab-xent-chunk N`` then A/Bs the other cross-entropy
+formulation in the same process.
 """
 
 from __future__ import annotations
@@ -25,19 +35,26 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
 import sys
 import time
 
 import torch
+import torch.distributed as dist
 
 from ..device import resolve_device
 from ..ops import LAUNCHES
+from ..ops._build import build_all
+from ..parallel import distributed
+from ..parallel.mesh import axis_sizes, batch_shard, make_mesh
 from . import train
 from .chips import expected_device_count, peak_flops_for
 from .model import ModelConfig
 
 # Interleaved main/variant call pairs of the chunked-CE A/B.
 AB_PAIRS = 3
+# Seconds the launcher gives its ranks to finish the whole run.
+SMOKE_TIMEOUT_S = 3600.0
 
 
 def _sync(device: torch.device) -> None:
@@ -56,10 +73,18 @@ def run_smoke(
     inner_steps: int = 1,
     ab_xent_chunk: int = 0,
 ) -> dict:
-    """Train on one device and return the report. ``device`` defaults to
-    the CUDA card (raising when there is none); pass ``device="cpu"`` for
-    the plain PyTorch path. ``xent_chunk`` > 0 sets the config's
-    chunked-vocab loss at that chunk size.
+    """Train over every rank of the process group and return the report
+    (every rank returns it). ``device`` defaults to the CUDA card of this
+    rank (raising when there is none); pass ``device="cpu"`` for the plain
+    PyTorch path over gloo. Outside a launcher's rank the world is this
+    process alone. ``xent_chunk`` > 0 sets the config's chunked-vocab loss
+    at that chunk size.
+
+    The mesh is ``factorize``'s over the world, the global batch
+    ``batch_per_device`` x world rows, drawn whole from the seed on every
+    rank, of which each rank trains its own (a world of one trains the
+    rows a one-device run trains). ``time_to_mesh_s`` is the process
+    group's and the mesh's bring-up.
 
     With ``inner_steps`` == 1, ``steps`` timed steps follow one untimed
     first step. With ``inner_steps`` > 1 every call of
@@ -69,10 +94,10 @@ def run_smoke(
     first call (on the card: the warm-up steps, the capture of the graph
     and its first replays).
 
-    ``emit``, when given, is called with a snapshot of the report after
-    each milestone (devices up, first step, each measured window but the
-    last), tagged ``partial``, so a caller that must kill the process
-    keeps the best partial report. Partial snapshots carry ``ok: None``,
+    ``emit``, when given, is called on rank 0 with a snapshot of the
+    report after each milestone (devices up, first step, each measured
+    window but the last), tagged ``partial``, so a caller that must kill
+    the process keeps the best partial report. Partial snapshots carry ``ok: None``,
     except the ``ab_pending`` one, emitted before the A/B below, which
     carries the final verdict already (only ``ab`` missing).
 
@@ -83,22 +108,27 @@ def run_smoke(
     report: dict = {"ok": None}
 
     def _emit(stage: str) -> None:
-        if emit is not None:
+        if emit is not None and dist.get_rank() == 0:
             snap = dict(report)
             snap["partial"] = stage
             emit(snap)
 
     t0 = time.monotonic()
-    dev = resolve_device(device)
+    dev = distributed.local_device(device)
     if dev.type == "cuda":
         torch.cuda.init()
-        n_devices = torch.cuda.device_count()
         torch.empty(1, device=dev)  # the context is up
         kind = torch.cuda.get_device_name(dev)
     else:
-        n_devices, kind = 1, "cpu"
+        kind = "cpu"
     t_devices = time.monotonic() - t0
+    distributed.initialize(dev)
+    world = dist.get_world_size()
+    mesh = make_mesh(world, device=dev)
+    t_mesh = time.monotonic() - t0 - t_devices
     expected = expected_device_count() if dev.type == "cuda" else None
+    # The allocation counts this host's cards: the world on one host.
+    local_world = int(os.environ.get("LOCAL_WORLD_SIZE", world))
 
     cfg = cfg or ModelConfig()
     if xent_chunk:
@@ -108,20 +138,22 @@ def run_smoke(
     report.update(
         {
             "backend": dev.type,
-            "devices": n_devices,
-            "devices_used": 1,
+            "devices": world,
+            "devices_used": world,
             "device_kind": kind,
             "expected_devices": expected,
-            "devices_match": expected is None or expected == n_devices,
+            "devices_match": expected is None or expected == local_world,
+            "mesh": axis_sizes(mesh),
             "time_to_devices_s": round(t_devices, 3),
+            "time_to_mesh_s": round(t_mesh, 3),
             "inner_steps": inner_steps,
             "xent_chunk": cfg.xent_chunk,
         }
     )
     _emit("devices_up")
 
-    model, optimizer = train.make_train_state(cfg, dev, seed)
-    batch = batch_per_device
+    model, optimizer = train.make_train_state(cfg, dev, seed, mesh=mesh)
+    batch = batch_per_device * world
     # Tokens are uniform random, so the step-1 loss of an untrained model
     # cannot be below ln(vocab) (cross entropy vs independent logits); a
     # value below the floor means the computation is wrong.
@@ -129,9 +161,9 @@ def run_smoke(
     gen = torch.Generator().manual_seed(seed + 1)
 
     def token_batches(n: int) -> torch.Tensor:
-        return torch.randint(
-            0, cfg.vocab_size, (n, batch, cfg.max_seq_len), generator=gen
-        ).to(dev)
+        """``n`` global batches, this rank's rows of each."""
+        full = torch.randint(0, cfg.vocab_size, (n, batch, cfg.max_seq_len), generator=gen)
+        return batch_shard(full, mesh, dim=1).to(dev)
 
     def note_first_step(first_loss: float, t_first_step: float) -> None:
         report.update(
@@ -149,7 +181,7 @@ def run_smoke(
 
     def note_window(loss: float, step_time: float, windows_done: int, windows: int) -> None:
         flops_step = cfg.train_flops_per_step(batch)
-        peak = peak_flops_for(kind) if dev.type == "cuda" else None
+        peak = peak_flops_for(kind, world) if dev.type == "cuda" else None
         mfu = flops_step / step_time / peak if peak else None
         report.update(
             {
@@ -186,6 +218,7 @@ def run_smoke(
         first_loss = float(mstep(stack)[0])
         note_first_step(first_loss, time.monotonic() - t1)
         report["capture_s"] = _capture_s(mstep)
+        report["graphed"] = isinstance(mstep, train.GraphedTrainStep)
 
         calls = max((steps + inner_steps - 1) // inner_steps, 1)
         t2 = time.monotonic()
@@ -247,6 +280,15 @@ def run_smoke(
         name: LAUNCHES[name] - launches0[name] for name in LAUNCHES
     }
     return report
+
+
+def _rank_smoke(kwargs: dict, stream: bool) -> dict:
+    """One rank's ``run_smoke`` under ``main``'s launcher."""
+    return run_smoke(**kwargs, emit=_print_json if stream else None)
+
+
+def _print_json(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
 
 
 def _capture_s(step) -> float | None:
@@ -353,21 +395,31 @@ def main(argv=None) -> int:
         "report line is always printed)",
     )
     args = p.parse_args(argv)
-
-    def emit(snapshot: dict) -> None:
-        print(json.dumps(snapshot), flush=True)
-
-    report = run_smoke(
+    kwargs = dict(
         steps=args.steps,
         cfg=ModelConfig.bench() if args.bench else None,
         batch_per_device=args.batch_per_device,
         device=args.device,
         xent_chunk=args.xent_chunk,
-        emit=None if args.no_stream else emit,
         inner_steps=args.inner_steps,
         ab_xent_chunk=args.ab_xent_chunk,
     )
-    print(json.dumps(report), flush=True)
+    stream = not args.no_stream
+    env = distributed.slice_env()
+    local = torch.cuda.device_count() if resolve_device(args.device).type == "cuda" else 1
+    if "WORLD_SIZE" in os.environ or (local == 1 and (env is None or env.num_hosts == 1)):
+        try:
+            report = _rank_smoke(kwargs, stream)  # this process is the rank
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+    else:
+        if local > 1:
+            build_all()  # once, before the ranks would each build
+        # One rank per local card; this host's first rank's report.
+        report = distributed.spawn_local(_rank_smoke, local, args.device, (kwargs, stream),
+                                         env=env, timeout_s=SMOKE_TIMEOUT_S)[0]
+    _print_json(report)
     return 0 if report["ok"] else 1
 
 

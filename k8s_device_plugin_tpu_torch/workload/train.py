@@ -1,14 +1,19 @@
-"""Single-device training step for the smoke workload: the counterpart of
-the JAX package's ``workload/train.py`` (full-logits or chunked-vocab
-loss, AdamW), with its multi-step dispatch.
+"""The training step of the smoke workload, on one device or sharded over
+a mesh: the counterpart of the JAX package's ``workload/train.py``
+(full-logits or chunked-vocab loss, AdamW), with its multi-step dispatch.
+
+Sharding follows the JAX ``param_shardings``: each parameter's logical
+axes map to mesh axes through ``LOGICAL_AXIS_RULES``, a mesh axis that
+does not divide its dim is dropped, and ``shard_model`` applies tensor
+parallelism over ``model`` (``apply_tp``), then FSDP2 over ``fsdp``, with
+``data`` as the replicated dim of HSDP (``apply_fsdp``). Each applies only
+over an axis larger than 1, so a size-1 mesh leaves the model as it is.
+``train_step`` returns the loss's global mean over the batch.
 
 ``make_multi_train_step`` takes ``inner_steps`` real, sequential AdamW
-updates per call, as the JAX ``lax.scan`` does. On the card the step is a
-CUDA graph, captured once and replayed for every step; on the CPU it is
-the eager loop of ``train_step``.
-
-Sharding over a mesh is not carried by this port yet (ROADMAP.md, Queue 1:
-'Mesh + fsdp/tp sharding').
+updates per call, as the JAX ``lax.scan`` does. On the card the step of an
+unsharded model is a CUDA graph, captured once and replayed for every
+step; a sharded model and the CPU take the eager loop of ``train_step``.
 """
 
 from __future__ import annotations
@@ -16,10 +21,15 @@ from __future__ import annotations
 import time
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+from torch import nn
+from torch.distributed.fsdp import FSDPModule, fully_shard, register_fsdp_forward_method
+from torch.distributed.tensor import DTensor, Shard
 
 from ..ops import LAUNCHES, chunked_softmax_xent
-from .model import ModelConfig, TransformerLM, init_model, unembed
+from ..parallel.mesh import DATA_AXIS, FSDP_AXIS, LOGICAL_AXIS_RULES, MODEL_AXIS, axis_sizes
+from .model import ModelConfig, TransformerLM, gather_split, init_model, param_axes, unembed
 
 # optax.adamw(lr)'s defaults, which the JAX step uses (train.py:104):
 # decay 1e-4 on every parameter. torch's AdamW defaults to decay 1e-2, so
@@ -43,9 +53,10 @@ def loss_fn(model: TransformerLM, tokens: torch.Tensor,
     chunk = model.cfg.xent_chunk if xent_chunk is None else xent_chunk
     hidden = model.hidden_states(tokens)
     targets = tokens[:, 1:]
+    embed = model.tied_embedding()
     if chunk > 0:
-        return chunked_softmax_xent(hidden[:, :-1], model.embed, targets, chunk)
-    logp = F.log_softmax(unembed(hidden, model.embed)[:, :-1], dim=-1)
+        return chunked_softmax_xent(hidden[:, :-1], embed, targets, chunk)
+    logp = F.log_softmax(unembed(hidden, embed)[:, :-1], dim=-1)
     ll = logp.gather(-1, targets[..., None])[..., 0]
     return -ll.mean()
 
@@ -53,17 +64,138 @@ def loss_fn(model: TransformerLM, tokens: torch.Tensor,
 def make_optimizer(model: TransformerLM, lr: float = 1e-3) -> torch.optim.AdamW:
     """AdamW at optax's constants. On the card its state and step counts
     live on the device (``capturable``), so a CUDA graph can hold the
-    update; on the CPU it is the plain AdamW."""
+    update; a sharded model keeps the same update (its losses on a size-1
+    mesh equal the unsharded model's bit for bit), though it is not
+    graphed. On the CPU it is the plain AdamW."""
     capturable = next(model.parameters()).is_cuda
     return torch.optim.AdamW(model.parameters(), lr=lr, capturable=capturable, **ADAMW)
 
 
+def _mesh_axes(cfg: ModelConfig, sizes: dict[str, int]) -> dict[str, tuple]:
+    """Each parameter's mesh axis per dim (None: not split) for a mesh of
+    these axis sizes (an axis not named has size 1)."""
+    rules = dict(LOGICAL_AXIS_RULES)
+    shapes = {name: p.shape for name, p in TransformerLM(cfg, device="meta").named_parameters()}
+    out = {}
+    for name, shape in shapes.items():
+        logical = param_axes(cfg, name)
+        if logical is None:
+            out[name] = ()  # replicated, the JAX P()
+            continue
+        spec = []
+        for dim, axis in zip(shape, (rules[a] for a in logical)):
+            size = sizes.get(axis, 1) if axis is not None else 1
+            spec.append(axis if dim % size == 0 else None)
+        out[name] = tuple(spec)
+    return out
+
+
+def param_shardings(cfg: ModelConfig, mesh) -> dict[str, tuple]:
+    """Each parameter's mesh axis per dim, by name: the JAX
+    ``param_shardings`` PartitionSpecs (``("fsdp", "model")`` for ``w1``).
+    A mesh axis whose size does not divide its dim is dropped, as the JAX
+    one drops it (train.py:62-66); a parameter without logical axes is
+    replicated (``()``)."""
+    return _mesh_axes(cfg, axis_sizes(mesh))
+
+
+def _set_param(model: nn.Module, name: str, value: torch.Tensor) -> None:
+    owner, _, attr = name.rpartition(".")
+    setattr(model.get_submodule(owner) if owner else model, attr, nn.Parameter(value))
+
+
+def apply_tp(model: TransformerLM, tp_mesh) -> TransformerLM:
+    """Tensor parallelism over ``tp_mesh`` (the mesh's 1-D ``model`` axis),
+    in place: each parameter that ``param_shardings`` splits over ``model``
+    keeps this rank's slice, and each block whose heads or ``mlp`` columns
+    are split runs between Megatron's pair (``workload/model.py``); a
+    block the axis does not divide keeps its weights whole. Over an axis
+    of size 1 nothing is split, but the sums still run."""
+    size, rank, group = tp_mesh.size(), tp_mesh.get_local_rank(), tp_mesh.get_group()
+    specs = _mesh_axes(model.cfg, {MODEL_AXIS: size})
+    for name, p in list(model.named_parameters()):
+        if MODEL_AXIS in specs[name]:
+            dim = specs[name].index(MODEL_AXIS)
+            _set_param(model, name, p.detach().chunk(size, dim)[rank].clone())
+            model.tp_dims[name] = dim
+    for i, block in enumerate(model.blocks):
+        if f"blocks.{i}.attn.wq" in model.tp_dims:
+            block.attn.tp_group = group
+        if f"blocks.{i}.mlp.w1" in model.tp_dims:
+            block.mlp.tp_group = group
+    model.tp_group = group
+    return model
+
+
+def apply_fsdp(model: TransformerLM, mesh) -> TransformerLM:
+    """FSDP2 over the mesh's ``fsdp`` axis, in place, with ``data`` as
+    HSDP's replicated dim when it is larger than 1. Each parameter's shard
+    is on the dim where ``param_shardings`` puts ``fsdp`` (the JAX ``embed``
+    dim: dim 1 of ``w2``, ``embed`` and ``pos``, dim 2 of ``wo``), and on
+    dim 0, FSDP2's default, where it puts none (flax's norm scales, or a
+    dim the axis does not divide). One unit per block and one for the
+    root (embedding, positions, final norm), which keeps its parameters
+    gathered after ``hidden_states``, since the loss reads the tied
+    embedding after it returns."""
+    specs = param_shardings(model.cfg, mesh)
+    dims = {id(p): specs[name].index(FSDP_AXIS) if FSDP_AXIS in specs[name] else 0
+            for name, p in model.named_parameters()}
+    dp_mesh = mesh[(DATA_AXIS, FSDP_AXIS)] if mesh[DATA_AXIS].size() > 1 else mesh[FSDP_AXIS]
+
+    def placement(p: nn.Parameter) -> Shard:
+        return Shard(dims[id(p)])
+
+    for block in model.blocks:
+        fully_shard(block, mesh=dp_mesh, shard_placement_fn=placement)
+    fully_shard(model, mesh=dp_mesh, shard_placement_fn=placement, reshard_after_forward=False)
+    register_fsdp_forward_method(model, "hidden_states")
+    return model
+
+
+def shard_model(model: TransformerLM, mesh) -> TransformerLM:
+    """The model laid out on ``mesh`` as the JAX ``param_shardings`` lays
+    it: ``apply_tp`` over ``model``, then ``apply_fsdp`` over (data,
+    fsdp), each only where its axes are larger than 1. ``train_step`` then
+    averages the loss over the mesh."""
+    sizes = axis_sizes(mesh)
+    if sizes[MODEL_AXIS] > 1:
+        apply_tp(model, mesh[MODEL_AXIS])
+    if sizes[DATA_AXIS] * sizes[FSDP_AXIS] > 1:
+        apply_fsdp(model, mesh)
+    model.mesh = mesh
+    return model
+
+
+def is_sharded(model: TransformerLM) -> bool:
+    """Whether tensor parallelism or FSDP2 was applied to ``model`` (over
+    an axis of any size)."""
+    return bool(model.tp_dims) or isinstance(model, FSDPModule)
+
+
+def full_state_dict(model: TransformerLM) -> dict[str, torch.Tensor]:
+    """Every parameter whole and detached, by name: FSDP2's shards
+    gathered, tensor-parallel slices gathered over the model axis; one
+    that nothing splits is the live parameter, detached (as ``state_dict``
+    gives it). A collective where the model is sharded: every rank calls
+    it."""
+    out = {}
+    for name, p in model.named_parameters():
+        t = (p.full_tensor() if isinstance(p, DTensor) else p).detach()
+        if name in model.tp_dims:
+            t = gather_split(t, model.tp_group, model.tp_dims[name])
+        out[name] = t
+    return out
+
+
 def make_train_state(
-    cfg: ModelConfig, device, seed: int = 0, lr: float = 1e-3
+    cfg: ModelConfig, device, seed: int = 0, lr: float = 1e-3, mesh=None,
 ) -> tuple[TransformerLM, torch.optim.AdamW]:
     """A model with random weights from ``seed`` on ``device`` and its
-    optimizer."""
+    optimizer. With a ``mesh`` every rank draws the same whole weights and
+    keeps its shards (``shard_model``)."""
     model = init_model(cfg, seed, device)
+    if mesh is not None:
+        shard_model(model, mesh)
     return model, make_optimizer(model, lr)
 
 
@@ -74,13 +206,25 @@ def _loss_and_update(model, optimizer, tokens, xent_chunk) -> torch.Tensor:
     return loss.detach()
 
 
+def _global_mean(model: TransformerLM, loss: torch.Tensor) -> torch.Tensor:
+    """The mean over the mesh of each rank's loss over its rows: the loss
+    of the global batch, since every (data, fsdp) shard has as many rows
+    and as many ranks feeding it."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None or mesh.size() == 1:
+        return loss
+    dist.all_reduce(loss)
+    return loss / mesh.size()
+
+
 def train_step(
     model: TransformerLM, optimizer: torch.optim.Optimizer, tokens: torch.Tensor,
     xent_chunk: int | None = None,
 ) -> torch.Tensor:
-    """One optimizer step; returns the (detached) loss before the update."""
+    """One optimizer step on this rank's rows ``tokens``; returns the
+    (detached) loss of the global batch before the update."""
     optimizer.zero_grad(set_to_none=True)
-    return _loss_and_update(model, optimizer, tokens, xent_chunk)
+    return _global_mean(model, _loss_and_update(model, optimizer, tokens, xent_chunk))
 
 
 def make_multi_train_step(
@@ -93,11 +237,14 @@ def make_multi_train_step(
     one's parameters: the JAX ``make_multi_train_step``. ``xent_chunk``
     picks the loss as in ``loss_fn``.
 
-    On the card the step is a CUDA graph (``GraphedTrainStep``); a capture
-    or replay that fails raises. On the CPU it is the eager loop."""
+    On the card the step of an unsharded model is a CUDA graph
+    (``GraphedTrainStep``); a capture or replay that fails raises. A
+    sharded model (``is_sharded``) takes the eager loop on the card, by
+    this rule and not by catching a failed capture: FSDP2's collectives
+    are not captured. The CPU takes the eager loop."""
     if inner_steps < 1:
         raise ValueError(f"inner_steps must be at least 1, got {inner_steps}")
-    if next(model.parameters()).is_cuda:
+    if next(model.parameters()).is_cuda and not is_sharded(model):
         return GraphedTrainStep(model, optimizer, inner_steps, xent_chunk)
 
     def eager(stack: torch.Tensor) -> torch.Tensor:

@@ -299,3 +299,102 @@ def test_attention_scores_are_divided_truly_on_card(cuda_device):
     assert divisor.device.type == "cuda" and float(divisor) == 11.3125
     want = (scores.float() / 11.3125).to(torch.bfloat16)
     assert torch.equal((scores.to(cuda_device) / divisor).cpu(), want)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_group_and_mesh_on_card(cuda_device):
+    """A process with one card is a world of one over NCCL (no launcher,
+    no port), and the six-axis mesh over it is all ones."""
+    import torch.distributed as dist
+
+    from k8s_device_plugin_tpu_torch.parallel.distributed import initialize
+    from k8s_device_plugin_tpu_torch.parallel.mesh import AXES, axis_sizes, make_mesh
+
+    initialize("cuda")
+    mesh = make_mesh(1, device="cuda")
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    assert axis_sizes(mesh) == {axis: 1 for axis in AXES}
+    one = torch.ones(2, device=cuda_device)
+    dist.all_reduce(one, group=mesh["model"].get_group())
+    assert one.tolist() == [1.0, 1.0]
+
+
+@pytest.mark.cuda
+def test_tp_and_fsdp_over_size_one_axes_leave_the_bench_loss(cuda_device):
+    """``apply_tp`` and ``apply_fsdp`` over the size-1 axes split nothing:
+    a ``bench()``-width forward's loss (flash kernels on the local heads,
+    the tensor-parallel sums and FSDP2's gathers over NCCL) within 1e-5
+    of the unsharded model's, with each flash forward launched once a
+    layer."""
+    import dataclasses
+
+    from k8s_device_plugin_tpu_torch.parallel.mesh import make_mesh
+    from k8s_device_plugin_tpu_torch.workload import train
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig, init_model
+
+    cfg = dataclasses.replace(ModelConfig.bench(), n_layers=2)
+    mesh = make_mesh(1, device="cuda")
+    gen = torch.Generator().manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (2, cfg.max_seq_len), generator=gen).cuda()
+    with torch.no_grad():
+        plain = float(train.loss_fn(init_model(cfg, 0, "cuda"), tokens))
+        model = init_model(cfg, 0, "cuda")
+        train.apply_tp(model, mesh["model"])
+        train.apply_fsdp(model, mesh)
+        assert train.is_sharded(model) and model.blocks[0].attn.tp_group is not None
+        reset_launches()
+        sharded = float(train.loss_fn(model, tokens))
+    assert LAUNCHES["flash_fwd"] == cfg.n_layers
+    assert sharded == pytest.approx(plain, rel=1e-5)
+
+
+# The bench widths cut to 2 layers, on the bench's global batch of 8.
+FOUR_CARD_CFG = dict(vocab_size=32768, d_model=2048, n_heads=16, n_layers=2, d_ff=8192,
+                     max_seq_len=2048, use_flash_attention=True)
+_ONE_CARD = {}
+
+
+@pytest.fixture(scope="module")
+def four_cards():
+    """Four NCCL ranks, one a card, for the module; skips with fewer."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards on one host")
+    from k8s_device_plugin_tpu_torch.parallel.distributed import RankPool
+
+    with RankPool(4, "cuda", timeout_s=600.0) as pool:
+        yield pool
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "shape", [(1, 4, 1, 1, 1, 1), (2, 2, 1, 1, 1, 1), (1, 2, 1, 1, 1, 2), (1, 1, 1, 1, 1, 4)],
+    ids=["fsdp", "data-fsdp", "fsdp-model", "model"],
+)
+def test_sharded_steps_on_four_cards_match_one_card(four_cards, shape):
+    """The bench model (2 layers) sharded over four cards on the same
+    weights and global batch as one card: the first loss within 1e-4
+    relative (the JAX sharded test's bound; bf16 sums in another order),
+    every loss finite, and the flash kernels on each rank's local heads."""
+    import numpy as np
+
+    from k8s_device_plugin_tpu_torch.workload import train
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
+    from tests import torch_rank_jobs as jobs
+
+    steps = 3
+    tokens = np.random.default_rng(1).integers(0, FOUR_CARD_CFG["vocab_size"],
+                                               (8, FOUR_CARD_CFG["max_seq_len"]))
+    if "losses" not in _ONE_CARD:
+        model, optimizer = train.make_train_state(ModelConfig(**FOUR_CARD_CFG), "cuda", seed=0)
+        rows = torch.from_numpy(tokens).long().cuda()
+        _ONE_CARD["losses"] = [float(train.train_step(model, optimizer, rows))
+                               for _ in range(steps)]
+        del model, optimizer
+        torch.cuda.empty_cache()
+    got = four_cards.run(jobs.train_steps, FOUR_CARD_CFG, shape, tokens, steps, None, (),
+                         "cuda")
+    losses = got[0]["losses"]
+    print(f"four cards {shape}: {losses}; one card: {_ONE_CARD['losses']}")
+    assert all(r["losses"] == losses for r in got)
+    assert all(np.isfinite(losses))
+    assert losses[0] == pytest.approx(_ONE_CARD["losses"][0], rel=1e-4)
