@@ -71,10 +71,33 @@ caught while the run goes on:
    to 0 just before and read just after. Its line carries both step times,
    the peak device memory and the group's bring-up.
 
+11. Parallel paths on one card, through a size-1 mesh, at bench widths:
+   (a) MoE: ``run_smoke`` at ``ModelConfig.bench()`` with ``n_experts=4``
+   (top-2, capacity factor 2.0), batch 8, 6 timed steps after 1, counts
+   set to 0 just before and read just after: ok (first loss sane, loss
+   falling, finite), each flash kernel and delta launched exactly
+   ``n_layers`` x 7 times, the RMSNorm kernel not at all; one line with
+   the step time, MFU (the MoE FLOP count), peak memory and the aux loss
+   of the first batch at the seed's weights (within [n_layers, n_layers x
+   e]). (b) Ring attention over the size-1 ``seq`` axis: first the ring
+   op alone, f32 at (1, 16, 2048, 128), against the plain attention's
+   output and autograd gradients (each within 1e-4 of the largest
+   reference value: the one check on the card of the ring's hand-written
+   backward); then ``bench()`` with flash off and the ring on, at
+   ``ring_q_chunk`` 0 and 512: the first batch's logits against the dense
+   model's on the same weights (max |diff| < 0.15, mean < 0.02, the JAX
+   ring test's bounds), then 2 train steps each: the chunked first loss
+   within 1e-5 relative of the unchunked one, the loss falling in both,
+   and no kernel launched (counts set to 0 before the ring's op check and
+   read after its last step). The second losses' gap is reported, not
+   held: the chunked backward sums dK/dV in another order, and Adam's
+   first update magnifies that rounding (1.3e-5 on an NVIDIA H100 80GB
+   HBM3 at 700 W).
+
 Then one ``{"kernels": [...]}`` line (each kernel's launches from the path
 that runs it: K1-K3 from phase 5, K4 from phase 6; every path's counts
-under ``launches_by_path``, phase 10's as ``sharded``) and, last, the
-device line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
+under ``launches_by_path``, phase 10's as ``sharded``, phase 11's as
+``moe`` and ``ring``) and, last, the device line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when CUDA is not available or the port's package is not beside
 this file.
 """
@@ -83,6 +106,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -467,15 +491,15 @@ def phase_model() -> None:
              f"loss {loss_f} vs {loss_d}")
 
 
-def drive_path(cfg) -> tuple[dict, dict, int]:
-    """``run_smoke`` at ``cfg`` (10 timed steps, batch 8) with every launch
-    count set to 0 just before and read just after: (report, launches,
-    steps run, the untimed first step included)."""
+def drive_path(cfg, steps: int = 10) -> tuple[dict, dict, int]:
+    """``run_smoke`` at ``cfg`` (``steps`` timed steps, batch 8) with every
+    launch count set to 0 just before and read just after: (report,
+    launches, steps run, the untimed first step included)."""
     from k8s_device_plugin_tpu_torch.ops import LAUNCHES, reset_launches
     from k8s_device_plugin_tpu_torch.workload.smoke import run_smoke
 
     reset_launches()
-    report = run_smoke(steps=10, cfg=cfg, batch_per_device=8, device="cuda", emit=emit)
+    report = run_smoke(steps=steps, cfg=cfg, batch_per_device=8, device="cuda", emit=emit)
     launches = dict(LAUNCHES)
     emit(report)
     torch.cuda.empty_cache()
@@ -759,6 +783,135 @@ def phase_sharded(main_report: dict) -> tuple[dict, int]:
     return launches, n_steps
 
 
+# Phase 11: MoE's timed steps after its first, and the expert count of
+# dryrun plan B; the ring's q chunk, train steps and bounds.
+MOE_STEPS = 6
+MOE_EXPERTS = 4
+RING_Q_CHUNK = 512
+RING_STEPS = 2
+RING_OP_SHAPE = (1, 16, 2048, 128)
+RING_OP_RTOL = 1e-4  # of the largest reference value
+RING_LOGITS_MAX, RING_LOGITS_MEAN = 0.15, 0.02
+RING_RTOL = 1e-5
+
+
+def phase_moe() -> tuple[dict, int]:
+    """The MoE bench step: the flash kernels 4 a step, MFU by the MoE FLOP
+    count, and the aux loss."""
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig, forward_with_aux, init_model
+
+    cfg = dataclasses.replace(ModelConfig.bench(), n_experts=MOE_EXPERTS)
+    torch.cuda.reset_peak_memory_stats()
+    report, launches, steps = drive_path(cfg, MOE_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    want = {"rmsnorm": 0, **{name: cfg.n_layers * steps for name in FLASH}}
+    # The aux loss of run_smoke's first batch at its seed's weights.
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 8, cfg.max_seq_len), generator=gen)[0].cuda()
+    model = init_model(cfg, 0, "cuda")
+    with torch.no_grad():
+        aux = float(forward_with_aux(model, tokens)[1])
+    del model
+    torch.cuda.empty_cache()
+    emit({"moe": {k: report[k] for k in ("step_time_s", "tokens_per_s", "mfu", "first_loss",
+                                         "final_loss", "model_flops_per_step")},
+          "batch": 8, "n_experts": MOE_EXPERTS, "top_k": cfg.moe_top_k,
+          "capacity_factor": cfg.moe_capacity_factor, "aux": aux,
+          "max_memory_allocated_gib": peak / 2 ** 30, "launches": launches, "steps": steps})
+    if launches != want:
+        fail(f"MoE path launches {launches}, expected {want}")
+    if not cfg.n_layers - 1e-3 <= aux <= cfg.n_layers * MOE_EXPERTS + 1e-3:
+        fail(f"MoE aux loss {aux} outside [{cfg.n_layers}, {cfg.n_layers * MOE_EXPERTS}]")
+    return launches, steps
+
+
+def ring_op_check(group) -> dict:
+    """The ring op alone (f32, size-1 seq group, chunked at RING_Q_CHUNK)
+    against the plain attention: output and the three gradients of
+    sum(out * dO)."""
+    from k8s_device_plugin_tpu_torch.ops import reference_attention
+    from k8s_device_plugin_tpu_torch.parallel.ring import ring_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, k, v, do = (torch.randn(RING_OP_SHAPE, generator=gen, device="cuda") for _ in range(4))
+    errs = {}
+    for chunk in (0, RING_Q_CHUNK):
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = ring_attention(*ins, group, chunk)
+        ref = reference_attention(*ref_ins)
+        got = [out.detach()] + list(torch.autograd.grad(out, ins, do))
+        want = [ref.detach()] + list(torch.autograd.grad(ref, ref_ins, do))
+        for label, g, w in zip(("out", "dq", "dk", "dv"), got, want):
+            errs[f"q_chunk{chunk}_{label}"] = float((g - w).abs().max() / w.abs().max())
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    return errs
+
+
+def phase_ring() -> tuple[dict, int]:
+    """Ring attention at bench widths over a size-1 seq axis: the op's
+    gradients, the model's logits against the dense path, and the chunked
+    against the unchunked training steps."""
+    from k8s_device_plugin_tpu_torch.ops import LAUNCHES, reset_launches
+    from k8s_device_plugin_tpu_torch.parallel.mesh import make_mesh
+    from k8s_device_plugin_tpu_torch.workload import train
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig, init_model
+
+    mesh = make_mesh(1, device="cuda")
+    dense_cfg = dataclasses.replace(ModelConfig.bench(), use_flash_attention=False)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, dense_cfg.vocab_size, (8, dense_cfg.max_seq_len),
+                           generator=gen).cuda()
+    with torch.no_grad():
+        dense_logits = init_model(dense_cfg, 0, "cuda")(tokens)
+    torch.cuda.empty_cache()
+    reset_launches()
+    op_errs = ring_op_check(mesh["seq"].get_group())
+    runs = {}
+    for chunk in (0, RING_Q_CHUNK):
+        cfg = dataclasses.replace(dense_cfg, use_ring_attention=True, ring_q_chunk=chunk)
+        model, optimizer = train.make_train_state(cfg, "cuda", seed=0, mesh=mesh)
+        with torch.no_grad():
+            diff = (model(tokens) - dense_logits).abs()
+        run = {"logits_max_diff": float(diff.max()), "logits_mean_diff": float(diff.mean())}
+        del diff
+        losses, times = [], []
+        for _ in range(RING_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            losses.append(float(train.train_step(model, optimizer, tokens)))
+            times.append(time.monotonic() - t0)
+        run.update(losses=losses, step_s=times)
+        runs[chunk] = run
+        del model, optimizer
+        torch.cuda.empty_cache()
+    launches = dict(LAUNCHES)
+    del dense_logits
+    torch.cuda.empty_cache()
+    rel = [abs(a - b) / abs(b) for a, b in zip(runs[RING_Q_CHUNK]["losses"], runs[0]["losses"])]
+    # The first losses come from one forward on the same weights; the
+    # later ones follow updates from two summation orders of dK/dV.
+    emit({"ring": {f"q_chunk_{c}": r for c, r in runs.items()}, "op_rel_errs": op_errs,
+          "op_shape": list(RING_OP_SHAPE), "chunked_rel_gaps": rel, "launches": launches,
+          "tolerance": f"op: each <= {RING_OP_RTOL} of max |reference|; logits max < "
+                       f"{RING_LOGITS_MAX}, mean < {RING_LOGITS_MEAN}; chunked first loss "
+                       f"<= {RING_RTOL} relative; losses falling"})
+    if max(op_errs.values()) > RING_OP_RTOL:
+        fail(f"the ring op disagrees with the plain attention: {op_errs}")
+    for chunk, run in runs.items():
+        if not (run["logits_max_diff"] < RING_LOGITS_MAX
+                and run["logits_mean_diff"] < RING_LOGITS_MEAN
+                and all(math.isfinite(x) for x in run["losses"])
+                and run["losses"][-1] < run["losses"][0]):
+            fail(f"the ring model at q_chunk {chunk} disagrees with the dense one: {run}")
+    if rel[0] > RING_RTOL:
+        fail(f"the chunked ring's first loss disagrees with the unchunked one: {rel}")
+    if any(launches.values()):
+        fail(f"the ring path launched a kernel: {launches}")
+    return launches, 2 * RING_STEPS
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA "
@@ -782,12 +935,14 @@ def main() -> int:
     dense_gen, flash_gen = phase_generation()
     phase_microbench()
     sharded_launches, _ = phase_sharded(main_report)
+    moe_launches, _ = phase_moe()
+    ring_launches, _ = phase_ring()
     dist.destroy_process_group()
     path_launches = {name: (launches[name], steps) for name in FLASH}
     path_launches["rmsnorm"] = (norm_launches["rmsnorm"], norm_steps)
     by_path = {"bench": launches, "norm": norm_launches, "multi_step": multi_launches,
                "generate_dense": dense_gen, "generate_flash": flash_gen,
-               "sharded": sharded_launches}
+               "sharded": sharded_launches, "moe": moe_launches, "ring": ring_launches}
     emit({"kernels": [
         dict(entries[name], launches=n, launches_per_step=n / per,
              launches_by_path={path: counts[name] for path, counts in by_path.items()})

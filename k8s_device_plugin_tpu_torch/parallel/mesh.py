@@ -5,8 +5,10 @@ A pod allocated N cards runs one rank per card (``workload/smoke.py``
 starts them), and the ranks build one ``DeviceMesh`` over the same six
 named axes, in the same order, as the JAX mesh: data-parallel batch
 splitting (``data``), fully-sharded parameter storage (``fsdp``, FSDP2),
-and tensor parallelism (``model``). ``expert``, ``pipe`` and ``seq`` are
-size 1 until MoE, the pipeline and ring attention are ported.
+expert parallelism (``expert``, the MoE layers), pipeline stages
+(``pipe``), context parallelism (``seq``, ring attention) and tensor
+parallelism (``model``). ``workload/train.shard_model`` lays a model out
+over it.
 """
 
 from __future__ import annotations

@@ -35,7 +35,7 @@ def _logits(model: TransformerLM, tokens: torch.Tensor, cache: KVCache | None = 
     """Logits whatever the config's ``xent_chunk``: chunked CE is a
     training-loss concern, and decoding needs logits (the JAX generation
     paths strip the option)."""
-    return unembed(model.hidden_states(tokens, cache), model.embed)
+    return unembed(model.hidden_states(tokens, cache)[0], model.embed)
 
 
 @torch.inference_mode()

@@ -2,9 +2,9 @@
 counterpart of the JAX package's ``workload/model.py``.
 
 embed + pos -> blocks of [RMSNorm -> causal attention -> RMSNorm -> GELU
-MLP] -> RMSNorm -> tied unembed. bf16 activations and products over f32
-parameters. The dtypes follow the JAX reference at every step, including
-where that is not the obvious choice:
+MLP, or the routed MoE MLP] -> RMSNorm -> tied unembed. bf16 activations
+and products over f32 parameters. The dtypes follow the JAX reference at
+every step, including where that is not the obvious choice:
 
 - flax's ``nn.RMSNorm`` (eps 1e-6) reduces in f32 and, with a bf16 input
   and an f32 scale, returns f32; ``Attention`` and ``Mlp`` cast their input
@@ -26,16 +26,32 @@ Decode mode (``cfg.decode``) takes one position per call and attends over
 an explicit ``KVCache`` (the JAX model's flax "cache" collection), which
 the forward updates in place; ``workload/generate.py`` drives it.
 
-Tensor parallelism (``train.apply_tp``): ``PARAM_AXES`` holds each
-parameter's logical axes, as the JAX model's ``param_with_axes`` names
-them. Where the ``model`` mesh axis splits the heads or the MLP, each rank
-holds its slice of the weights, and the block runs on its local heads or
-its local ``mlp`` columns between Megatron's pair of functions: an identity
-forward whose backward sums the input gradient over the axis
-(``_CopyToModel``), and a sum over the axis after ``wo`` and ``w2`` whose
-backward is the identity (``_ReduceFromModel``). The split embedding is
-gathered whole (``TransformerLM.tied_embedding``) for the lookup, the
-unembed and the chunked CE.
+Parallelism (``train.shard_model``, which also sets ``model.mesh``):
+``PARAM_AXES`` holds each parameter's logical axes, as the JAX model's
+``param_with_axes`` names them. Every split region runs between Megatron's
+pair (``parallel/collectives.py``): ``enter_split``, the identity whose
+backward sums the gradient over the group, and ``leave_split``, the sum
+over the group whose backward is the identity; outside them everything is
+replicated over the group's axis.
+
+- ``model`` (tensor parallelism): each rank holds its slice of the heads
+  and of the ``mlp`` columns (the experts' ``d_ff`` too), and the split
+  embedding is gathered whole (``TransformerLM.tied_embedding``) for the
+  lookup, the unembed and the chunked CE.
+- ``seq`` (ring attention, ``use_ring_attention``): the activations stay
+  replicated; each rank takes its seq shard of q, k and v inside the
+  bracket, runs ``parallel/ring.py`` and gathers the output along seq.
+- ``expert`` (MoE, ``n_experts`` > 0, ``workload/moe.py``): each rank runs
+  its experts' share of the dispatch and combine, and the sum over the
+  axis completes y; the router and the aux loss stay replicated.
+- ``pipe`` (``pipeline_microbatches`` > 0, ``parallel/pipeline.py``): each
+  rank keeps its stage's blocks (the others become ``ElsewhereStage``);
+  the embedding, the final norm and the unembed stay outside the pipeline,
+  replicated over pipe.
+
+The config holds no mesh (JAX's ``ring_mesh`` and ``pipe_mesh``): a ring
+or pipeline model takes its groups from ``shard_model`` and raises when
+run without them.
 """
 
 from __future__ import annotations
@@ -51,11 +67,13 @@ from torch import nn
 from ..device import resolve_device
 from ..ops import flash_attention
 from ..ops.rmsnorm import rmsnorm
+from ..parallel.collectives import enter_split, gather_split, leave_split
 
 RMS_EPS = 1e-6  # flax nn.RMSNorm's default
 
 # Each parameter's logical axes, by its name inside ``blocks.<i>`` or the
-# root, from the JAX model (model.py:233-248, 340-344, 402-407). The norm
+# root, from the JAX model (model.py:233-248, 340-344, 402-407, and
+# moe.py:50-60). The norm
 # scale's ("embed",) holds under ``use_pallas_norm`` only (model.py:37-40):
 # flax's nn.RMSNorm scale has no axes and stays replicated.
 PARAM_AXES = {
@@ -65,6 +83,9 @@ PARAM_AXES = {
     "attn.wo": ("heads", "kv", "embed"),
     "mlp.w1": ("embed", "mlp"),
     "mlp.w2": ("mlp", "embed"),
+    "moe.wg": ("embed", "expert_gate"),
+    "moe.w1": ("expert", "embed", "mlp"),
+    "moe.w2": ("expert", "mlp", "embed"),
     "embed": ("vocab", "embed"),
     "pos": ("seq", "embed"),
 }
@@ -79,70 +100,6 @@ def param_axes(cfg: "ModelConfig", name: str) -> tuple[str, ...] | None:
     return PARAM_AXES[name.split(".", 2)[2] if name.startswith("blocks.") else name]
 
 
-class _CopyToModel(torch.autograd.Function):
-    """Megatron's f at a split block's input: the identity forward; the
-    backward sums the input gradient over the model axis, since each rank
-    backpropagates through its own heads or columns only."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        grad = grad.contiguous().clone()
-        dist.all_reduce(grad, group=ctx.group)
-        return grad, None
-
-
-class _ReduceFromModel(torch.autograd.Function):
-    """Megatron's g after ``wo`` and ``w2``: the sum of the ranks' partial
-    outputs over the model axis; the backward is the identity (every rank
-    of the axis computes the same loss, so each already holds the whole
-    gradient of the sum)."""
-
-    @staticmethod
-    def forward(ctx, x, group):
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
-
-
-class _GatherFromModel(torch.autograd.Function):
-    """The whole tensor from the ranks' slices along ``dim`` over the model
-    axis; the backward keeps this rank's slice of the (replicated)
-    gradient."""
-
-    @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim = group, dim
-        parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, x.contiguous(), group=group)
-        return torch.cat(parts, dim)
-
-    @staticmethod
-    def backward(ctx, grad):
-        n, rank = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
-        return grad.chunk(n, ctx.dim)[rank].contiguous(), None, None
-
-
-def gather_split(x: torch.Tensor, group, dim: int) -> torch.Tensor:
-    """The whole tensor of which each rank of the model axis ``group``
-    holds a slice along ``dim`` (differentiable)."""
-    return _GatherFromModel.apply(x, group, dim)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md, Queue 1: {item})"
-    )
-
-
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     vocab_size: int = 512
@@ -154,10 +111,21 @@ class ModelConfig:
     dtype: torch.dtype = torch.bfloat16
     use_pallas_norm: bool = False
     use_flash_attention: bool = False
+    # Context parallelism over the mesh's seq axis (parallel/ring.py);
+    # ring_q_chunk > 0 caps each ring step's score tile at [q_chunk,
+    # s_local]. Mutually exclusive with use_flash_attention.
     use_ring_attention: bool = False
+    ring_q_chunk: int = 0
     xent_chunk: int = 0
+    # Routed MoE MLP (workload/moe.py) with its expert dim over the mesh's
+    # expert axis; its load-balance loss enters the training loss with
+    # weight moe_aux_weight.
     n_experts: int = 0
     moe_top_k: int = 2
+    moe_capacity_factor: float = 2.0
+    moe_aux_weight: float = 0.01
+    # GPipe over the mesh's pipe axis (parallel/pipeline.py) with this many
+    # microbatches.
     pipeline_microbatches: int = 0
     decode: bool = False
 
@@ -174,25 +142,32 @@ class ModelConfig:
         )
 
     def __post_init__(self):
+        """The JAX config's checks (model.py:114-140), but for its
+        ``scan_layers`` and ``pipe_mesh`` requirements: the port's layers
+        are always separate, and its mesh comes from ``train.shard_model``
+        (a pipelined model run without one raises)."""
         if self.decode and not self.decode_supported():
             raise ValueError(
                 "decode mode supports the plain dense attention path only "
                 "(no ring/flash/pipeline/MoE)"
             )
+        if self.pipeline_microbatches > 0:
+            if self.n_experts > 0:
+                raise ValueError(
+                    "MoE aux-loss collection is not supported under the "
+                    "pipelined schedule; use expert parallelism without "
+                    "pipeline_microbatches"
+                )
+            if self.use_ring_attention:
+                raise ValueError(
+                    "ring attention cannot run inside the pipelined "
+                    "schedule; use context parallelism without "
+                    "pipeline_microbatches"
+                )
         if self.xent_chunk > 0 and self.vocab_size % self.xent_chunk != 0:
             raise ValueError(
                 f"xent_chunk {self.xent_chunk} must divide vocab_size {self.vocab_size}"
             )
-
-    def check_ported(self) -> None:
-        """Raise NotImplementedError for an option this port does not
-        carry yet, naming the ROADMAP item that will."""
-        if self.use_ring_attention:
-            raise _not_ported("ring attention", "'Ring attention'")
-        if self.n_experts > 0:
-            raise _not_ported("MoE", "'MoE'")
-        if self.pipeline_microbatches > 0:
-            raise _not_ported("pipeline parallelism", "'Pipeline'")
 
     @staticmethod
     def tiny() -> "ModelConfig":
@@ -282,6 +257,8 @@ class Attention(nn.Module):
         # The model axis's group when apply_tp split the heads; the head
         # count is then the weights' own, never cfg.n_heads.
         self.tp_group = None
+        # The seq axis's group under use_ring_attention (shard_model).
+        self.seq_group = None
 
     def forward(self, x: torch.Tensor, kv=None) -> torch.Tensor:
         """``kv``: in decode mode, this layer's ``(cache_k, cache_v,
@@ -290,12 +267,14 @@ class Attention(nn.Module):
         dt = cfg.dtype
         x = x.to(dt)
         if self.tp_group is not None:
-            x = _CopyToModel.apply(x, self.tp_group)
+            x = enter_split(x, self.tp_group)
         q = torch.einsum("bsd,dhk->bshk", x, self.wq.to(dt))
         k = torch.einsum("bsd,dhk->bshk", x, self.wk.to(dt))
         v = torch.einsum("bsd,dhk->bshk", x, self.wv.to(dt))
         if cfg.decode:
             out = self._decode_attend(q, k, v, *kv)
+        elif cfg.use_ring_attention:
+            out = self._ring_attend(q, k, v)
         elif cfg.use_flash_attention:
             # (b,s,h,k) -> (b,h,s,k); flash_attention makes them contiguous.
             out = flash_attention(
@@ -310,8 +289,32 @@ class Attention(nn.Module):
             out = torch.einsum("bhst,bthk->bshk", probs, v)
         out = torch.einsum("bshk,hkd->bsd", out, self.wo.to(dt))
         if self.tp_group is not None:
-            out = _ReduceFromModel.apply(out, self.tp_group)
+            out = leave_split(out, self.tp_group)
         return out
+
+    def _ring_attend(self, q, k, v) -> torch.Tensor:
+        """Ring attention over the seq group (q, k, v: (b, s, h, kd),
+        replicated over seq): each rank takes its contiguous seq shard
+        inside the split region, and the output is gathered along seq."""
+        from ..parallel.ring import ring_attention
+
+        if self.cfg.use_flash_attention:
+            raise ValueError("use_ring_attention and use_flash_attention are mutually exclusive")
+        group = self.seq_group
+        if group is None:
+            raise ValueError("use_ring_attention requires a mesh: lay the model out with "
+                             "train.shard_model(model, mesh), whose seq axis carries the ring")
+        n, rank = dist.get_world_size(group), dist.get_rank(group)
+        seq = q.shape[1]
+        if seq % n:
+            raise ValueError(f"seq {seq} does not split over the {n} ranks of the seq axis")
+        per = seq // n
+
+        def shard(t):
+            return enter_split(t, group).narrow(1, rank * per, per).transpose(1, 2)
+
+        out = ring_attention(shard(q), shard(k), shard(v), group, self.cfg.ring_q_chunk)
+        return gather_split(out, group, 2).transpose(1, 2)
 
     def _decode_attend(self, q, k, v, cache_k, cache_v, i: int) -> torch.Tensor:
         """One-position attention over the K/V cache (q, k, v: (b, 1, h,
@@ -350,24 +353,55 @@ class Mlp(nn.Module):
         dt = self.cfg.dtype
         x = x.to(dt)
         if self.tp_group is not None:
-            x = _CopyToModel.apply(x, self.tp_group)
+            x = enter_split(x, self.tp_group)
         out = F.gelu(x @ self.w1.to(dt), approximate="tanh") @ self.w2.to(dt)
         if self.tp_group is not None:
-            out = _ReduceFromModel.apply(out, self.tp_group)
+            out = leave_split(out, self.tp_group)
         return out
 
 
 class Block(nn.Module):
+    """[norm -> attention -> norm -> MLP or MoE], each with its residual.
+    ``forward`` returns the output and the MoE layer's load-balance term
+    (None for the dense MLP)."""
+
     def __init__(self, cfg: ModelConfig, generator=None, device=None):
         super().__init__()
         self.norm1 = Norm(cfg.d_model, device, cfg.use_pallas_norm)
         self.attn = Attention(cfg, generator, device)
         self.norm2 = Norm(cfg.d_model, device, cfg.use_pallas_norm)
-        self.mlp = Mlp(cfg, generator, device)
+        self.is_moe = cfg.n_experts > 0
+        if self.is_moe:
+            from .moe import MoeMlp
 
-    def forward(self, x: torch.Tensor, kv=None) -> torch.Tensor:
+            self.moe = MoeMlp(cfg.d_model, cfg.n_experts, cfg.d_ff, cfg.moe_top_k,
+                              cfg.moe_capacity_factor, cfg.dtype, generator, device)
+        else:
+            self.mlp = Mlp(cfg, generator, device)
+
+    def forward(self, x: torch.Tensor, kv=None) -> tuple[torch.Tensor, torch.Tensor | None]:
         x = x + self.attn(self.norm1(x), kv)
-        return x + self.mlp(self.norm2(x))
+        if self.is_moe:
+            y, aux = self.moe(self.norm2(x))
+            return x + y, aux
+        return x + self.mlp(self.norm2(x)), None
+
+
+class ElsewhereStage(nn.Module):
+    """The place of a block that another rank of the pipe axis holds
+    (``train.apply_pipe``): it keeps the block names global and holds no
+    parameter."""
+
+    def forward(self, *args):
+        raise RuntimeError("this block belongs to another pipeline stage")
+
+
+def _run_stage(stage, x: torch.Tensor) -> torch.Tensor:
+    """One pipeline stage: its blocks in order (the pipeline rejects MoE,
+    so no block has an aux term)."""
+    for block in stage:
+        x, _ = block(x)
+    return x
 
 
 def embed_tokens(cfg: ModelConfig, embed, pos, tokens):
@@ -385,7 +419,6 @@ class TransformerLM(nn.Module):
     def __init__(self, cfg: ModelConfig, generator: torch.Generator | None = None,
                  device=None):
         super().__init__()
-        cfg.check_ported()
         self.cfg = cfg
         self.embed = nn.Parameter(
             torch.empty(cfg.vocab_size, cfg.d_model, device=device)
@@ -399,10 +432,18 @@ class TransformerLM(nn.Module):
             Block(cfg, generator, device) for _ in range(cfg.n_layers)
         )
         self.norm = Norm(cfg.d_model, device, cfg.use_pallas_norm)
-        # Set by train.apply_tp: the model axis's group, and the dim each
-        # split parameter is split along, by name.
+        # Set by train.shard_model: the mesh; the model axis's group and
+        # the dim each tensor-parallel parameter is split along, by name;
+        # the expert axis's group and its split parameters likewise; the
+        # pipe axis's group under pipeline_microbatches; the seq axis's
+        # group under use_ring_attention.
+        self.mesh = None
         self.tp_group = None
         self.tp_dims: dict[str, int] = {}
+        self.ep_group = None
+        self.ep_dims: dict[str, int] = {}
+        self.pipe_group = None
+        self.seq_group = None
 
     def tied_embedding(self) -> torch.Tensor:
         """The whole (vocab, d_model) embedding: the parameter itself, or,
@@ -412,18 +453,26 @@ class TransformerLM(nn.Module):
             return gather_split(self.embed, self.tp_group, self.tp_dims["embed"])
         return self.embed
 
-    def hidden_states(self, tokens: torch.Tensor, cache: KVCache | None = None) -> torch.Tensor:
-        """The final norm's output. In decode mode ``tokens`` is one
-        position (batch, 1) and ``cache`` the K/V cache, which this call
-        extends by that position; otherwise no cache is taken."""
+    def hidden_states(self, tokens: torch.Tensor, cache: KVCache | None = None
+                      ) -> tuple[torch.Tensor, torch.Tensor | None]:
+        """The final norm's output, and the sum of the MoE layers'
+        load-balance terms (None without MoE). In decode mode ``tokens``
+        is one position (batch, 1) and ``cache`` the K/V cache, which this
+        call extends by that position; otherwise no cache is taken."""
         cfg = self.cfg
         if not cfg.decode:
             if cache is not None:
                 raise ValueError("a KV cache is read only in decode mode (cfg.decode)")
             x = embed_tokens(cfg, self.tied_embedding(), self.pos, tokens)
-            for block in self.blocks:
-                x = block(x)
-            return self.norm(x)
+            aux = None
+            if cfg.pipeline_microbatches > 0:
+                x = self._pipelined(x)
+            else:
+                for block in self.blocks:
+                    x, a = block(x)
+                    if a is not None:
+                        aux = a if aux is None else aux + a
+            return self.norm(x), aux
         if tokens.shape[1] != 1:
             raise ValueError(
                 f"decode mode consumes one position per call, got tokens "
@@ -434,15 +483,28 @@ class TransformerLM(nn.Module):
         i = cache.pos
         x = (self.embed[tokens] + self.pos[i][None, None, :]).to(cfg.dtype)
         for block, cache_k, cache_v in zip(self.blocks, cache.k, cache.v):
-            x = block(x, (cache_k, cache_v, i))
+            x, _ = block(x, (cache_k, cache_v, i))
         cache.pos = i + 1
-        return self.norm(x)
+        return self.norm(x), None
+
+    def _pipelined(self, x: torch.Tensor) -> torch.Tensor:
+        """The blocks under the GPipe schedule over the pipe group: the JAX
+        ``forward_pipelined``'s middle part."""
+        from ..parallel.pipeline import pipeline_apply
+
+        if self.pipe_group is None:
+            raise ValueError("pipeline_microbatches requires a mesh: lay the model out with "
+                             "train.shard_model(model, mesh), whose pipe axis carries the "
+                             "stages")
+        stage = [block for block in self.blocks if isinstance(block, Block)]
+        return pipeline_apply(_run_stage, stage, x, self.pipe_group,
+                              self.cfg.pipeline_microbatches)
 
     def forward(self, tokens: torch.Tensor, cache: KVCache | None = None) -> torch.Tensor:
         """Logits; with ``cfg.xent_chunk`` > 0 outside decode mode, the
         final norm's hidden states instead, which the loss unembeds
         chunk-wise (``ops/xent.py``) without the full logits."""
-        x = self.hidden_states(tokens, cache)
+        x, _ = self.hidden_states(tokens, cache)
         if self.cfg.xent_chunk > 0 and not self.cfg.decode:
             return x
         return unembed(x, self.tied_embedding())
@@ -482,3 +544,15 @@ def forward(model: TransformerLM, tokens: torch.Tensor) -> torch.Tensor:
     """Logits (batch, seq, vocab) in f32 (hidden states under
     ``xent_chunk``)."""
     return model(tokens)
+
+
+def forward_with_aux(model: TransformerLM, tokens: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``forward``'s output and the summed MoE load-balance terms, an f32
+    zero without MoE: the JAX ``forward_with_aux``."""
+    x, aux = model.hidden_states(tokens)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if model.cfg.xent_chunk > 0:
+        return x, aux
+    return unembed(x, model.tied_embedding()), aux

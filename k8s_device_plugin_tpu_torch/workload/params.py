@@ -8,7 +8,10 @@ reference writes:
 - unrolled layers: ``Block_<i>/Attention_0/wq`` ...;
 - ``scan_layers``: ``blocks/Block_0/...`` with a leading ``n_layers`` axis;
 - the flax norm ``Norm_<k>/RMSNorm_0/scale`` and the ``use_pallas_norm``
-  norm ``Norm_<k>/scale``.
+  norm ``Norm_<k>/scale``;
+- a MoE block's ``MoeMlp_0/{wg,w1,w2}`` in place of ``Mlp_0/{w1,w2}``.
+
+A pipelined JAX config has ``scan_layers`` and so the stacked layout.
 """
 
 from __future__ import annotations
@@ -26,11 +29,11 @@ _BLOCK_PARAMS = {
     "Attention_0/wk": "attn.wk",
     "Attention_0/wv": "attn.wv",
     "Attention_0/wo": "attn.wo",
-    "Mlp_0/w1": "mlp.w1",
-    "Mlp_0/w2": "mlp.w2",
     "Norm_0/scale": "norm1.scale",
     "Norm_1/scale": "norm2.scale",
 }
+_MLP_PARAMS = {"Mlp_0/w1": "mlp.w1", "Mlp_0/w2": "mlp.w2"}
+_MOE_PARAMS = {"MoeMlp_0/wg": "moe.wg", "MoeMlp_0/w1": "moe.w1", "MoeMlp_0/w2": "moe.w2"}
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -62,7 +65,8 @@ def from_jax_params(tree: Mapping, cfg: ModelConfig) -> dict[str, torch.Tensor]:
     put("pos", flat.pop("pos"))
     put("norm.scale", flat.pop("Norm_0/scale"))
     stacked = any(k.startswith("blocks/") for k in flat)
-    for sub, name in _BLOCK_PARAMS.items():
+    block_params = {**_BLOCK_PARAMS, **(_MOE_PARAMS if cfg.n_experts > 0 else _MLP_PARAMS)}
+    for sub, name in block_params.items():
         if stacked:
             value = flat.pop(f"blocks/Block_0/{sub}")
             if value.shape[0] != cfg.n_layers:

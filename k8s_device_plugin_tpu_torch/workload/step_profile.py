@@ -1,8 +1,11 @@
 """Where the time of one training step goes on the card.
 
-    python -m k8s_device_plugin_tpu_torch.workload.step_profile --bench [--pallas-norm]
+    python -m k8s_device_plugin_tpu_torch.workload.step_profile --bench \
+        [--pallas-norm] [--config {dense,moe,ring,ring-chunked}]
 
-Trains the model for a few warm-up steps, then traces ``--steps`` more
+Trains the model (through a size-1 mesh, as ``run_smoke`` on one card
+does, which the ring needs) for a few warm-up steps, then traces
+``--steps`` more
 with ``torch.profiler`` (CPU and CUDA activity) and prints one JSON line:
 the step time from the host clock (synchronised), the device time of
 every kernel summed by group (flash kernels, the RMSNorm kernel, f32 and
@@ -24,6 +27,15 @@ import torch
 from ..device import resolve_device
 from . import train
 from .model import ModelConfig
+
+# The config tweaks of chip_smoke.py's phase 11 paths, by ``--config``.
+_RING = {"use_flash_attention": False, "use_ring_attention": True}
+CONFIGS = {
+    "dense": {},
+    "moe": {"n_experts": 4},
+    "ring": _RING,
+    "ring-chunked": dict(_RING, ring_q_chunk=512),
+}
 
 # Kernel-name patterns, checked in order; the first match names the group.
 # Every kernel of flash_bwd.cu (the delta prepass, dQ, dK/dV) lives in
@@ -52,8 +64,10 @@ def profile_steps(cfg: ModelConfig, steps: int = 3, warmup: int = 2,
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from ..parallel.mesh import make_mesh
+
     dev = resolve_device("cuda")
-    model, optimizer = train.make_train_state(cfg, dev, seed)
+    model, optimizer = train.make_train_state(cfg, dev, seed, mesh=make_mesh(1, device=dev))
     gen = torch.Generator().manual_seed(seed + 1)
     tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len), generator=gen).to(dev)
     for _ in range(warmup):
@@ -82,7 +96,9 @@ def profile_steps(cfg: ModelConfig, steps: int = 3, warmup: int = 2,
         "device_kind": torch.cuda.get_device_name(dev),
         "config": {"d_model": cfg.d_model, "n_layers": cfg.n_layers,
                    "seq": cfg.max_seq_len, "batch": batch,
-                   "use_pallas_norm": cfg.use_pallas_norm},
+                   "use_pallas_norm": cfg.use_pallas_norm, "n_experts": cfg.n_experts,
+                   "use_ring_attention": cfg.use_ring_attention,
+                   "ring_q_chunk": cfg.ring_q_chunk},
         "traced_steps": steps,
         "step_time_ms": wall_s * 1e3 / steps,
         "kernel_ms_per_step": busy_us / 1e3 / steps,
@@ -104,12 +120,18 @@ def main(argv=None) -> int:
                    help="use the ModelConfig.bench() shape")
     p.add_argument("--pallas-norm", action="store_true",
                    help="run the norms through the RMSNorm kernel (use_pallas_norm)")
+    p.add_argument("--config", choices=sorted(CONFIGS), default="dense",
+                   help="the parallel path of chip_smoke.py's phase 11 to profile")
     p.add_argument("--steps", type=int, default=3)
     p.add_argument("--batch", type=int, default=8)
     args = p.parse_args(argv)
     cfg = ModelConfig.bench() if args.bench else ModelConfig()
-    cfg = dataclasses.replace(cfg, use_pallas_norm=args.pallas_norm)
-    result = profile_steps(cfg, steps=args.steps, batch=args.batch)
+    cfg = dataclasses.replace(cfg, use_pallas_norm=args.pallas_norm, **CONFIGS[args.config])
+    try:
+        result = profile_steps(cfg, steps=args.steps, batch=args.batch)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
     print(json.dumps(result), flush=True)
     return 0 if result["kernel_ms_per_step"] > 0 else 1
 

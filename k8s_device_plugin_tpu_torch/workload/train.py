@@ -4,11 +4,16 @@ a mesh: the counterpart of the JAX package's ``workload/train.py``
 
 Sharding follows the JAX ``param_shardings``: each parameter's logical
 axes map to mesh axes through ``LOGICAL_AXIS_RULES``, a mesh axis that
-does not divide its dim is dropped, and ``shard_model`` applies tensor
+does not divide its dim is dropped, and ``shard_model`` applies, in order,
+the pipeline over ``pipe`` (``apply_pipe``: this rank keeps its stage's
+blocks), expert parallelism over ``expert`` (``apply_ep``), tensor
 parallelism over ``model`` (``apply_tp``), then FSDP2 over ``fsdp``, with
 ``data`` as the replicated dim of HSDP (``apply_fsdp``). Each applies only
-over an axis larger than 1, so a size-1 mesh leaves the model as it is.
-``train_step`` returns the loss's global mean over the batch.
+over an axis larger than 1, so a size-1 mesh leaves the parameters as they
+are. Ring attention needs no parameter layout, only the seq axis's group,
+which ``shard_model`` hands to a ring model (and the pipe axis's to a
+pipelined one) whatever its size. ``train_step`` returns the loss's global
+mean over the batch.
 
 ``make_multi_train_step`` takes ``inner_steps`` real, sequential AdamW
 updates per call, as the JAX ``lax.scan`` does. On the card the step of an
@@ -28,8 +33,13 @@ from torch.distributed.fsdp import FSDPModule, fully_shard, register_fsdp_forwar
 from torch.distributed.tensor import DTensor, Shard
 
 from ..ops import LAUNCHES, chunked_softmax_xent
-from ..parallel.mesh import DATA_AXIS, FSDP_AXIS, LOGICAL_AXIS_RULES, MODEL_AXIS, axis_sizes
-from .model import ModelConfig, TransformerLM, gather_split, init_model, param_axes, unembed
+from ..parallel.collectives import gather_split
+from ..parallel.mesh import (
+    DATA_AXIS, EXPERT_AXIS, FSDP_AXIS, LOGICAL_AXIS_RULES, MODEL_AXIS, PIPE_AXIS, SEQ_AXIS,
+    axis_sizes,
+)
+from ..parallel.pipeline import stack_stages
+from .model import Block, ElsewhereStage, ModelConfig, TransformerLM, init_model, param_axes, unembed
 
 # optax.adamw(lr)'s defaults, which the JAX step uses (train.py:104):
 # decay 1e-4 on every parameter. torch's AdamW defaults to decay 1e-2, so
@@ -44,21 +54,25 @@ WARMUP_STEPS = 3
 
 def loss_fn(model: TransformerLM, tokens: torch.Tensor,
             xent_chunk: int | None = None) -> torch.Tensor:
-    """Next-token cross-entropy; the last position predicts nothing.
+    """Next-token cross-entropy; the last position predicts nothing. A MoE
+    model adds ``moe_aux_weight`` times its layers' load-balance terms.
 
     ``xent_chunk`` (default: the model's ``cfg.xent_chunk``) > 0 folds the
     tied unembedding into the chunked-vocab CE (``ops/xent.py``): the
     (rows, vocab) logits are never materialised. 0 is the full-logits
     loss."""
     chunk = model.cfg.xent_chunk if xent_chunk is None else xent_chunk
-    hidden = model.hidden_states(tokens)
+    hidden, aux = model.hidden_states(tokens)
     targets = tokens[:, 1:]
     embed = model.tied_embedding()
     if chunk > 0:
-        return chunked_softmax_xent(hidden[:, :-1], embed, targets, chunk)
-    logp = F.log_softmax(unembed(hidden, embed)[:, :-1], dim=-1)
-    ll = logp.gather(-1, targets[..., None])[..., 0]
-    return -ll.mean()
+        loss = chunked_softmax_xent(hidden[:, :-1], embed, targets, chunk)
+    else:
+        logp = F.log_softmax(unembed(hidden, embed)[:, :-1], dim=-1)
+        loss = -logp.gather(-1, targets[..., None])[..., 0].mean()
+    if aux is not None:
+        loss = loss + model.cfg.moe_aux_weight * aux
+    return loss
 
 
 def make_optimizer(model: TransformerLM, lr: float = 1e-3) -> torch.optim.AdamW:
@@ -83,7 +97,7 @@ def _mesh_axes(cfg: ModelConfig, sizes: dict[str, int]) -> dict[str, tuple]:
             out[name] = ()  # replicated, the JAX P()
             continue
         spec = []
-        for dim, axis in zip(shape, (rules[a] for a in logical)):
+        for dim, axis in zip(shape, (rules.get(a) for a in logical)):
             size = sizes.get(axis, 1) if axis is not None else 1
             spec.append(axis if dim % size == 0 else None)
         out[name] = tuple(spec)
@@ -104,25 +118,71 @@ def _set_param(model: nn.Module, name: str, value: torch.Tensor) -> None:
     setattr(model.get_submodule(owner) if owner else model, attr, nn.Parameter(value))
 
 
+def _split_params(model: TransformerLM, axis: str, axis_mesh, dims: dict) -> None:
+    """Keep this rank's slice, over ``axis_mesh`` (the mesh's 1-D ``axis``),
+    of each parameter that ``param_shardings`` splits over ``axis``,
+    recording its dim in ``dims``."""
+    size, rank = axis_mesh.size(), axis_mesh.get_local_rank()
+    specs = _mesh_axes(model.cfg, {axis: size})
+    for name, p in list(model.named_parameters()):
+        if axis in specs[name]:
+            dim = specs[name].index(axis)
+            _set_param(model, name, p.detach().chunk(size, dim)[rank].clone())
+            dims[name] = dim
+
+
+def _blocks(model: TransformerLM):
+    """(global index, block) of each block this rank holds."""
+    return [(i, b) for i, b in enumerate(model.blocks) if isinstance(b, Block)]
+
+
+def apply_pipe(model: TransformerLM, pipe_mesh) -> TransformerLM:
+    """The pipeline's layout over ``pipe_mesh`` (the mesh's 1-D ``pipe``
+    axis), in place: this rank keeps the blocks of its stage (contiguous,
+    ``stack_stages``), and each other block's place holds an
+    ``ElsewhereStage``, so the block names stay global."""
+    stages = stack_stages(range(len(model.blocks)), pipe_mesh.size())
+    mine = set(stages[pipe_mesh.get_local_rank()])
+    for i in range(len(model.blocks)):
+        if i not in mine:
+            model.blocks[i] = ElsewhereStage()
+    return model
+
+
+def apply_ep(model: TransformerLM, ep_mesh) -> TransformerLM:
+    """Expert parallelism over ``ep_mesh`` (the mesh's 1-D ``expert``
+    axis), in place: each rank keeps its experts' slices of every MoE
+    layer's ``w1`` and ``w2`` and runs their share of the layer between
+    Megatron's pair (``workload/moe.py``). An axis that does not divide
+    the experts is dropped, as the JAX rule drops it."""
+    _split_params(model, EXPERT_AXIS, ep_mesh, model.ep_dims)
+    size, rank, group = ep_mesh.size(), ep_mesh.get_local_rank(), ep_mesh.get_group()
+    for i, block in _blocks(model):
+        if f"blocks.{i}.moe.w1" in model.ep_dims:
+            per = model.cfg.n_experts // size
+            block.moe.experts = slice(rank * per, (rank + 1) * per)
+            block.moe.split_groups += (group,)
+    model.ep_group = group
+    return model
+
+
 def apply_tp(model: TransformerLM, tp_mesh) -> TransformerLM:
     """Tensor parallelism over ``tp_mesh`` (the mesh's 1-D ``model`` axis),
     in place: each parameter that ``param_shardings`` splits over ``model``
     keeps this rank's slice, and each block whose heads or ``mlp`` columns
-    are split runs between Megatron's pair (``workload/model.py``); a
-    block the axis does not divide keeps its weights whole. Over an axis
-    of size 1 nothing is split, but the sums still run."""
-    size, rank, group = tp_mesh.size(), tp_mesh.get_local_rank(), tp_mesh.get_group()
-    specs = _mesh_axes(model.cfg, {MODEL_AXIS: size})
-    for name, p in list(model.named_parameters()):
-        if MODEL_AXIS in specs[name]:
-            dim = specs[name].index(MODEL_AXIS)
-            _set_param(model, name, p.detach().chunk(size, dim)[rank].clone())
-            model.tp_dims[name] = dim
-    for i, block in enumerate(model.blocks):
+    (the experts' too) are split runs between Megatron's pair
+    (``workload/model.py``); a block the axis does not divide keeps its
+    weights whole. Over an axis of size 1 nothing is split, but the sums
+    still run."""
+    _split_params(model, MODEL_AXIS, tp_mesh, model.tp_dims)
+    group = tp_mesh.get_group()
+    for i, block in _blocks(model):
         if f"blocks.{i}.attn.wq" in model.tp_dims:
             block.attn.tp_group = group
         if f"blocks.{i}.mlp.w1" in model.tp_dims:
             block.mlp.tp_group = group
+        if f"blocks.{i}.moe.w1" in model.tp_dims:
+            block.moe.split_groups += (group,)
     model.tp_group = group
     return model
 
@@ -145,7 +205,7 @@ def apply_fsdp(model: TransformerLM, mesh) -> TransformerLM:
     def placement(p: nn.Parameter) -> Shard:
         return Shard(dims[id(p)])
 
-    for block in model.blocks:
+    for _, block in _blocks(model):
         fully_shard(block, mesh=dp_mesh, shard_placement_fn=placement)
     fully_shard(model, mesh=dp_mesh, shard_placement_fn=placement, reshard_after_forward=False)
     register_fsdp_forward_method(model, "hidden_states")
@@ -154,10 +214,28 @@ def apply_fsdp(model: TransformerLM, mesh) -> TransformerLM:
 
 def shard_model(model: TransformerLM, mesh) -> TransformerLM:
     """The model laid out on ``mesh`` as the JAX ``param_shardings`` lays
-    it: ``apply_tp`` over ``model``, then ``apply_fsdp`` over (data,
-    fsdp), each only where its axes are larger than 1. ``train_step`` then
-    averages the loss over the mesh."""
-    sizes = axis_sizes(mesh)
+    it: ``apply_pipe`` over ``pipe`` (a pipelined model), ``apply_ep``
+    over ``expert``, ``apply_tp`` over ``model``, then ``apply_fsdp`` over
+    (data, fsdp), each only where its axes are larger than 1. A ring model
+    gets the seq axis's group and a pipelined one the pipe axis's, at any
+    size; a MoE model whose batch is split over (data, fsdp) gets those
+    axes' groups for its load-balance loss. ``train_step`` then averages
+    the loss over the mesh."""
+    cfg, sizes = model.cfg, axis_sizes(mesh)
+    if cfg.pipeline_microbatches > 0:
+        model.pipe_group = mesh[PIPE_AXIS].get_group()
+        if sizes[PIPE_AXIS] > 1:
+            apply_pipe(model, mesh[PIPE_AXIS])
+    if cfg.use_ring_attention:
+        model.seq_group = mesh[SEQ_AXIS].get_group()
+        for _, block in _blocks(model):
+            block.attn.seq_group = model.seq_group
+    if cfg.n_experts > 0:
+        batch_groups = tuple(mesh[a].get_group() for a in (DATA_AXIS, FSDP_AXIS) if sizes[a] > 1)
+        for _, block in _blocks(model):
+            block.moe.batch_groups = batch_groups
+        if sizes[EXPERT_AXIS] > 1:
+            apply_ep(model, mesh[EXPERT_AXIS])
     if sizes[MODEL_AXIS] > 1:
         apply_tp(model, mesh[MODEL_AXIS])
     if sizes[DATA_AXIS] * sizes[FSDP_AXIS] > 1:
@@ -167,23 +245,41 @@ def shard_model(model: TransformerLM, mesh) -> TransformerLM:
 
 
 def is_sharded(model: TransformerLM) -> bool:
-    """Whether tensor parallelism or FSDP2 was applied to ``model`` (over
-    an axis of any size)."""
-    return bool(model.tp_dims) or isinstance(model, FSDPModule)
+    """Whether ``shard_model`` gave the model a collective to run: tensor
+    or expert parallelism, FSDP2, the ring's seq group or the pipeline's
+    pipe group (over an axis of any size)."""
+    return (bool(model.tp_dims or model.ep_dims) or isinstance(model, FSDPModule)
+            or model.seq_group is not None or model.pipe_group is not None)
 
 
 def full_state_dict(model: TransformerLM) -> dict[str, torch.Tensor]:
     """Every parameter whole and detached, by name: FSDP2's shards
-    gathered, tensor-parallel slices gathered over the model axis; one
-    that nothing splits is the live parameter, detached (as ``state_dict``
-    gives it). A collective where the model is sharded: every rank calls
-    it."""
+    gathered, tensor- and expert-parallel slices gathered over their axes,
+    and the other pipeline stages' blocks broadcast from the ranks that
+    hold them; one that nothing splits is the live parameter, detached (as
+    ``state_dict`` gives it). A collective where the model is sharded:
+    every rank calls it."""
     out = {}
     for name, p in model.named_parameters():
         t = (p.full_tensor() if isinstance(p, DTensor) else p).detach()
         if name in model.tp_dims:
             t = gather_split(t, model.tp_group, model.tp_dims[name])
+        if name in model.ep_dims:
+            t = gather_split(t, model.ep_group, model.ep_dims[name])
         out[name] = t
+    group = model.pipe_group
+    if group is not None and dist.get_world_size(group) > 1:
+        rank = dist.get_rank(group)
+        stages = stack_stages(range(model.cfg.n_layers), dist.get_world_size(group))
+        first = f"blocks.{stages[rank][0]}."
+        inner = [name[len(first):] for name in out if name.startswith(first)]
+        for r, layers in enumerate(stages):
+            for j, layer in enumerate(layers):
+                for rel in inner:
+                    mine = out[f"blocks.{stages[rank][j]}.{rel}"]
+                    buf = mine.clone() if r == rank else torch.empty_like(mine)
+                    dist.broadcast(buf, dist.get_global_rank(group, r), group=group)
+                    out[f"blocks.{layer}.{rel}"] = buf
     return out
 
 

@@ -15,6 +15,8 @@ held to a relative 1e-5, and the RMSNorm kernel's rrms to a relative 1e-5
 (f32 sums in another order, and rsqrt).
 """
 
+import time
+
 import pytest
 import torch
 
@@ -398,3 +400,97 @@ def test_sharded_steps_on_four_cards_match_one_card(four_cards, shape):
     assert all(r["losses"] == losses for r in got)
     assert all(np.isfinite(losses))
     assert losses[0] == pytest.approx(_ONE_CARD["losses"][0], rel=1e-4)
+
+
+# The parallel paths at bench widths on four cards: (config, mesh). Ring
+# attention over seq 4 (512 positions a rank, flash off as the ring needs);
+# the pipeline over pipe 4 (one layer a stage, 4 microbatches, flash on, so
+# K1-K3 run in every stage); MoE over expert 4 (one expert a rank), and
+# again in f32 (2 layers, flash off, which takes bf16 only): in bf16 the
+# expert sum's rounding moves near-tied tokens to another expert, which
+# changes their gradients whole, so only f32 holds each gradient value.
+def _bench(**changes) -> dict:
+    import dataclasses
+
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
+
+    return dataclasses.asdict(dataclasses.replace(ModelConfig.bench(), **changes))
+
+
+PARALLEL_FOUR_CARD = {
+    "ring-seq4": (dict(use_flash_attention=False, use_ring_attention=True), (1, 1, 1, 1, 4, 1)),
+    "pipeline-pipe4": (dict(pipeline_microbatches=4), (1, 1, 1, 4, 1, 1)),
+    "moe-expert4": (dict(n_experts=4), (1, 1, 4, 1, 1, 1)),
+    "moe-expert4-f32": (dict(n_experts=4, n_layers=2, dtype=torch.float32,
+                             use_flash_attention=False), (1, 1, 4, 1, 1, 1)),
+}
+
+# Bounds for the backwards written over NCCL, each parameter's gathered
+# gradient after one backward against one card's: one minus their cosine
+# and the distance of their norms' ratio from 1 (a collective off by the
+# group's size reads 0.75 or more), and in f32 the largest gap over the
+# largest magnitude; and the losses after the first update. Each is two to
+# three times the largest reading on four H100s (PERF.md): MoE in bf16 1 - cos
+# 5.6e-3 and norm ratio 0.9923, its third loss 2.3e-3 apart; the f32 gap
+# 4.7e-6.
+FOUR_CARD_GRAD_COS = 1e-2
+FOUR_CARD_GRAD_NORM = 2e-2
+FOUR_CARD_F32_GRAD_GAP = 1e-5
+FOUR_CARD_LATER_LOSS_REL = 5e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(PARALLEL_FOUR_CARD))
+def test_parallel_paths_on_four_cards_match_one_card(four_cards, case, tmp_path):
+    """Ring, pipeline and MoE at bench widths over four cards against the
+    same config on one card (through a size-1 mesh, which the ring and the
+    pipeline need), same weights and global batch of 8. The backwards
+    written over NCCL (the ring's dK/dV hops, the pipeline's reverse
+    send/receive pairs, the expert split's sums): every parameter's
+    gathered gradient after one backward against one card's, within the
+    FOUR_CARD_GRAD_* bounds. Three steps: the first loss within 1e-4
+    relative, the next two within FOUR_CARD_LATER_LOSS_REL, every rank's
+    losses equal and finite. Prints each side's losses and step times and
+    the worst gradient readings."""
+    import numpy as np
+
+    from k8s_device_plugin_tpu_torch.parallel.mesh import make_mesh
+    from k8s_device_plugin_tpu_torch.workload import train
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
+    from tests import torch_rank_jobs as jobs
+
+    changes, shape = PARALLEL_FOUR_CARD[case]
+    kw = _bench(**changes)
+    steps = 3
+    tokens = np.random.default_rng(1).integers(0, kw["vocab_size"], (8, kw["max_seq_len"]))
+    model, optimizer = train.make_train_state(ModelConfig(**kw), "cuda", seed=0,
+                                              mesh=make_mesh(1, device="cuda"))
+    rows = torch.from_numpy(tokens).long().cuda()
+    train.loss_fn(model, rows).backward()
+    reference = str(tmp_path / "one_card_grads.pt")
+    names = {n for n, _ in model.named_parameters()}
+    torch.save({n: p.grad.detach().cpu() for n, p in model.named_parameters()}, reference)
+    one, one_s = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        one.append(float(train.train_step(model, optimizer, rows)))
+        one_s.append(time.monotonic() - t0)
+    del model, optimizer, rows
+    torch.cuda.empty_cache()
+    stats = four_cards.run(jobs.grad_gaps, kw, shape, tokens, reference, "cuda")[0]["stats"]
+    worst = {key: max(stats.items(), key=lambda kv: abs(kv[1][key] - ideal))
+             for key, ideal in (("gap", 0.0), ("cos", 1.0), ("norm", 1.0))}
+    got = four_cards.run(jobs.train_steps, kw, shape, tokens, steps, None, (), "cuda")
+    losses = got[0]["losses"]
+    print(f"four cards {case} {shape}: losses {losses}, step s {got[0]['step_s']}; "
+          f"one card: losses {one}, step s {one_s}; worst gradients {worst}")
+    assert set(stats) == names
+    assert all(1.0 - g["cos"] < FOUR_CARD_GRAD_COS for g in stats.values()), worst
+    assert all(abs(g["norm"] - 1.0) < FOUR_CARD_GRAD_NORM for g in stats.values()), worst
+    if kw["dtype"] == torch.float32:
+        assert all(g["gap"] < FOUR_CARD_F32_GRAD_GAP for g in stats.values()), worst
+    assert all(r["losses"] == losses for r in got)
+    assert all(np.isfinite(losses))
+    assert losses[0] == pytest.approx(one[0], rel=1e-4)
+    assert losses[1:] == pytest.approx(one[1:], rel=FOUR_CARD_LATER_LOSS_REL)

@@ -207,15 +207,24 @@ def test_dense_attention_divides_scores_in_bf16():
     ids=["ring", "moe", "pipeline", "decode"],
 )
 def test_options_not_ported_raise_naming_the_roadmap(option):
+    """Every option of the JAX config is ported now: each builds a model.
+    MoE and decode mode run as they are; ring attention and the pipeline
+    need the mesh that ``train.shard_model`` gives them, and raise for its
+    absence only when they are run, as the JAX model without ``ring_mesh``
+    or ``pipe_mesh`` does."""
     cfg = tmodel.ModelConfig(**SMALL, **option)
-    if option == dict(decode=True):
-        # Decode mode is ported (workload/generate.py): the model builds,
-        # and check_ported no longer names it.
-        cfg.check_ported()
-        assert tmodel.TransformerLM(cfg).cfg.decode
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tmodel.TransformerLM(cfg)
+    model = tmodel.TransformerLM(cfg)
+    assert model.cfg == cfg
+    tokens = torch.zeros(2, 1 if cfg.decode else cfg.max_seq_len, dtype=torch.long)
+    if cfg.use_ring_attention or cfg.pipeline_microbatches:
+        with pytest.raises(ValueError, match="requires a mesh"):
+            model(tokens)
+    elif cfg.decode:
+        assert model(tokens, tmodel.init_cache(cfg, 2, "cpu")).shape == (2, 1, cfg.vocab_size)
+    else:
+        with torch.no_grad():
+            assert model(tokens).shape == (2, cfg.max_seq_len, cfg.vocab_size)
+        assert isinstance(model.blocks[0].moe, torch.nn.Module)
 
 
 def test_flops_accounting_matches_jax():

@@ -6,6 +6,8 @@ JAX. The tests run the JAX side in their own process and hand numpy
 arrays to these functions.
 """
 
+import time
+
 import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
@@ -64,16 +66,20 @@ def layout(cfg_kw: dict, shape) -> dict:
 def train_steps(cfg_kw: dict, shape, tokens: np.ndarray, steps: int,
                 state: dict | None = None, keep_after=(), device: str = "cpu") -> dict:
     """``steps`` sharded steps on the global batch ``tokens`` (each rank
-    trains its rows): the losses, and the whole parameters after each step
-    in ``keep_after``."""
+    trains its rows): the losses, each step's host time (synchronised on
+    the card), and the whole parameters after each step in
+    ``keep_after``."""
     mesh, model, optimizer = _state_on(cfg_kw, shape, state, device)
-    rows = batch_shard(torch.from_numpy(tokens).long(), mesh).to(local_device(device))
-    losses, params = [], {}
+    dev = local_device(device)
+    rows = batch_shard(torch.from_numpy(tokens).long(), mesh).to(dev)
+    losses, times, params = [], [], {}
     for i in range(1, steps + 1):
+        t0 = time.monotonic()
         losses.append(float(train.train_step(model, optimizer, rows)))
+        times.append(time.monotonic() - t0)  # float() waited for the card
         if i in keep_after:
             params[i] = _numpy_state(model)
-    return {"losses": losses, "params": params}
+    return {"losses": losses, "step_s": times, "params": params}
 
 
 def multi_step(cfg_kw: dict, shape, stack: np.ndarray, state: dict) -> dict:
@@ -97,11 +103,150 @@ def run_smoke(kwargs: dict) -> dict:
 
 def fail_on_rank(rank: int, wait_s: float) -> int:
     """Raise on ``rank``; every other rank waits ``wait_s`` seconds."""
-    import time
-
     import torch.distributed as dist
 
     if dist.get_rank() == rank:
         raise ValueError(f"rank {rank} fails on purpose")
     time.sleep(wait_s)
     return dist.get_rank()
+
+
+def _mesh_coords(mesh) -> dict:
+    """This rank's (batch shard, heads shard, seq shard) as (index, of)."""
+    from k8s_device_plugin_tpu_torch.parallel.mesh import batch_index
+
+    return {"batch": batch_index(mesh),
+            "heads": (mesh.get_local_rank("model"), mesh["model"].size()),
+            "seq": (mesh.get_local_rank("seq"), mesh["seq"].size())}
+
+
+def _part(t: torch.Tensor, coords: dict) -> torch.Tensor:
+    """The (batch, heads, seq) block of a (b, h, s, d) tensor at ``coords``."""
+    for dim, key in enumerate(("batch", "heads", "seq")):
+        i, n = coords[key]
+        t = t.chunk(n, dim)[i]
+    return t
+
+
+def ring_shard(shape, q: np.ndarray, k: np.ndarray, v: np.ndarray, q_chunk: int = 0,
+               dtype: str = "float32", grads: bool = False) -> dict:
+    """``ring_attention`` on this rank's (batch, heads, seq) block of the
+    global q, k, v (b, h, s, d), batch over (data, fsdp), heads over model
+    and seq over seq, as the JAX ``ring_attention`` shards them: the
+    block's place, its output and, with ``grads``, its share of the
+    gradients of sum(out ** 2) (f32)."""
+    from k8s_device_plugin_tpu_torch.parallel.ring import ring_attention
+
+    mesh = make_mesh(shape=shape, device="cpu")
+    coords = _mesh_coords(mesh)
+    dt = getattr(torch, dtype)
+    local = [_part(torch.from_numpy(a), coords).to(dt).requires_grad_(grads) for a in (q, k, v)]
+    out = ring_attention(*local, mesh["seq"].get_group(), q_chunk)
+    result = {"coords": coords, "out": out.detach().float().numpy()}
+    if grads:
+        (out.float() ** 2).sum().backward()
+        result["grads"] = [t.grad.float().numpy() for t in local]
+    return result
+
+
+def ring_refusal(shape, q: np.ndarray, q_chunk: int) -> str:
+    """``ring_attention``'s error for a ``q_chunk`` that does not divide
+    the local shard."""
+    from k8s_device_plugin_tpu_torch.parallel.ring import ring_attention
+
+    mesh = make_mesh(shape=shape, device="cpu")
+    local = _part(torch.from_numpy(q), _mesh_coords(mesh))
+    try:
+        ring_attention(local, local, local, mesh["seq"].get_group(), q_chunk)
+    except ValueError as e:
+        return str(e)
+    return ""
+
+
+def model_logits(cfg_kw: dict, shape, state: dict, tokens: np.ndarray) -> dict:
+    """The sharded model's output (logits) for this rank's rows of the
+    global batch, and which (data, fsdp) shard those rows are."""
+    from k8s_device_plugin_tpu_torch.parallel.mesh import batch_index
+
+    mesh, model, _ = _state_on(cfg_kw, shape, state)
+    rows = batch_shard(torch.from_numpy(tokens).long(), mesh)
+    with torch.no_grad():
+        out = model(rows)
+    return {"batch": batch_index(mesh), "logits": out.float().numpy()}
+
+
+def _whole_grads(cfg_kw: dict, shape, state: dict | None, tokens: np.ndarray,
+                 device: str = "cpu"):
+    """The global loss of the sharded model on ``tokens`` and every
+    parameter's whole gradient, by name (gathered as ``full_state_dict``
+    gathers the parameters)."""
+    mesh, model, _ = _state_on(cfg_kw, shape, state, device)
+    rows = batch_shard(torch.from_numpy(tokens).long(), mesh).to(local_device(device))
+    loss = train.loss_fn(model, rows)
+    loss.backward()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.copy_(p.grad)
+    return float(train._global_mean(model, loss.detach())), train.full_state_dict(model)
+
+
+def loss_and_grads(cfg_kw: dict, shape, state: dict, tokens: np.ndarray) -> dict:
+    """``_whole_grads`` on the CPU, the gradients as numpy copies."""
+    loss, grads = _whole_grads(cfg_kw, shape, state, tokens)
+    return {"loss": loss, "grads": {k: v.numpy().copy() for k, v in grads.items()}}
+
+
+def grad_gaps(cfg_kw: dict, shape, tokens: np.ndarray, reference: str,
+              device: str = "cpu") -> dict | None:
+    """``_whole_grads`` from seed 0's weights, held on rank 0 against the
+    gradients saved at ``reference`` (``torch.save`` of a dict by name):
+    the loss and, for each parameter, the largest gap over the reference's
+    largest magnitude (``gap``), the cosine of the two gradients (``cos``)
+    and the ratio of their norms (``norm``). None on the other ranks."""
+    loss, grads = _whole_grads(cfg_kw, shape, None, tokens, device)
+    if torch.distributed.get_rank() != 0:
+        return None
+    want = torch.load(reference)
+    stats = {}
+    for name, got in grads.items():
+        got, ref = got.double(), want[name].to(got.device, torch.float64)
+        stats[name] = {"gap": float((got - ref).abs().max() / ref.abs().max()),
+                       "cos": float((got * ref).sum() / (got.norm() * ref.norm())),
+                       "norm": float(got.norm() / ref.norm())}
+    return {"loss": loss, "stats": stats}
+
+
+def pipeline_toy(shape, ws: np.ndarray, x: np.ndarray, n_microbatches: int) -> dict:
+    """The JAX pipeline test's toy (each layer tanh(h @ w)) through
+    ``pipeline_apply`` over the mesh's pipe axis, one stage a rank: the
+    output, and this stage's layers' gradients of sum(y ** 2) by layer."""
+    from k8s_device_plugin_tpu_torch.parallel.pipeline import pipeline_apply, stack_stages
+
+    mesh = make_mesh(shape=shape, device="cpu")
+    group = mesh["pipe"].get_group()
+    layers = [torch.from_numpy(w).requires_grad_() for w in ws]
+    stages = stack_stages(list(enumerate(layers)), mesh["pipe"].size())
+    stage = stages[mesh.get_local_rank("pipe")]
+
+    def stage_fn(stage, h):
+        for _, w in stage:
+            h = torch.tanh(h @ w)
+        return h
+
+    y = pipeline_apply(stage_fn, stage, torch.from_numpy(x), group, n_microbatches)
+    (y ** 2).sum().backward()
+    return {"y": y.detach().numpy(), "grads": {i: w.grad.numpy() for i, w in stage}}
+
+
+def pipeline_refusal(shape, x: np.ndarray, n_microbatches: int) -> str:
+    """``pipeline_apply``'s error for a batch the microbatches do not
+    divide."""
+    from k8s_device_plugin_tpu_torch.parallel.pipeline import pipeline_apply
+
+    mesh = make_mesh(shape=shape, device="cpu")
+    try:
+        pipeline_apply(lambda _, h: h, None, torch.from_numpy(x), mesh["pipe"].get_group(),
+                       n_microbatches)
+    except ValueError as e:
+        return str(e)
+    return ""
