@@ -93,11 +93,24 @@ caught while the run goes on:
    held: the chunked backward sums dK/dV in another order, and Adam's
    first update magnifies that rounding (1.3e-5 on an NVIDIA H100 80GB
    HBM3 at 700 W).
+12. Resume: the resumable loop (``workload/loop.run_training``) at
+   ``ModelConfig.bench()``, batch 8, on one card: 6 steps without a
+   checkpoint; then 3 steps saving into a temporary directory
+   (``save_every`` 100, so steps 0 and 2 are saved), then 6 steps on the
+   same directory, which must resume at step 3. The stitched losses must
+   equal the uninterrupted ones within 1e-6 relative, and each flash kernel
+   and delta must launch ``n_layers`` times per resumed step (counts set
+   to 0 just before the resumed call and read just after). One line with
+   the save and restore seconds, the bytes of a checkpoint, the time from
+   the restart to the first resumed step, the loop's step time beside
+   phase 5's, the peak device memory, and the card's name and power limit.
+   The directory is deleted afterwards.
 
 Then one ``{"kernels": [...]}`` line (each kernel's launches from the path
 that runs it: K1-K3 from phase 5, K4 from phase 6; every path's counts
 under ``launches_by_path``, phase 10's as ``sharded``, phase 11's as
-``moe`` and ``ring``) and, last, the device line ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
+``moe`` and ``ring``, phase 12's as ``resume``) and, last, the device line
+``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when CUDA is not available or the port's package is not beside
 this file.
 """
@@ -107,9 +120,11 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -239,14 +254,17 @@ def time_ms(fn, iters: int, reps: int = 5) -> float:
     return statistics.median(samples)
 
 
-def phase_device() -> None:
-    kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
+def nvidia_smi() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip()
-    print(f"device: {kind}", flush=True)
-    print(f"nvidia-smi: {smi}", flush=True)
+
+
+def phase_device() -> None:
+    print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
+    print(f"nvidia-smi: {nvidia_smi()}", flush=True)
 
 
 def phase_build() -> None:
@@ -912,6 +930,82 @@ def phase_ring() -> tuple[dict, int]:
     return launches, 2 * RING_STEPS
 
 
+# Phase 12: the loop's steps without a stop, the step it stops after, the
+# loss tolerance (every reading so far was equal bit for bit: the restore
+# copies the whole state, and no kernel of the step sums with atomics), and
+# the checkpoints the temporary directory holds at the end (steps 0, 2, 5:
+# the loop's TrainCheckpointer keeps 3, as the JAX loop's does).
+RESUME_STEPS = 6
+RESUME_STOP = 3
+RESUME_RTOL = 1e-6
+RESUME_CHECKPOINTS = 3
+
+
+def directory_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.rglob("*") if f.is_file())
+
+
+def phase_resume(main_report: dict) -> tuple[dict, int]:
+    """Checkpoint/resume through the resumable loop at bench widths: the
+    resumed loss stream against the uninterrupted one, the resumed steps'
+    launches, and the save, restore and restart times."""
+    from k8s_device_plugin_tpu_torch.ops import LAUNCHES, reset_launches
+    from k8s_device_plugin_tpu_torch.workload.loop import run_training
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig, TransformerLM
+
+    cfg = ModelConfig.bench()
+    kw = dict(cfg=cfg, batch_per_device=8, device="cuda")
+    n_params = sum(p.numel() for p in TransformerLM(cfg, device="meta").parameters())
+    torch.cuda.reset_peak_memory_stats()
+    full = run_training(steps=RESUME_STEPS, **kw)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume-") as d:
+        free = shutil.disk_usage(d).free
+        need = RESUME_CHECKPOINTS * n_params * 12  # f32 parameters and two moments
+        if free < need:
+            fail(f"{d} has {free} bytes free; phase 12's checkpoints take about {need}")
+        first = run_training(steps=RESUME_STOP, checkpoint_dir=d, save_every=100, **kw)
+        torch.cuda.empty_cache()
+        step_bytes = {int(p.name): directory_bytes(p) for p in Path(d).iterdir()}
+        reset_launches()
+        second = run_training(steps=RESUME_STEPS, checkpoint_dir=d, save_every=100, **kw)
+        launches = dict(LAUNCHES)
+        kept = sorted(int(p.name) for p in Path(d).iterdir())
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+    stitched = first["losses"] + second["losses"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(stitched, full["losses"])]
+    resumed_steps = RESUME_STEPS - RESUME_STOP
+    want = {"rmsnorm": 0, **{name: cfg.n_layers * resumed_steps for name in FLASH}}
+    loop_step_s = statistics.median(full["step_s"][1:])
+    emit({"resume": {
+        "card": nvidia_smi(),
+        "save_s": first["save_s"] + second["save_s"],
+        "restore_s": second["restore_s"],
+        "checkpoint_bytes": step_bytes,
+        "parameters": n_params,
+        "time_to_first_resumed_step_s": second["time_to_first_step_s"],
+        "time_to_first_step_s": full["time_to_first_step_s"],
+        "loop_step_s": loop_step_s,
+        "loop_step_times_s": full["step_s"],
+        "eager_step_s": main_report["step_time_s"],
+        "loop_over_eager_step": loop_step_s / main_report["step_time_s"],
+        "max_memory_allocated_gib": peak / 2 ** 30,
+        "start_step": second["start_step"], "kept_steps": kept,
+        "uninterrupted_losses": full["losses"], "stitched_losses": stitched,
+        "max_rel_gap": max(rel), "tolerance": f"each <= {RESUME_RTOL} relative",
+        "launches": launches, "resumed_steps": resumed_steps,
+    }})
+    if first["resumed"] or not (second["resumed"] and second["start_step"] == RESUME_STOP):
+        fail(f"expected a fresh run, then a resume at step {RESUME_STOP}: "
+             f"{first['start_step']}, {second['start_step']}")
+    if not (len(stitched) == RESUME_STEPS and max(rel) <= RESUME_RTOL):
+        fail(f"the resumed losses {stitched} disagree with the uninterrupted {full['losses']}")
+    if launches != want:
+        fail(f"resumed launches {launches}, expected {want}")
+    return launches, resumed_steps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA "
@@ -937,12 +1031,14 @@ def main() -> int:
     sharded_launches, _ = phase_sharded(main_report)
     moe_launches, _ = phase_moe()
     ring_launches, _ = phase_ring()
+    resume_launches, _ = phase_resume(main_report)
     dist.destroy_process_group()
     path_launches = {name: (launches[name], steps) for name in FLASH}
     path_launches["rmsnorm"] = (norm_launches["rmsnorm"], norm_steps)
     by_path = {"bench": launches, "norm": norm_launches, "multi_step": multi_launches,
                "generate_dense": dense_gen, "generate_flash": flash_gen,
-               "sharded": sharded_launches, "moe": moe_launches, "ring": ring_launches}
+               "sharded": sharded_launches, "moe": moe_launches, "ring": ring_launches,
+               "resume": resume_launches}
     emit({"kernels": [
         dict(entries[name], launches=n, launches_per_step=n / per,
              launches_by_path={path: counts[name] for path, counts in by_path.items()})

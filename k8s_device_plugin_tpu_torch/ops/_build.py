@@ -4,9 +4,12 @@ Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface, all sources in parallel, and
 loaded with ``ctypes``. Nothing is compiled when a module is imported: the
 first kernel call (or ``build_all()``) builds. The output lands in
-``build/`` beside this file (listed in ``.gitignore``), named by a hash of
-the sources and flags, so an edited source is rebuilt and an unchanged one
-is reused.
+``$TPU_WORKLOAD_COMPILATION_CACHE_DIR`` when it is set (a volume a
+restarted pod reads its build back from, ``utils/compilation_cache.py``),
+else in ``build/`` beside this file (listed in ``.gitignore``), named by a
+hash of the sources and flags, so an edited source is rebuilt and an
+unchanged one is reused. A build directory that cannot be created or
+written raises; the build never moves elsewhere.
 
 Calling convention of every C entry point: each pointer and the stream
 are ``c_void_p``, sizes ``c_int``, scalars ``c_float``; the function
@@ -30,6 +33,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
+CACHE_DIR_ENV = "TPU_WORKLOAD_COMPILATION_CACHE_DIR"
 
 # Launches of each hand-written kernel since the last reset_launches().
 LAUNCHES = {
@@ -62,6 +66,24 @@ def nvcc_path() -> str:
     return found
 
 
+def usable_dir(path: Path) -> Path:
+    """``path``, created if missing; raises when it cannot hold a build (a
+    file or a dangling link in its place, a read-only mount)."""
+    try:
+        path.mkdir(parents=True, exist_ok=True)
+    except OSError as e:
+        raise RuntimeError(f"kernel build directory {path} cannot be used: {e}") from e
+    if not os.access(path, os.W_OK | os.X_OK):
+        raise RuntimeError(f"kernel build directory {path} is not writable")
+    return path
+
+
+def build_dir() -> Path:
+    """Where the kernels are built: ``$TPU_WORKLOAD_COMPILATION_CACHE_DIR``
+    when set, else ``BUILD_DIR``; checked by ``usable_dir``."""
+    return usable_dir(Path(os.environ.get(CACHE_DIR_ENV) or BUILD_DIR))
+
+
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):
@@ -75,11 +97,11 @@ def build_all() -> dict[str, str]:
     per source, all started together. Returns ptxas' report (registers,
     shared memory, spills) per freshly built source; empty when every
     library was already built."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out_dir = build_dir()
     digest = _digest()
     jobs = {}
     for src in sorted(CSRC.glob("*.cu")):
-        out = BUILD_DIR / f"{src.stem}-{digest}.so"
+        out = out_dir / f"{src.stem}-{digest}.so"
         if out.exists():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -110,7 +132,7 @@ def library(stem: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<stem>.cu`` (built on first
     use)."""
     build_all()
-    path = BUILD_DIR / f"{stem}-{_digest()}.so"
+    path = build_dir() / f"{stem}-{_digest()}.so"
     if not path.exists():
         raise FileNotFoundError(f"no kernel source csrc/{stem}.cu")
     return ctypes.CDLL(str(path))

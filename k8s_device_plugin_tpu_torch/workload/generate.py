@@ -15,9 +15,13 @@ prompt_len + steps)`` tokens:
   (prefill), then each argmax back in. The plain dense attention path
   only, as in the JAX reference.
 
-Decoding runs under ``torch.inference_mode()`` on the model's device; the
-entry point ``run_generation_smoke`` puts it on the card unless the caller
-asks for the CPU. The JAX ``lax.fori_loop``/``lax.scan`` loops become
+Decoding runs without autograd on the model's device: the KV decoder under
+``torch.inference_mode()``, and ``greedy_generate`` under
+``torch.no_grad()``, since it also decodes over a model that FSDP2 shards
+(the dryrun's decode leg), and FSDP2's all-gather reads version counters,
+which inference tensors do not keep. The entry point
+``run_generation_smoke`` puts it on the card unless the caller asks for
+the CPU. The JAX ``lax.fori_loop``/``lax.scan`` loops become
 Python loops: PyTorch runs eagerly.
 """
 
@@ -34,11 +38,12 @@ from .model import KVCache, ModelConfig, TransformerLM, init_cache, init_model, 
 def _logits(model: TransformerLM, tokens: torch.Tensor, cache: KVCache | None = None):
     """Logits whatever the config's ``xent_chunk``: chunked CE is a
     training-loss concern, and decoding needs logits (the JAX generation
-    paths strip the option)."""
-    return unembed(model.hidden_states(tokens, cache)[0], model.embed)
+    paths strip the option). Over the whole vocabulary where tensor
+    parallelism split the embedding (``tied_embedding``)."""
+    return unembed(model.hidden_states(tokens, cache)[0], model.tied_embedding())
 
 
-@torch.inference_mode()
+@torch.no_grad()
 def greedy_generate(model: TransformerLM, prompt: torch.Tensor, steps: int) -> torch.Tensor:
     """Append ``steps`` greedy tokens to ``prompt`` (batch, prompt_len).
 

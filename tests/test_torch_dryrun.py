@@ -93,13 +93,48 @@ def test_plan_first_loss_matches_jax_at_float32(pool8, plan):
 
 def test_dryrun_prints_every_jax_plan(capsys):
     """``dryrun_multichip(8)`` on the CPU: an OK line for every plan of the
-    JAX ``_mesh_plans(8)``, and for the multi-process smoke."""
+    JAX ``_mesh_plans(8)``, then, in the JAX order, for the decode leg, the
+    checkpoint-reshard leg (fsdp 4 x model 2 -> fsdp 8, finite loss) and
+    the multi-process smoke."""
     losses = dryrun.dryrun_multichip(N, "cpu")
     ok = [line for line in capsys.readouterr().out.splitlines() if line.endswith(" OK")]
     for name, _, _ in graft._mesh_plans(N):
         assert any(f"dryrun_multichip({N}) {name}: " in line for line in ok), (name, ok)
-    assert any(" multiprocess: " in line for line in ok), ok
-    assert len(ok) == len(losses) == len(graft._mesh_plans(N)) + 1
+    legs = ok[len(graft._mesh_plans(N)):]
+    mesh_a = "{'data': 1, 'fsdp': 4, 'expert': 1, 'pipe': 1, 'seq': 1, 'model': 2}"
+    mesh_b = "{'data': 1, 'fsdp': 8, 'expert': 1, 'pipe': 1, 'seq': 1, 'model': 1}"
+    assert legs[0] == f"dryrun_multichip({N}) decode: mesh={mesh_a} generated=4 tokens OK"
+    assert legs[1].startswith(f"dryrun_multichip({N}) checkpoint-reshard: {mesh_a} -> {mesh_b} ")
+    assert " multiprocess: " in legs[2]
+    assert len(ok) == len(graft._mesh_plans(N)) + 3
+    assert len(losses) == len(graft._mesh_plans(N)) + 2
+    assert np.isfinite(losses["checkpoint-reshard"])
+
+
+def test_decode_leg_matches_jax_greedy_at_float32(pool8):
+    """The decode leg's greedy decode on fsdp 4 x model 2 (every rank its
+    rows) at float32 on the JAX dryrun's weights (seed 0), against the JAX
+    ``greedy_generate`` of the same prompt on the same mesh: the same
+    tokens, every one."""
+    from k8s_device_plugin_tpu.workload.generate import greedy_generate
+
+    shape = (1, N // 2, 1, 1, 1, 2)
+    kw = dataclasses.asdict(dataclasses.replace(dryrun.plan_config({}), dtype=torch.float32))
+    mesh = jax_mesh(shape)
+    jcfg = dataclasses.replace(jmodel.ModelConfig.tiny(), dtype=jnp.float32)
+    params, _, _ = jtrain.make_train_state(jcfg, mesh, jax.random.PRNGKey(0))
+    state = {k: v.numpy() for k, v in from_jax_params(
+        jax.tree_util.tree_map(np.array, params), ModelConfig(**kw)).items()}
+    batch = max(2 * N, 4)
+    gen = torch.Generator().manual_seed(2)
+    prompt = torch.randint(0, kw["vocab_size"], (batch, dryrun.DECODE_PROMPT), generator=gen)
+    want = np.asarray(greedy_generate(jcfg, params, jax.device_put(
+        jnp.asarray(prompt.numpy(), jnp.int32), batch_sharding(mesh)), dryrun.DECODE_STEPS))
+    got = pool8.run(dryrun.decode_step, shape, batch, "cpu", kw, state)
+    for r in got:
+        index, shards = r["batch"]
+        per = batch // shards
+        np.testing.assert_array_equal(r["tokens"], want[index * per:(index + 1) * per])
 
 
 def test_dryrun_main_takes_the_cpu_only_when_asked():

@@ -494,3 +494,72 @@ def test_parallel_paths_on_four_cards_match_one_card(four_cards, case, tmp_path)
     assert all(np.isfinite(losses))
     assert losses[0] == pytest.approx(one[0], rel=1e-4)
     assert losses[1:] == pytest.approx(one[1:], rel=FOUR_CARD_LATER_LOSS_REL)
+
+
+@pytest.mark.cuda
+def test_checkpoint_on_four_cards_restores_onto_other_meshes(four_cards, tmp_path):
+    """Checkpoint/resume at bench widths (2 layers) over four cards: one
+    step on fsdp 2 x model 2, saved, and a second step there (the run that
+    never stopped); the save restored onto fsdp 4 and onto one card, into
+    models of other weights. Every parameter equals the saved one bit for
+    bit (sha256 of each whole tensor), and each restored run's next loss is
+    within 1e-4 relative of the run that never stopped (the four-card
+    bound above: bf16 sums in another order on another mesh)."""
+    import numpy as np
+
+    from tests import torch_rank_jobs as jobs
+
+    tokens = np.random.default_rng(1).integers(0, FOUR_CARD_CFG["vocab_size"],
+                                               (8, FOUR_CARD_CFG["max_seq_len"]))
+    directory = str(tmp_path / "ckpt")
+    t0 = time.monotonic()
+    saved = four_cards.run(jobs.checkpoint_save, FOUR_CARD_CFG, (1, 2, 1, 1, 1, 2), tokens,
+                           directory, 1, 1, "cuda", True)[0]
+    t1 = time.monotonic()
+    fsdp4 = four_cards.run(jobs.checkpoint_restore, FOUR_CARD_CFG, (1, 4, 1, 1, 1, 1), tokens,
+                           directory, 1, "cuda", True)[0]
+    t2 = time.monotonic()
+    one = jobs.checkpoint_restore(FOUR_CARD_CFG, (1,) * 6, tokens, directory, 1, "cuda", True)
+    t3 = time.monotonic()
+    never_stopped = saved["later_losses"][0]
+    print(f"four-card checkpoint: losses {saved['losses']} then {never_stopped} (never "
+          f"stopped); restored on fsdp 4 {fsdp4['losses']}, on one card {one['losses']}; "
+          f"job s: save {t1 - t0:.1f}, restore fsdp 4 {t2 - t1:.1f}, one card {t3 - t2:.1f}")
+    assert fsdp4["step"] == one["step"] == 1
+    want = saved["whole"]["params"]
+    assert len(want) == 3 + 8 * FOUR_CARD_CFG["n_layers"]  # embed, pos, final norm; 8 a block
+    assert fsdp4["whole"]["params"] == want
+    assert one["whole"]["params"] == want
+    assert fsdp4["losses"][0] == pytest.approx(never_stopped, rel=1e-4)
+    assert one["losses"][0] == pytest.approx(never_stopped, rel=1e-4)
+
+
+@pytest.mark.cuda
+def test_async_checkpoint_on_card_commits_what_it_saved(cuda_device, tmp_path):
+    """``async_save`` on the card (NCCL world of one, so DCP's thread runs
+    over the checkpointer's own gloo group): the save goes on while the
+    next step moves the live state, ``wait`` commits it, and a restore
+    gives the state of the step saved, AdamW's step count on the card."""
+    from k8s_device_plugin_tpu_torch.parallel.mesh import make_mesh
+    from k8s_device_plugin_tpu_torch.workload import train
+    from k8s_device_plugin_tpu_torch.workload.checkpointing import TrainCheckpointer
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
+
+    cfg = ModelConfig.tiny()
+    mesh = make_mesh(1, device="cuda")
+    model, optimizer = train.make_train_state(cfg, "cuda", 0, mesh=mesh)
+    tokens = torch.randint(0, cfg.vocab_size, (4, cfg.max_seq_len),
+                           generator=torch.Generator().manual_seed(1)).cuda()
+    train.train_step(model, optimizer, tokens)
+    saved = {k: v.clone() for k, v in model.state_dict().items()}
+    with TrainCheckpointer(str(tmp_path / "ckpt"), async_save=True) as ckpt:
+        ckpt.save(1, model, optimizer)
+        train.train_step(model, optimizer, tokens)
+        ckpt.wait()
+        assert ckpt.committed_steps() == [1]
+        fresh, fresh_opt = train.make_train_state(cfg, "cuda", 1, mesh=mesh)
+        assert ckpt.restore_latest(fresh, fresh_opt)[0] == 1
+    for name, tensor in fresh.state_dict().items():
+        assert torch.equal(tensor, saved[name]), name
+    steps = {p: fresh_opt.state[p]["step"] for p in fresh.parameters()}
+    assert all(s.is_cuda and float(s) == 1.0 for s in steps.values())

@@ -250,3 +250,94 @@ def pipeline_refusal(shape, x: np.ndarray, n_microbatches: int) -> str:
     except ValueError as e:
         return str(e)
     return ""
+
+
+def _whole_moments(model, optimizer) -> dict:
+    """AdamW's moments of each parameter this rank holds, whole (FSDP2's
+    shards and the tensor- and expert-parallel slices gathered, as
+    ``full_state_dict`` gathers the parameters), and its step counts."""
+    from k8s_device_plugin_tpu_torch.parallel.collectives import gather_split
+
+    out = {"mu": {}, "nu": {}, "steps": set()}
+    for name, p in model.named_parameters():
+        state = optimizer.state[p]
+        out["steps"].add(float(state["step"]))
+        for key, moment in (("mu", state["exp_avg"]), ("nu", state["exp_avg_sq"])):
+            t = moment.full_tensor() if isinstance(moment, DTensor) else moment
+            if name in model.tp_dims:
+                t = gather_split(t, model.tp_group, model.tp_dims[name])
+            if name in model.ep_dims:
+                t = gather_split(t, model.ep_group, model.ep_dims[name])
+            out[key][name] = t.detach().cpu().numpy().copy()
+    return out
+
+
+def _whole_state(model, optimizer, digests: bool) -> dict:
+    """The whole parameters (every rank's, as numpy arrays, or with
+    ``digests`` their sha256 on rank 0 alone) and the moments of this
+    rank's parameters (not with ``digests``)."""
+    import hashlib
+
+    params = {k: v.cpu().numpy() for k, v in train.full_state_dict(model).items()}
+    if digests:
+        if torch.distributed.get_rank() != 0:
+            return {}
+        return {"params": {k: hashlib.sha256(v.tobytes()).hexdigest() for k, v in params.items()}}
+    return {"params": {k: v.copy() for k, v in params.items()},
+            "moments": _whole_moments(model, optimizer)}
+
+
+def checkpoint_save(cfg_kw: dict, shape, tokens: np.ndarray, directory: str, steps: int = 1,
+                    later_steps: int = 0, device: str = "cpu", digests: bool = False) -> dict:
+    """``steps`` sharded steps from seed 0's weights on the global batch
+    ``tokens``, saved as step ``steps`` under ``directory``; then
+    ``later_steps`` more (the run that never stopped). The losses, and the
+    whole state as it was saved (``_whole_state``)."""
+    from k8s_device_plugin_tpu_torch.workload.checkpointing import TrainCheckpointer
+
+    mesh, model, optimizer = _state_on(cfg_kw, shape, None, device)
+    rows = batch_shard(torch.from_numpy(tokens).long(), mesh).to(local_device(device))
+    losses = [float(train.train_step(model, optimizer, rows)) for _ in range(steps)]
+    with TrainCheckpointer(directory) as ckpt:
+        ckpt.save(steps, model, optimizer)
+    whole = _whole_state(model, optimizer, digests)
+    later = [float(train.train_step(model, optimizer, rows)) for _ in range(later_steps)]
+    return {"losses": losses, "later_losses": later, "whole": whole}
+
+
+def checkpoint_restore(cfg_kw: dict, shape, tokens: np.ndarray, directory: str,
+                       steps: int = 1, device: str = "cpu", digests: bool = False) -> dict:
+    """A model from seed 1's weights on a mesh of ``shape`` with a fresh
+    optimizer, into which the newest step under ``directory`` is restored;
+    then ``steps`` steps on ``tokens``. The restored step, the whole state
+    right after the restore (``_whole_state``), each parameter's local
+    shape before and after, and the losses."""
+    from k8s_device_plugin_tpu_torch.workload.checkpointing import TrainCheckpointer
+
+    dev = local_device(device)
+    mesh = make_mesh(shape=shape, device=device)
+    model, optimizer = train.make_train_state(ModelConfig(**cfg_kw), dev, 1, mesh=mesh)
+
+    def local_shapes() -> dict:
+        return {n: tuple((p.to_local() if isinstance(p, DTensor) else p).shape)
+                for n, p in model.named_parameters()}
+
+    before = local_shapes()
+    with TrainCheckpointer(directory) as ckpt:
+        step = ckpt.restore_latest(model, optimizer)[0]
+    whole = _whole_state(model, optimizer, digests)
+    rows = batch_shard(torch.from_numpy(tokens).long(), mesh).to(dev)
+    losses = [float(train.train_step(model, optimizer, rows)) for _ in range(steps)]
+    return {"step": step, "whole": whole, "local_shapes": (before, local_shapes()),
+            "losses": losses}
+
+
+def resumed_training(cfg_kw: dict, shape, directory: str, steps: int, device: str = "cpu") -> dict:
+    """``run_training`` of ``ModelConfig(**cfg_kw)`` on a mesh of ``shape``
+    for ``steps`` total steps, resuming from ``directory`` (no checkpoint
+    when it is empty), batch 4 a rank, no save on the way."""
+    from k8s_device_plugin_tpu_torch.workload.loop import run_training
+
+    mesh = make_mesh(shape=shape, device=device)
+    return run_training(ModelConfig(**cfg_kw), steps=steps, batch_per_device=4,
+                        checkpoint_dir=directory or None, save_every=100, mesh=mesh)
