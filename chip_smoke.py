@@ -106,10 +106,40 @@ caught while the run goes on:
    phase 5's, the peak device memory, and the card's name and power limit.
    The directory is deleted afterwards.
 
+13. The node's card, as the node daemon sees it through NVML
+   (``discovery/scanner.NvmlInfo``, never ``nvidia-smi``): the card torch
+   runs on is among the scanned cards, found by its UUID (NVML ignores
+   ``CUDA_VISIBLE_DEVICES``, so never by index), with the UUID, name, PCI
+   bus ID (or its absence, where the container hides the PCI tree) and
+   memory total that ``nvidia-smi --query-gpu=index,uuid,name,pci.bus_id,
+   memory.total`` gives for it, and torch's bus where NVML gives one; its
+   telemetry, read while a 1 GiB
+   tensor is held and the forward kernel runs for about a second, shows at
+   least 1 GiB in use and a power in (0, the limit nvidia-smi reports]; one
+   sweep of the health watcher makes no transition; the XID event source
+   either opens and its 100 ms wait sees no event, or its ``OSError`` is
+   printed (``"events": false``); and the link classes of every pair of
+   the scanned cards are printed.
+14. The kv sweep: ``tools/kv_sweep.run_sweep`` at seq 2048 and 8192 over
+   all six (forward, backward) ring depths at the JAX tool's defaults
+   (heads 8, head_dim 128, batch by its rule), counts set to 0 just before
+   and read just after: every row printed, a timing or a recorded error,
+   each seq's winner beside the default (4, 2) row; the report ok, both
+   winners' agreements ok (the dense oracle and the plain version). The
+   default row at seq 2048 is printed beside phase 3's K1 + K2 + K3 +
+   delta at the bench shape scaled by b*h (a sanity print: the sweep times
+   fwd+bwd through autograd).
+15. The bench leg: ``tools/bench_kernels.run_kernels(budget_s=120)``, the
+   microbench in subprocesses (the micro tier, then the full tier, merged):
+   the micro tier must capture numbers, and no captured case may carry an
+   agreement of false or a suspect timing. Its attempts and the merged
+   cases' times are printed.
+
 Then one ``{"kernels": [...]}`` line (each kernel's launches from the path
 that runs it: K1-K3 from phase 5, K4 from phase 6; every path's counts
 under ``launches_by_path``, phase 10's as ``sharded``, phase 11's as
-``moe`` and ``ring``, phase 12's as ``resume``) and, last, the device line
+``moe`` and ``ring``, phase 12's as ``resume``, phase 14's as
+``kv_sweep``) and, last, the device line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when CUDA is not available or the port's package is not beside
 this file.
@@ -1006,6 +1036,179 @@ def phase_resume(main_report: dict) -> tuple[dict, int]:
     return launches, resumed_steps
 
 
+def phase_node_card() -> None:
+    """The node daemon's view of this card through NVML, held against
+    nvidia-smi and torch."""
+    from k8s_device_plugin_tpu_torch.discovery import nvml
+    from k8s_device_plugin_tpu_torch.discovery.scanner import (
+        DEFAULT_DEV, DEFAULT_SYSFS_PCI, NvmlInfo)
+    from k8s_device_plugin_tpu_torch.health.watcher import HealthWatcher
+    from k8s_device_plugin_tpu_torch.ops import attention as A
+    from k8s_device_plugin_tpu_torch.topology.links import LinkTopology
+
+    props = torch.cuda.get_device_properties(0)
+    uuid = f"GPU-{props.uuid}"
+    smi = {}  # nvidia-smi's reading of each card, by its index (NVML's)
+    for line in subprocess.run(
+            ["nvidia-smi", "--query-gpu=index,uuid,name,pci.bus_id,memory.total,power.limit",
+             "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60, check=True).stdout.splitlines():
+        fields = [f.strip() for f in line.split(",")]
+        smi[int(fields[0])] = fields[1:]
+    with NvmlInfo() as info:
+        t0 = time.monotonic()
+        chips = info.scan(DEFAULT_SYSFS_PCI, DEFAULT_DEV)
+        scan_s = time.monotonic() - t0
+        mine = [c for c in chips if c.uuid == uuid]
+        if not mine:
+            fail(f"NVML's scan {[c.uuid for c in chips]} does not hold torch's card {uuid}")
+        chip = mine[0]
+        if chip.index not in smi:
+            fail(f"nvidia-smi lists no card {chip.index}: {smi}")
+        smi_uuid, smi_name, smi_bus, smi_mib, smi_limit = smi[chip.index]
+        # Telemetry while 1 GiB is held and the forward kernel runs: the
+        # launches queue about a second of work, read in its middle.
+        hold = torch.empty(2 ** 30, dtype=torch.uint8, device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(13)
+        q, k, v = (torch.randn(BENCH_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
+                   for _ in range(3))
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(3000):
+            A.flash_fwd_kernel(q, k, v)
+        time.sleep(0.2)
+        tel = info.chip_telemetry(DEFAULT_SYSFS_PCI, chip.index)
+        torch.cuda.synchronize()
+        busy_s = time.monotonic() - t0
+        del hold, q, k, v
+        torch.cuda.empty_cache()
+        transitions = []
+        HealthWatcher(info, DEFAULT_SYSFS_PCI, DEFAULT_DEV, chips,
+                      lambda cid, ok: transitions.append((cid, ok))).poll_once()
+        health = {c.device_id_str: info.chip_health_detail(DEFAULT_SYSFS_PCI, DEFAULT_DEV,
+                                                           c.index) for c in chips}
+        try:
+            handle = info.health_events_open(DEFAULT_SYSFS_PCI, DEFAULT_DEV)
+        except OSError as e:
+            events = {"events": False, "error": str(e)}
+        else:
+            try:
+                events = {"events": True, "event_in_100ms": info.health_events_wait(handle, 100)}
+            finally:
+                info.health_events_close(handle)
+        topo = LinkTopology(chips, info)
+        line = {"node_card": {
+            "nvml": info.version(), "scan_s": scan_s, "cards": [c.to_dict() for c in chips],
+            "torch_uuid": uuid, "torch_pci_bus": props.pci_bus_id,
+            "nvidia_smi": smi[chip.index],
+            "telemetry": tel.to_dict(chip.hbm_bytes), "telemetry_window_s": busy_s,
+            "power_limit_w": info.power_limit_w(chip.index), "health": health,
+            "transitions": transitions, **events,
+            "pair_classes": topo.pair_classes(),
+            "pair_scores": {f"{a.index}-{b.index}": topo.score_pair(a.device_id_str,
+                                                                    b.device_id_str)
+                            for a in chips for b in chips if a.index < b.index},
+        }}
+    emit(line)
+    # nvidia-smi prints "[N/A]" for a bus ID NVML will not give ("" here).
+    smi_addr = nvml.sysfs_bus_id(smi_bus) if ":" in smi_bus else ""
+    if (chip.uuid, chip.name, chip.pci_addr, chip.hbm_bytes // 2 ** 20) != (
+            smi_uuid, smi_name, smi_addr, int(smi_mib)):
+        fail(f"NVML reads {chip} where nvidia-smi reads {smi[chip.index]}")
+    if chip.pci_addr and int(chip.pci_addr.split(":")[1], 16) != props.pci_bus_id:
+        fail(f"NVML's bus {chip.pci_addr} is not torch's card's bus {props.pci_bus_id}")
+    if not (tel.hbm_used_bytes is not None and tel.hbm_used_bytes >= 2 ** 30):
+        fail(f"NVML reads {tel.hbm_used_bytes} bytes in use with 1 GiB held")
+    if not (tel.power_w is not None and 0 < tel.power_w <= float(smi_limit)):
+        fail(f"NVML reads {tel.power_w} W against nvidia-smi's limit of {smi_limit} W")
+    if transitions:
+        fail(f"the health watcher's sweep made transitions: {transitions}")
+    if events.get("event_in_100ms"):
+        fail("the XID event source reported an event on a healthy card")
+
+
+# The sweep: every (forward, backward) ring depth the kernels are built
+# for, at the JAX tool's defaults, and the seqs of the bench and the
+# microbench.
+SWEEP_SEQS = [2048, 8192]
+SWEEP_STAGES = [(4, 2), (3, 2), (2, 2), (4, 3), (3, 3), (2, 3)]
+
+
+def phase_kv_sweep(entries: dict) -> dict:
+    """The ring-depth sweep on the card; returns its launch counts."""
+    from k8s_device_plugin_tpu_torch.ops import LAUNCHES, reset_launches
+    from k8s_device_plugin_tpu_torch.ops import attention as A
+    from k8s_device_plugin_tpu_torch.tools.kv_sweep import run_sweep
+
+    reset_launches()
+    report = run_sweep(SWEEP_SEQS, SWEEP_STAGES, device="cuda")
+    launches = dict(LAUNCHES)
+    torch.cuda.empty_cache()
+    for row in report["rows"]:
+        emit({"kv_sweep_row": row})
+    default = (A.DEFAULT_FWD_STAGES, A.DEFAULT_BWD_STAGES)
+    by_seq = {}
+    for seq in SWEEP_SEQS:
+        rows = {(r["fwd_stages"], r["bwd_stages"]): r for r in report["rows"] if r["seq"] == seq}
+        by_seq[seq] = {"winner": report["best_by_seq"].get(str(seq)),
+                       "default_ms": rows.get(default, {}).get("timing", {}).get("ms"),
+                       "agreement": report["agreement"].get(str(seq))}
+    # Phase 3's four kernels at the bench shape (seq 2048), scaled from its
+    # b*h to the sweep's at the same seq.
+    b = max(1, min(4, 8192 // BENCH_SHAPE[2]))  # the sweep's batch rule
+    scaled_ms = (sum(entries[name]["ms"] for name in FLASH) * b * 8
+                 / (BENCH_SHAPE[0] * BENCH_SHAPE[1]))
+    emit({"kv_sweep": {k: report[k] for k in ("ok", "device_kind", "iters", "inner",
+                                              "wall_s", "best_by_seq")},
+          "by_seq": by_seq, "launches": launches,
+          "sanity": {"seq": BENCH_SHAPE[2],
+                     "default_row_ms": by_seq[BENCH_SHAPE[2]]["default_ms"],
+                     "phase3_kernels_ms_scaled_by_bh": scaled_ms,
+                     "note": "the row times fwd+bwd through autograd"}})
+    if len(report["rows"]) != len(SWEEP_SEQS) * len(SWEEP_STAGES):
+        fail(f"the sweep gave {len(report['rows'])} rows")
+    if not (report["ok"] and all(by_seq[s]["agreement"] and by_seq[s]["agreement"]["ok"]
+                                 for s in SWEEP_SEQS)):
+        fail(f"the kv sweep is not ok: {by_seq}")
+    timed = sum("timing" in r for r in report["rows"])
+    calls = timed * (1 + report["iters"] * report["inner"])
+    want = {"flash_fwd": calls + len(SWEEP_SEQS), "flash_dq": calls, "flash_dkv": calls,
+            "flash_bwd_delta": calls, "rmsnorm": 0}
+    if launches != want:
+        fail(f"kv sweep launches {launches}, expected {want}")
+    return launches
+
+
+BENCH_LEG_BUDGET_S = 120
+
+
+def phase_bench_leg() -> None:
+    """The bench's kernel leg: the microbench's micro and full tiers in
+    subprocesses, merged."""
+    from k8s_device_plugin_tpu_torch.tools.bench_kernels import _case_captured, run_kernels
+
+    report = run_kernels(BENCH_LEG_BUDGET_S)
+    cases = report.get("kernels") or {}
+    captured = {name: case for name, case in cases.items() if _case_captured(case)}
+    emit({"bench_leg": {
+        "attempts": report.get("attempts"), "tier": report.get("tier"),
+        "ok": report.get("ok"), "timing_suspect": report.get("timing_suspect", False),
+        "error": report.get("error"), "skipped": report.get("skipped"),
+        "cases_ms": {name: {side: body["ms"] for side, body in case.items()
+                            if isinstance(body, dict) and "ms" in body}
+                     for name, case in cases.items()},
+        "not_captured": sorted(set(cases) - set(captured)),
+    }})
+    micro = [a for a in report.get("attempts") or [] if a["tier"] == "micro" and a["ok"]]
+    if not micro:
+        fail(f"the bench leg's micro tier captured nothing: {report.get('attempts')}")
+    suspect = [name for name, case in captured.items()
+               if any(isinstance(side, dict) and side.get("suspect") for side in case.values())]
+    wrong = [name for name, case in captured.items() if case.get("ok") is False]
+    if report.get("timing_suspect") or suspect or wrong:
+        fail(f"the bench leg's captured cases: suspect {suspect}, agreement false {wrong}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA "
@@ -1032,13 +1235,16 @@ def main() -> int:
     moe_launches, _ = phase_moe()
     ring_launches, _ = phase_ring()
     resume_launches, _ = phase_resume(main_report)
+    phase_node_card()
+    sweep_launches = phase_kv_sweep(entries)
+    phase_bench_leg()
     dist.destroy_process_group()
     path_launches = {name: (launches[name], steps) for name in FLASH}
     path_launches["rmsnorm"] = (norm_launches["rmsnorm"], norm_steps)
     by_path = {"bench": launches, "norm": norm_launches, "multi_step": multi_launches,
                "generate_dense": dense_gen, "generate_flash": flash_gen,
                "sharded": sharded_launches, "moe": moe_launches, "ring": ring_launches,
-               "resume": resume_launches}
+               "resume": resume_launches, "kv_sweep": sweep_launches}
     emit({"kernels": [
         dict(entries[name], launches=n, launches_per_step=n / per,
              launches_by_path={path: counts[name] for path, counts in by_path.items()})

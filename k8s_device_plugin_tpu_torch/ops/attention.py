@@ -14,9 +14,16 @@ Numerics, as in the TPU kernels: scores ``scale * q.k`` in f32 with
 with V, dO or Q, and the logsumexp ``lse`` kept in f32 for the backward.
 ``lse`` is stored as ``(batch*heads, seq)``.
 
+The depth of each kernel's ring of streamed tiles is a template parameter
+of the CUDA source, built for a fixed set of depths (``FWD_STAGES``,
+``BWD_STAGES``) and chosen per call, as the JAX ``flash_attention`` takes
+its tiling per call; the defaults are the depths the main path runs. On
+a CPU tensor a depth is checked and then has no effect: the plain version
+has no ring.
+
 Each kernel wrapper counts its launches in the shared ``LAUNCHES`` table
-of ``_build.py`` (and nowhere else), so a run can show which kernels its
-main path went through.
+of ``_build.py`` (and nowhere else; every depth under its kernel's name),
+so a run can show which kernels its main path went through.
 """
 
 from __future__ import annotations
@@ -35,6 +42,22 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SUPPORTED_HEAD_DIMS = (64, 128)
+# Ring depths the kernels are built for (csrc/flash_fwd.cu: the K/V ring;
+# csrc/flash_bwd.cu: the streamed tiles of dQ and dK/dV), and the ones the
+# main path runs.
+FWD_STAGES = (2, 3, 4)
+BWD_STAGES = (2, 3)
+DEFAULT_FWD_STAGES = 4
+DEFAULT_BWD_STAGES = 2
+
+
+def check_stages(fwd_stages: int = DEFAULT_FWD_STAGES,
+                 bwd_stages: int = DEFAULT_BWD_STAGES) -> None:
+    """Raise on a ring depth the kernels are not built for, on any device."""
+    if fwd_stages not in FWD_STAGES:
+        raise ValueError(f"forward ring depth {fwd_stages!r} not in {FWD_STAGES}")
+    if bwd_stages not in BWD_STAGES:
+        raise ValueError(f"backward ring depth {bwd_stages!r} not in {BWD_STAGES}")
 
 
 def _scale(d: int) -> float:
@@ -206,16 +229,18 @@ def _check_kernel_inputs(*tensors: torch.Tensor, lse: torch.Tensor | None = None
     return b, h, seq, d
 
 
-def flash_fwd_kernel(q, k, v):
-    """(o, lse) from the CUDA forward kernel (replaces the TPU ``_fwd_kernel``)."""
+def flash_fwd_kernel(q, k, v, stages=DEFAULT_FWD_STAGES):
+    """(o, lse) from the CUDA forward kernel (replaces the TPU
+    ``_fwd_kernel``), its K/V ring ``stages`` deep."""
+    check_stages(fwd_stages=stages)
     b, h, seq, d = _check_kernel_inputs(q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(b * h, seq, dtype=torch.float32, device=q.device)
-    fn = _build.bind("flash_fwd", "flash_fwd", [_P] * 5 + [_I, _I, _I, _F, _P])
+    fn = _build.bind("flash_fwd", "flash_fwd", [_P] * 5 + [_I, _I, _I, _I, _F, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), b * h, seq, d, _scale(d), stream)
+                 lse.data_ptr(), b * h, seq, d, stages, _scale(d), stream)
     _build.check(err, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
     return o, lse
@@ -235,37 +260,41 @@ def flash_bwd_delta_kernel(o, do):
     return delta
 
 
-def flash_dq_kernel(q, k, v, o, lse, do, delta=None):
-    """dq from the CUDA dQ kernel (replaces the TPU ``_dq_kernel``). Without
-    ``delta`` it launches the prepass first."""
+def flash_dq_kernel(q, k, v, o, lse, do, delta=None, stages=DEFAULT_BWD_STAGES):
+    """dq from the CUDA dQ kernel (replaces the TPU ``_dq_kernel``), its
+    ring of kv tiles ``stages`` deep. Without ``delta`` it launches the
+    prepass first."""
+    check_stages(bwd_stages=stages)
     b, h, seq, d = _check_kernel_inputs(q, k, v, o, do, lse=lse, delta=delta)
     if delta is None:
         delta = flash_bwd_delta_kernel(o, do)
     dq = torch.empty_like(q)
-    fn = _build.bind("flash_bwd", "flash_dq", [_P] * 7 + [_I, _I, _I, _F, _P])
+    fn = _build.bind("flash_bwd", "flash_dq", [_P] * 7 + [_I, _I, _I, _I, _F, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dq.data_ptr(), b * h, seq, d, _scale(d), stream)
+                 delta.data_ptr(), dq.data_ptr(), b * h, seq, d, stages, _scale(d), stream)
     _build.check(err, "flash_dq")
     LAUNCHES["flash_dq"] += 1
     return dq
 
 
-def flash_dkv_kernel(q, k, v, o, lse, do, delta=None):
+def flash_dkv_kernel(q, k, v, o, lse, do, delta=None, stages=DEFAULT_BWD_STAGES):
     """(dk, dv) from the CUDA dK/dV kernel (replaces the TPU
-    ``_dkv_kernel``). Without ``delta`` it launches the prepass first."""
+    ``_dkv_kernel``), its ring of q tiles ``stages`` deep. Without
+    ``delta`` it launches the prepass first."""
+    check_stages(bwd_stages=stages)
     b, h, seq, d = _check_kernel_inputs(q, k, v, o, do, lse=lse, delta=delta)
     if delta is None:
         delta = flash_bwd_delta_kernel(o, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = _build.bind("flash_bwd", "flash_dkv", [_P] * 8 + [_I, _I, _I, _F, _P])
+    fn = _build.bind("flash_bwd", "flash_dkv", [_P] * 8 + [_I, _I, _I, _I, _F, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, seq, d, _scale(d),
-                 stream)
+                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, seq, d, stages,
+                 _scale(d), stream)
     _build.check(err, "flash_dkv")
     LAUNCHES["flash_dkv"] += 1
     return dk, dv
@@ -275,46 +304,58 @@ def flash_dkv_kernel(q, k, v, o, lse, do, delta=None):
 # Dispatch and autograd
 # ---------------------------------------------------------------------------
 
-def flash_attention_fwd(q, k, v):
-    """(o, lse): the CUDA kernel for CUDA tensors, the plain version for
-    CPU tensors."""
+def flash_attention_fwd(q, k, v, stages=DEFAULT_FWD_STAGES):
+    """(o, lse): the CUDA kernel of ring depth ``stages`` for CUDA
+    tensors, the plain version for CPU tensors."""
+    check_stages(fwd_stages=stages)
     if uses_kernel(q):
-        return flash_fwd_kernel(q, k, v)
+        return flash_fwd_kernel(q, k, v, stages)
     return flash_attention_fwd_plain(q, k, v)
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, delta=None):
+def flash_attention_bwd(q, k, v, o, lse, do, delta=None, stages=DEFAULT_BWD_STAGES):
     """(dq, dk, dv): for CUDA tensors the delta prepass (unless ``delta``
-    is given) and the dQ and dK/dV kernels, which share its delta; the
-    plain version for CPU tensors."""
+    is given) and the dQ and dK/dV kernels of ring depth ``stages``, which
+    share its delta; the plain version for CPU tensors."""
+    check_stages(bwd_stages=stages)
     if uses_kernel(q):
         if delta is None:
             delta = flash_bwd_delta_kernel(o, do)
-        dq = flash_dq_kernel(q, k, v, o, lse, do, delta=delta)
-        dk, dv = flash_dkv_kernel(q, k, v, o, lse, do, delta=delta)
+        dq = flash_dq_kernel(q, k, v, o, lse, do, delta=delta, stages=stages)
+        dk, dv = flash_dkv_kernel(q, k, v, o, lse, do, delta=delta, stages=stages)
         return dq, dk, dv
     return flash_attention_bwd_plain(q, k, v, o, lse, do, delta)
 
 
 class FlashAttention(torch.autograd.Function):
     """Causal flash attention whose gradient runs the backward kernels;
-    the counterpart of the JAX ``custom_vjp``."""
+    the counterpart of the JAX ``custom_vjp``. The backward runs at the
+    ring depth the forward was given."""
 
     @staticmethod
-    def forward(ctx, q, k, v):
-        o, lse = flash_attention_fwd(q, k, v)
+    def forward(ctx, q, k, v, fwd_stages=DEFAULT_FWD_STAGES, bwd_stages=DEFAULT_BWD_STAGES):
+        o, lse = flash_attention_fwd(q, k, v, fwd_stages)
         ctx.save_for_backward(q, k, v, o, lse)
+        ctx.bwd_stages = bwd_stages
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        return flash_attention_bwd(q, k, v, o, lse, do.contiguous())
+        grads = flash_attention_bwd(q, k, v, o, lse, do.contiguous(), stages=ctx.bwd_stages)
+        return (*grads, None, None)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    fwd_stages: int = DEFAULT_FWD_STAGES,
+                    bwd_stages: int = DEFAULT_BWD_STAGES) -> torch.Tensor:
     """Causal attention over (batch, heads, seq, head_dim) tensors, the
     layout of the JAX package's ``flash_attention``. Inputs are made
-    contiguous, as the kernels read rows of the (b*h, seq, d) layout."""
-    return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous())
+    contiguous, as the kernels read rows of the (b*h, seq, d) layout.
+    ``fwd_stages`` and ``bwd_stages`` pick the kernels' ring depths (the
+    counterpart of the JAX function's ``block_q`` and ``block_kv``), checked
+    on every device."""
+    check_stages(fwd_stages, bwd_stages)
+    return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
+                                fwd_stages, bwd_stages)
 

@@ -43,7 +43,10 @@
 //    streamed tiles go through a ring of kStages stages, each guarded by a
 //    full mbarrier (the TMA bytes have landed) and an empty one (both
 //    consumer warpgroups are done with it), so the loads of the next tiles
-//    run while the tensor cores work on this one.
+//    run while the tensor cores work on this one. kStages is a template
+//    parameter: the C entry points take 2 or 3 and the wrapper passes 2
+//    unless asked; at head_dim 128 the resident tiles take 64 KiB of
+//    shared memory and each stage 32 KiB.
 //  - Products on wgmma (m64nNk16 with N = 32, 64 or head_dim, f32 +=
 //    bf16 x bf16).
 //    S^T = K Q^T and dP^T = V dO^T (dkv), or S = Q K^T and dP = dO V^T
@@ -81,7 +84,6 @@ using namespace sm90;
 
 constexpr int kBlock = 128;     // resident rows a block (two warpgroups of 64)
 constexpr int kStep = 64;       // rows of a streamed tile
-constexpr int kStages = 2;      // depth of the ring of streamed tiles
 constexpr int kCols = 32;       // q columns of one dK/dV slice of a q tile
 constexpr int kGroup = 16;      // heads a dQ grid walks together
 constexpr int kThreads = 384;   // two consumer warpgroups, then the producer
@@ -95,7 +97,7 @@ constexpr float kNegInf = -1e30f;  // the JAX kernels' mask value: exp() gives 0
 constexpr int kVecBox = kStep + 4;
 constexpr int kVecPad = 96;
 
-template <int D, bool kAligned>
+template <int D, int kStages, bool kAligned>
 struct DkvSmem {
   static constexpr int kPanels = D / 64;
   Panel<kBlock> k[kPanels];
@@ -109,7 +111,7 @@ struct DkvSmem {
   uint64_t empty[kStages];
 };
 
-template <int D>
+template <int D, int kStages>
 struct DqSmem {
   static constexpr int kPanels = D / 64;
   Panel<kBlock> q[kPanels];
@@ -138,10 +140,10 @@ __device__ __forceinline__ void load_pair(float (&x)[2], const float* p) {
 // The consumer warpgroups of dkv_kernel: S^T, dP^T, then dV and dK.
 // kAligned: seq is a multiple of 4, so every lse and delta box starts at
 // its tile's first value.
-template <int D, bool kAligned>
-__device__ __forceinline__ void dkv_consume(DkvSmem<D, kAligned>& sm, bf16* __restrict__ dk,
-                                            bf16* __restrict__ dv, int bh, int k0, int i0,
-                                            int n_tiles, int seq, float scale) {
+template <int D, int kStages, bool kAligned>
+__device__ __forceinline__ void dkv_consume(DkvSmem<D, kStages, kAligned>& sm,
+                                            bf16* __restrict__ dk, bf16* __restrict__ dv, int bh,
+                                            int k0, int i0, int n_tiles, int seq, float scale) {
   regs_alloc<kConsumerRegs>();
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32;
@@ -253,14 +255,14 @@ __device__ __forceinline__ void dkv_consume(DkvSmem<D, kAligned>& sm, bf16* __re
 }
 
 // dK, dV for one (b*h, 128-row kv block); q tiles stream through the ring.
-template <int D, bool kAligned>
+template <int D, int kStages, bool kAligned>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
                const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
                const __grid_constant__ CUtensorMap tm_lse,
                const __grid_constant__ CUtensorMap tm_delta, bf16* __restrict__ dk,
                bf16* __restrict__ dv, int seq, float scale) {
-  using S = DkvSmem<D, kAligned>;
+  using S = DkvSmem<D, kStages, kAligned>;
   S& sm = smem_as<S>();
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kBlock;  // y = 0 is the heaviest block
@@ -305,13 +307,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   } else {
-    dkv_consume<D, kAligned>(sm, dk, dv, bh, k0, i0, n_tiles, seq, scale);
+    dkv_consume<D, kStages, kAligned>(sm, dk, dv, bh, k0, i0, n_tiles, seq, scale);
   }
 }
 
 // The consumer warpgroups of dq_kernel: S, dP, then dQ.
-template <int D>
-__device__ __forceinline__ void dq_consume(DqSmem<D>& sm, const float* __restrict__ lse,
+template <int D, int kStages>
+__device__ __forceinline__ void dq_consume(DqSmem<D, kStages>& sm, const float* __restrict__ lse,
                                            const float* __restrict__ delta, bf16* __restrict__ dq,
                                            int bh, int q0, int n_tiles, int seq, float scale) {
   regs_alloc<kConsumerRegs>();
@@ -396,13 +398,13 @@ __device__ __forceinline__ void dq_consume(DqSmem<D>& sm, const float* __restric
 }
 
 // dQ for one (b*h, 128-row q block); kv tiles stream through the ring.
-template <int D>
+template <int D, int kStages>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
               const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dq, int seq, float scale) {
-  using S = DqSmem<D>;
+  using S = DqSmem<D, kStages>;
   S& sm = smem_as<S>();
   // The blocks walk groups of kGroup heads, and each group's q blocks
   // heaviest first, so that the blocks resident at once share their heads'
@@ -444,7 +446,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   } else {
-    dq_consume<D>(sm, lse, delta, dq, bh, q0, n_tiles, seq, scale);
+    dq_consume<D, kStages>(sm, lse, delta, dq, bh, q0, n_tiles, seq, scale);
   }
 }
 
@@ -476,7 +478,7 @@ __global__ void __launch_bounds__(256)
   if (row < rows && threadIdx.x % kLanes == 0) delta[row] = acc;
 }
 
-template <int D>
+template <int D, int kStages>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* d_o,
                        const void* lse, const void* delta, void* dk, void* dv, int bh, int seq,
                        float scale, cudaStream_t stream) {
@@ -490,8 +492,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   const int vec_box = aligned ? kStep : kVecBox;
   if ((err = map_vec_f32(&tm_lse, lse, (long long)bh * seq, vec_box)) != cudaSuccess) return err;
   if ((err = map_vec_f32(&tm_delta, delta, (long long)bh * seq, vec_box)) != cudaSuccess) return err;
-  const auto kernel = aligned ? dkv_kernel<D, true> : dkv_kernel<D, false>;
-  const int smem = (int)(aligned ? sizeof(DkvSmem<D, true>) : sizeof(DkvSmem<D, false>)) + 1024;
+  const auto kernel = aligned ? dkv_kernel<D, kStages, true> : dkv_kernel<D, kStages, false>;
+  const int smem = (int)(aligned ? sizeof(DkvSmem<D, kStages, true>)
+                                 : sizeof(DkvSmem<D, kStages, false>)) + 1024;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (seq + kBlock - 1) / kBlock);
@@ -501,7 +504,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int kStages>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d_o,
                       const void* lse, const void* delta, void* dq, int bh, int seq, float scale,
                       cudaStream_t stream) {
@@ -511,14 +514,44 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   if ((err = map_rows_bf16(&tm_do, d_o, bh, seq, D, kBlock)) != cudaSuccess) return err;
   if ((err = map_rows_bf16(&tm_k, k, bh, seq, D, kStep)) != cudaSuccess) return err;
   if ((err = map_rows_bf16(&tm_v, v, bh, seq, D, kStep)) != cudaSuccess) return err;
-  const int smem = (int)sizeof(DqSmem<D>) + 1024;
-  err = cudaFuncSetAttribute(dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = (int)sizeof(DqSmem<D, kStages>) + 1024;
+  err = cudaFuncSetAttribute(dq_kernel<D, kStages>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh * ((seq + kBlock - 1) / kBlock));
-  dq_kernel<D><<<grid, kThreads, smem, stream>>>(
+  dq_kernel<D, kStages><<<grid, kThreads, smem, stream>>>(
       tm_q, tm_do, tm_k, tm_v, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dq), seq, scale);
   return cudaGetLastError();
+}
+
+// The dQ and dK/dV instances of ring depth `stages`: 2 or 3.
+template <int D>
+cudaError_t launch_dq_stages(const void* q, const void* k, const void* v, const void* d_o,
+                             const void* lse, const void* delta, void* dq, int bh, int seq,
+                             int stages, float scale, cudaStream_t stream) {
+  switch (stages) {
+    case 2:
+      return launch_dq<D, 2>(q, k, v, d_o, lse, delta, dq, bh, seq, scale, stream);
+    case 3:
+      return launch_dq<D, 3>(q, k, v, d_o, lse, delta, dq, bh, seq, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv_stages(const void* q, const void* k, const void* v, const void* d_o,
+                              const void* lse, const void* delta, void* dk, void* dv, int bh,
+                              int seq, int stages, float scale, cudaStream_t stream) {
+  switch (stages) {
+    case 2:
+      return launch_dkv<D, 2>(q, k, v, d_o, lse, delta, dk, dv, bh, seq, scale, stream);
+    case 3:
+      return launch_dkv<D, 3>(q, k, v, d_o, lse, delta, dk, dv, bh, seq, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <int D>
@@ -535,17 +568,20 @@ cudaError_t launch_delta(const void* o, const void* d_o, void* delta, int rows,
 }  // namespace flash
 
 // q, k, v, d_o, dq: [bh][seq][d] bf16, contiguous; lse, delta: [bh][seq]
-// f32 (delta from flash_bwd_delta). head_dim d in {64, 128}. Returns the
-// launch's cudaGetLastError() (or the tensor-map encoding's error).
+// f32 (delta from flash_bwd_delta). head_dim d in {64, 128}; stages, the
+// depth of the streamed tiles' ring, in {2, 3}. Returns the launch's
+// cudaGetLastError() (or the tensor-map encoding's error);
+// cudaErrorInvalidValue for any other d or stages.
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* d_o,
                         const void* lse, const void* delta, void* dq, int bh, int seq, int d,
-                        float scale, void* stream) {
+                        int stages, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return flash::launch_dq<64>(q, k, v, d_o, lse, delta, dq, bh, seq, scale, s);
+      return flash::launch_dq_stages<64>(q, k, v, d_o, lse, delta, dq, bh, seq, stages, scale, s);
     case 128:
-      return flash::launch_dq<128>(q, k, v, d_o, lse, delta, dq, bh, seq, scale, s);
+      return flash::launch_dq_stages<128>(q, k, v, d_o, lse, delta, dq, bh, seq, stages, scale,
+                                          s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -554,13 +590,15 @@ extern "C" int flash_dq(const void* q, const void* k, const void* v, const void*
 // As flash_dq, writing dk and dv ([bh][seq][d] bf16).
 extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void* d_o,
                          const void* lse, const void* delta, void* dk, void* dv, int bh, int seq,
-                         int d, float scale, void* stream) {
+                         int d, int stages, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return flash::launch_dkv<64>(q, k, v, d_o, lse, delta, dk, dv, bh, seq, scale, s);
+      return flash::launch_dkv_stages<64>(q, k, v, d_o, lse, delta, dk, dv, bh, seq, stages,
+                                          scale, s);
     case 128:
-      return flash::launch_dkv<128>(q, k, v, d_o, lse, delta, dk, dv, bh, seq, scale, s);
+      return flash::launch_dkv_stages<128>(q, k, v, d_o, lse, delta, dk, dv, bh, seq, stages,
+                                           scale, s);
     default:
       return cudaErrorInvalidValue;
   }

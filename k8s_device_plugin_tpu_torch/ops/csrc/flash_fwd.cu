@@ -35,8 +35,12 @@
 //    hides each item's start (see the variants below).
 //  - Q arrives as one 128-row box per 64-column panel. K and V stream in
 //    64-row tiles through a ring of kStages stages that runs on across the
-//    items, each guarded by a full mbarrier (the TMA bytes have landed) and
-//    an empty one (both consumer warpgroups are done with it). All come
+//    items (kStages is a template parameter: the C entry point takes 2, 3
+//    or 4 and the wrapper passes 4 unless asked; at head_dim 128 four
+//    stages and the two Q buffers take 192 KiB of shared memory, and five
+//    would leave no room beside them), each guarded by a full mbarrier
+//    (the TMA bytes have landed) and an empty one (both consumer
+//    warpgroups are done with it). All come
 //    through 3-D tensor maps over (b*h, seq, d), 128-byte swizzled: a box
 //    past seq is zero-filled, never read from the next head. kv tiles
 //    wholly above a q block's diagonal are never loaded; a warpgroup
@@ -95,7 +99,6 @@ using namespace sm90;
 
 constexpr int kBlock = 128;    // q rows an item (two warpgroups of 64)
 constexpr int kStep = 64;      // kv rows of a streamed tile
-constexpr int kStages = 4;     // depth of the K/V ring
 constexpr int kThreads = 384;  // two consumer warpgroups, then the producer
 constexpr int kConsumerThreads = 256;
 constexpr int kProducerRegs = 40;
@@ -104,7 +107,7 @@ constexpr float kNegInf = -1e30f;  // the JAX kernel's mask value: exp() gives 0
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int D>
+template <int D, int kStages>
 struct FwdSmem {
   static constexpr int kPanels = D / 64;
   Panel<kBlock> q[2][kPanels];  // this item's Q and the next one's
@@ -218,9 +221,10 @@ __device__ __forceinline__ int item_tiles(int q0, int seq) {
 // The consumer warpgroups: for each item of this block, S, the softmax,
 // then O += P V per kv tile, and the item's O and lse. `tile` counts the
 // ring's tiles over the items, as the producer does.
-template <int D>
-__device__ __forceinline__ void fwd_consume(FwdSmem<D>& sm, Items items, bf16* __restrict__ o,
-                                            float* __restrict__ lse, int seq, float scale) {
+template <int D, int kStages>
+__device__ __forceinline__ void fwd_consume(FwdSmem<D, kStages>& sm, Items items,
+                                            bf16* __restrict__ o, float* __restrict__ lse, int seq,
+                                            float scale) {
   regs_alloc<kConsumerRegs>();
   const int wg = threadIdx.x / 128;
   const int warp = (threadIdx.x % 128) / 32;
@@ -336,12 +340,12 @@ __device__ __forceinline__ void fwd_consume(FwdSmem<D>& sm, Items items, bf16* _
 }
 
 // O, lse for this block's items; their kv tiles stream through the ring.
-template <int D>
+template <int D, int kStages>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
                float* __restrict__ lse, int bh_total, int seq, float scale) {
-  using S = FwdSmem<D>;
+  using S = FwdSmem<D, kStages>;
   S& sm = smem_as<S>();
   const int n_q = (seq + kBlock - 1) / kBlock;
   const Items items{n_q, bh_total * n_q};
@@ -386,11 +390,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   } else {
-    fwd_consume<D>(sm, items, o, lse, seq, scale);
+    fwd_consume<D, kStages>(sm, items, o, lse, seq, scale);
   }
 }
 
-template <int D>
+template <int D, int kStages>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                        int seq, float scale, cudaStream_t stream) {
   CUtensorMap tm_q, tm_k, tm_v;
@@ -398,8 +402,9 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   if ((err = map_rows_bf16(&tm_q, q, bh, seq, D, kBlock)) != cudaSuccess) return err;
   if ((err = map_rows_bf16(&tm_k, k, bh, seq, D, kStep)) != cudaSuccess) return err;
   if ((err = map_rows_bf16(&tm_v, v, bh, seq, D, kStep)) != cudaSuccess) return err;
-  const int smem = (int)sizeof(FwdSmem<D>) + 1024;
-  err = cudaFuncSetAttribute(fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int smem = (int)sizeof(FwdSmem<D, kStages>) + 1024;
+  err = cudaFuncSetAttribute(fwd_kernel<D, kStages>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
   if (err != cudaSuccess) return err;
   // One block an SM (each takes most of an SM's shared memory and
   // registers), or one a pair of items where there are fewer.
@@ -409,24 +414,41 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, voi
   if (err != cudaSuccess) return err;
   const int pairs = (bh * ((seq + kBlock - 1) / kBlock) + 1) / 2;
   const dim3 grid(pairs < sms ? pairs : sms);
-  fwd_kernel<D><<<grid, kThreads, smem, stream>>>(tm_q, tm_k, tm_v, static_cast<bf16*>(o),
-                                                  static_cast<float*>(lse), bh, seq, scale);
+  fwd_kernel<D, kStages><<<grid, kThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, static_cast<bf16*>(o), static_cast<float*>(lse), bh, seq, scale);
   return cudaGetLastError();
+}
+
+// The instance of ring depth `stages`: 2, 3 or 4.
+template <int D>
+cudaError_t launch_fwd_stages(const void* q, const void* k, const void* v, void* o, void* lse,
+                              int bh, int seq, int stages, float scale, cudaStream_t stream) {
+  switch (stages) {
+    case 2:
+      return launch_fwd<D, 2>(q, k, v, o, lse, bh, seq, scale, stream);
+    case 3:
+      return launch_fwd<D, 3>(q, k, v, o, lse, bh, seq, scale, stream);
+    case 4:
+      return launch_fwd<D, 4>(q, k, v, o, lse, bh, seq, scale, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace flash
 
 // q, k, v, o: [bh][seq][d] bf16, contiguous; lse: [bh][seq] f32.
-// head_dim d in {64, 128}. Returns the launch's cudaGetLastError() (or the
-// tensor-map encoding's error).
+// head_dim d in {64, 128}; stages, the K/V ring's depth, in {2, 3, 4}.
+// Returns the launch's cudaGetLastError() (or the tensor-map encoding's
+// error); cudaErrorInvalidValue for any other d or stages.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                         int seq, int d, float scale, void* stream) {
+                         int seq, int d, int stages, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
     case 64:
-      return flash::launch_fwd<64>(q, k, v, o, lse, bh, seq, scale, s);
+      return flash::launch_fwd_stages<64>(q, k, v, o, lse, bh, seq, stages, scale, s);
     case 128:
-      return flash::launch_fwd<128>(q, k, v, o, lse, bh, seq, scale, s);
+      return flash::launch_fwd_stages<128>(q, k, v, o, lse, bh, seq, stages, scale, s);
     default:
       return cudaErrorInvalidValue;
   }

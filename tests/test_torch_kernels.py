@@ -15,6 +15,7 @@ held to a relative 1e-5, and the RMSNorm kernel's rrms to a relative 1e-5
 (f32 sums in another order, and rsqrt).
 """
 
+import re
 import time
 
 import pytest
@@ -144,11 +145,12 @@ def test_forward_writes_nothing_past_each_heads_rows(cuda_device, seq):
     rows = 3 * seq
     o_buf = torch.full((rows + pad, 64), 7.0, dtype=torch.bfloat16, device=cuda_device)
     lse_buf = torch.full((rows + pad,), 7.0, dtype=torch.float32, device=cuda_device)
-    fn = _build.bind("flash_fwd", "flash_fwd", [tattn._P] * 5 + [tattn._I] * 3
+    fn = _build.bind("flash_fwd", "flash_fwd", [tattn._P] * 5 + [tattn._I] * 4
                      + [tattn._F, tattn._P])
     stream = torch.cuda.current_stream().cuda_stream
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o_buf.data_ptr(),
-                    lse_buf.data_ptr(), 3, seq, 64, 64 ** -0.5, stream), "flash_fwd")
+                    lse_buf.data_ptr(), 3, seq, 64, tattn.DEFAULT_FWD_STAGES, 64 ** -0.5,
+                    stream), "flash_fwd")
     o_p, lse_p = tattn.flash_attention_fwd_plain(q, k, v)
     torch.cuda.synchronize()
     assert torch.equal(o_buf[rows:], torch.full_like(o_buf[rows:], 7.0))
@@ -156,6 +158,56 @@ def test_forward_writes_nothing_past_each_heads_rows(cuda_device, seq):
     assert (lse_buf[:rows] - lse_p.reshape(-1)).abs().max() <= 1e-4
     agree = tattn.bf16_agreement(o_buf[:rows].reshape(shape), o_p)
     assert agree["ok"], agree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 16, 2048, 128), (2, 4, 130, 64)],
+                         ids=["bench", "ragged"])
+def test_every_ring_depth_matches_plain_on_card(cuda_device, shape):
+    """Every instance the kernels are built for: the forward at each K/V
+    ring depth, dQ and dK/dV at each depth of their streamed ring, each
+    against the plain version (bf16_agreement; lse within 1e-4), each
+    launch counted under its kernel's name."""
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    q, k, v, do = (
+        torch.randn(shape, generator=gen, device=cuda_device).to(torch.bfloat16)
+        for _ in range(4)
+    )
+    o_p, lse_p = tattn.flash_attention_fwd_plain(q, k, v)
+    bwd = (q, k, v, o_p, lse_p, do)
+    delta = tattn.flash_bwd_delta_kernel(o_p, do)
+    dq_p, (dk_p, dv_p) = tattn.flash_dq_plain(*bwd), tattn.flash_dkv_plain(*bwd)
+    reset_launches()
+    for stages in tattn.FWD_STAGES:
+        o, lse = tattn.flash_fwd_kernel(q, k, v, stages)
+        torch.cuda.synchronize()
+        assert (lse - lse_p).abs().max() <= 1e-4, stages
+        agree = tattn.bf16_agreement(o, o_p)
+        assert agree["ok"], (stages, agree)
+    for stages in tattn.BWD_STAGES:
+        dq = tattn.flash_dq_kernel(*bwd, delta=delta, stages=stages)
+        dk, dv = tattn.flash_dkv_kernel(*bwd, delta=delta, stages=stages)
+        torch.cuda.synchronize()
+        for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+            agree = tattn.bf16_agreement(got, want)
+            assert agree["ok"], (stages, agree)
+    assert LAUNCHES == {"flash_fwd": len(tattn.FWD_STAGES), "flash_dq": len(tattn.BWD_STAGES),
+                        "flash_dkv": len(tattn.BWD_STAGES), "flash_bwd_delta": 0, "rmsnorm": 0}
+
+
+@pytest.mark.cuda
+def test_a_depth_not_built_is_refused_on_card(cuda_device):
+    """The wrapper refuses it, and so does the C entry point behind it."""
+    q = torch.zeros(1, 1, 64, 64, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="ring depth"):
+        tattn.flash_fwd_kernel(q, q, q, 5)
+    fn = _build.bind("flash_fwd", "flash_fwd", [tattn._P] * 5 + [tattn._I] * 4
+                     + [tattn._F, tattn._P])
+    out, lse = torch.empty_like(q), torch.empty(1, 64, device=cuda_device)
+    err = fn(q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), lse.data_ptr(), 1, 64,
+             64, 5, 0.125, torch.cuda.current_stream().cuda_stream)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        _build.check(err, "flash_fwd")
 
 
 @pytest.mark.cuda
@@ -563,3 +615,75 @@ def test_async_checkpoint_on_card_commits_what_it_saved(cuda_device, tmp_path):
         assert torch.equal(tensor, saved[name]), name
     steps = {p: fresh_opt.state[p]["step"] for p in fresh.parameters()}
     assert all(s.is_cuda and float(s) == 1.0 for s in steps.values())
+
+
+def _smi(*args: str):
+    import subprocess
+
+    out = subprocess.run(["nvidia-smi", *args], capture_output=True, text=True, timeout=60)
+    return out.returncode, re.sub(r"\x1b\[[0-9;]*m", "", out.stdout)
+
+
+def _smi_matrix(text: str) -> dict:
+    """The GPU x GPU cells of an ``nvidia-smi topo`` matrix, by index."""
+    lines = [l.split() for l in text.splitlines() if l.strip()]
+    gpus = [h for h in lines[0] if re.fullmatch(r"GPU\d+", h)]
+    return {(int(row[0][3:]), j): cell
+            for row in lines[1:] if row and row[0] in gpus
+            for j, cell in enumerate(row[1:1 + len(gpus)])}
+
+
+def _nvidia_smi_topology() -> tuple:
+    """nvidia-smi's class of every pair of GPUs, by index, and where it
+    came from: ``topo -m``'s matrix; where that does not run (a container
+    that hides the PCI tree: "Failed to run topology matrix"), ``NV<n>``
+    for a pair that ``topo -p2p n`` says talks over NVLink, n the lesser of
+    the two cards' links up in ``nvlink -s``, and "unknown" for any other
+    pair (the PCIe class is what ``topo -m`` cannot read)."""
+    rc, out = _smi("topo", "-m")
+    if rc == 0:
+        return _smi_matrix(out), "nvidia-smi topo -m"
+    rc, out = _smi("topo", "-p2p", "n")
+    assert rc == 0, out
+    p2p = _smi_matrix(out)
+    rc, out = _smi("nvlink", "-s")
+    assert rc == 0, out
+    links, gpu = {}, None
+    for line in out.splitlines():
+        m = re.match(r"GPU (\d+):", line)
+        if m:
+            gpu = int(m.group(1))
+            links[gpu] = 0
+        elif gpu is not None and re.search(r"Link \d+: [\d.]+ GB/s", line):
+            links[gpu] += 1
+    table = {(i, j): ("X" if i == j else
+                      f"NV{min(links[i], links[j])}" if cell == "OK" else "unknown")
+             for (i, j), cell in p2p.items()}
+    return table, "nvidia-smi topo -p2p n and nvlink -s (topo -m does not run here)"
+
+
+@pytest.mark.cuda
+def test_link_topology_on_four_cards_matches_nvidia_smi():
+    """Every pair's link class from NVML (``LinkTopology``) equals
+    nvidia-smi's for it (``NV18`` on an HGX H100: every NVLink goes to an
+    NVSwitch, so counting the links whose far end is the peer would give
+    0)."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards on one host")
+    from k8s_device_plugin_tpu_torch.discovery.scanner import NvmlInfo
+    from k8s_device_plugin_tpu_torch.topology.links import LinkTopology
+
+    truth, source = _nvidia_smi_topology()
+    with NvmlInfo() as info:
+        chips = info.scan()
+        topo = LinkTopology(chips, info)
+    ids = {c.index: c.device_id_str for c in chips}
+    print("cards:", [c.to_dict() for c in chips])
+    print("nvml pair classes:", topo.pair_classes())
+    print("nvml pair scores:", {f"{i}-{j}": topo.score_pair(ids[i], ids[j])
+                                for i in ids for j in ids if i < j})
+    print(f"{source}:", {f"{i}-{j}": c for (i, j), c in truth.items() if i < j})
+    assert len(chips) >= 4 and len(set(ids.values())) == len(chips)
+    for i in ids:
+        for j in ids:
+            assert topo.link_class(ids[i], ids[j]) == truth[(i, j)], (i, j)

@@ -150,15 +150,18 @@ import chip_smoke
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
        or re.match(r"{JAX_PACKAGE.pattern}", m)]
-print(len(names), bad)
+new = [m for m in names if m.split(".")[1] in ("api", "discovery", "health", "tools",
+                                                "topology")]
+print(len(names), len(new), bad)
 """
     env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHON")}
     out = subprocess.run(
         [sys.executable, "-c", code], capture_output=True, text=True,
         timeout=120, cwd=ROOT, env=env, check=True,
     ).stdout.split()
-    assert int(out[0]) >= 15  # every module of the port, generate.py included, was imported
-    assert out[1:] == ["[]"]
+    # every module of the port was imported, the node layers' and tools' 13 among them
+    assert int(out[0]) >= 47 and int(out[1]) == 13
+    assert out[2:] == ["[]"]
 
 
 def test_chip_smoke_fails_without_cuda():
