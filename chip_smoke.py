@@ -134,12 +134,41 @@ caught while the run goes on:
    the micro tier must capture numbers, and no captured case may carry an
    agreement of false or a suspect timing. Its attempts and the merged
    cases' times are printed.
+16. Plugin → pod: this script serves the kubelet's Registration service
+   on ``<tmp>/kubelet.sock`` (the port's ``api/grpc_defs.py``) and starts
+   the node daemon, ``python -m k8s_device_plugin_tpu_torch
+   --device-plugin-dir <tmp>``, over the real NVML and ``/dev``. The
+   daemon must register (version v1beta1, ``nvidia.com/gpu``, its
+   endpoint, GetPreferredAllocation available); its first ListAndWatch
+   answer must hold every card ``nvidia-smi --query-gpu=uuid`` lists, each
+   Healthy; GetPreferredAllocation(size 1) must give one of them (the
+   median of 20 calls is printed); Allocate of it must name its UUID in
+   ``NVIDIA_VISIBLE_DEVICES`` with device specs whose host paths exist, and
+   an unknown id must get INVALID_ARGUMENT. Then the pod: ``python -m
+   k8s_device_plugin_tpu_torch.workload.smoke --bench --steps 5`` with the
+   response's env, and ``CUDA_VISIBLE_DEVICES`` set from
+   ``NVIDIA_VISIBLE_DEVICES`` as the NVIDIA container runtime would. Its
+   report must be ok with one expected device, each flash kernel and delta
+   launched ``n_layers`` times a step it ran and the RMSNorm kernel not at
+   all. The daemon must hold no CUDA context: the card's used memory may
+   grow by less than 64 MiB from before its start to its first device
+   list, and while the pod trains (at its first step) ``nvidia-smi
+   --query-compute-apps`` must list two processes (this script and the
+   pod) and the daemon must not map ``libtorch`` (the pod must). NVML's
+   own init maps ``libcuda`` and opens ``/dev/nvidia-uvm``, so those are
+   printed, not held. The ListAndWatch stream must send no new list while
+   the pod runs. Last, SIGHUP must lead to a new registration and SIGTERM to an
+   exit with code 0 and the daemon's socket removed. One line with the
+   times to registration, of the two RPCs, from Allocate to the pod's first
+   step and to its report, of SIGHUP and SIGTERM, the pod's report beside
+   phase 5's step time, the footprint, and the card's name and power limit.
 
 Then one ``{"kernels": [...]}`` line (each kernel's launches from the path
 that runs it: K1-K3 from phase 5, K4 from phase 6; every path's counts
 under ``launches_by_path``, phase 10's as ``sharded``, phase 11's as
 ``moe`` and ``ring``, phase 12's as ``resume``, phase 14's as
-``kv_sweep``) and, last, the device line
+``kv_sweep``, phase 16's, from the pod's report, as ``plugin_pod``) and,
+last, the device line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when CUDA is not available or the port's package is not beside
 this file.
@@ -150,11 +179,15 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import os
+import queue
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1209,6 +1242,260 @@ def phase_bench_leg() -> None:
         fail(f"the bench leg's captured cases: suspect {suspect}, agreement false {wrong}")
 
 
+# The pod's training run, as a user's pod spec would start it.
+POD_ARGS = ("-m", "k8s_device_plugin_tpu_torch.workload.smoke", "--bench", "--steps", "5")
+PLUGIN_WAIT_S = 60
+
+
+def mapped(pid: int) -> dict:
+    """Which of torch and the CUDA driver library process ``pid`` maps, and
+    whether it holds the UVM device open. NVML's own init maps libcuda and
+    opens /dev/nvidia-uvm (NVIDIA driver 580), so only torch tells a context's
+    maker from an NVML reader here."""
+    maps = Path(f"/proc/{pid}/maps").read_text()
+    fds = []
+    for fd in Path(f"/proc/{pid}/fd").iterdir():
+        try:
+            fds.append(os.readlink(fd))
+        except OSError:  # closed between the listing and the read
+            continue
+    return {"libtorch": "libtorch" in maps, "libcuda": "libcuda.so" in maps,
+            "nvidia_uvm_open": any(p.startswith("/dev/nvidia-uvm") for p in fds)}
+
+
+def compute_apps() -> list:
+    """The card's processes holding a CUDA context, as nvidia-smi lists
+    them (in a container their pids read as the host's, or 1)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def memory_used_mib() -> int:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=memory.used", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return int(out.split()[0])
+
+
+# A CUDA context costs hundreds of MiB of device memory; the daemon's
+# start may move the card's used memory by less than this.
+DAEMON_MEMORY_MIB = 64
+
+
+class Kubelet:
+    """The kubelet's Registration service on ``<dir>/kubelet.sock``, built
+    on the port's ``api/grpc_defs.py``: every RegisterRequest is queued
+    with the time it came."""
+
+    def __init__(self, directory: str):
+        import grpc
+        from concurrent import futures
+
+        from k8s_device_plugin_tpu_torch.api import deviceplugin_pb2 as pb
+        from k8s_device_plugin_tpu_torch.api.grpc_defs import (
+            RegistrationServicer, add_registration_servicer)
+
+        registrations = self.registrations = queue.Queue()
+
+        class Registration(RegistrationServicer):
+            def Register(self, request, context):
+                registrations.put((time.monotonic(), request))
+                return pb.Empty()
+
+        self.server = grpc.server(futures.ThreadPoolExecutor(max_workers=2))
+        add_registration_servicer(Registration(), self.server)
+        self.server.add_insecure_port(f"unix:{directory}/kubelet.sock")
+        self.server.start()
+
+    def next_registration(self):
+        try:
+            return self.registrations.get(timeout=PLUGIN_WAIT_S)
+        except queue.Empty:
+            fail(f"the daemon did not register within {PLUGIN_WAIT_S} s")
+
+
+def phase_plugin_pod(main_report: dict) -> dict:
+    """The node daemon hands this card to a pod, which trains on it."""
+    import grpc
+
+    from k8s_device_plugin_tpu_torch.api import constants
+    from k8s_device_plugin_tpu_torch.api import deviceplugin_pb2 as pb
+    from k8s_device_plugin_tpu_torch.api.grpc_defs import DevicePluginStub
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
+
+    torch.cuda.empty_cache()
+    smi_uuids = subprocess.run(
+        ["nvidia-smi", "--query-gpu=uuid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.split()
+    work = Path(tempfile.mkdtemp(prefix="plugin_pod_"))
+    kubelet = Kubelet(str(work))
+    log_path = work / "daemon.log"
+    line: dict = {"nvidia_smi": nvidia_smi()}
+    channel = None
+    used_before = memory_used_mib()
+    with open(log_path, "w") as log_file:
+        t_start = time.monotonic()
+        daemon = subprocess.Popen([sys.executable, "-m", "k8s_device_plugin_tpu_torch",
+                                   "--device-plugin-dir", str(work)],
+                                  cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT)
+    try:
+        def daemon_fail(msg: str) -> None:
+            print(log_path.read_text()[-4000:], file=sys.stderr, flush=True)
+            fail(msg)
+
+        t_reg, req = kubelet.next_registration()
+        line["register_s"] = t_reg - t_start
+        if (req.version, req.resource_name, req.endpoint,
+                req.options.get_preferred_allocation_available) != (
+                "v1beta1", constants.RESOURCE_NAME, constants.PLUGIN_SOCKET_NAME, True):
+            daemon_fail(f"RegisterRequest {req}")
+        channel = grpc.insecure_channel(f"unix:{work / req.endpoint}")
+        stub = DevicePluginStub(channel)
+        lists: queue.Queue = queue.Queue()
+
+        def watch(stream) -> None:
+            """The kubelet's ListAndWatch stream, each answer queued; its
+            end (the daemon's rebuild or exit) is queued as None."""
+            try:
+                for resp in stream:
+                    lists.put(resp)
+            except grpc.RpcError as e:
+                lists.put(e)
+            lists.put(None)
+
+        threading.Thread(target=watch, args=(stub.ListAndWatch(pb.Empty()),),
+                         daemon=True).start()
+        first = lists.get(timeout=PLUGIN_WAIT_S)
+        line["card_memory_used_mib"] = {"before_daemon": used_before,
+                                        "daemon_serving": memory_used_mib()}
+        devices = {d.ID: d.health for d in first.devices}
+        line["devices"] = len(devices)
+        if sorted(devices) != sorted(smi_uuids) or set(devices.values()) != {constants.HEALTHY}:
+            daemon_fail(f"ListAndWatch sent {devices}; nvidia-smi lists {len(smi_uuids)} cards")
+
+        preq = pb.PreferredAllocationRequest()
+        preq.container_requests.add(available_deviceIDs=list(devices), allocation_size=1)
+        gpa_ms = []
+        for _ in range(20):
+            t0 = time.monotonic()
+            pref = stub.GetPreferredAllocation(preq, timeout=PLUGIN_WAIT_S)
+            gpa_ms.append((time.monotonic() - t0) * 1e3)
+        picked = list(pref.container_responses[0].deviceIDs)
+        line["get_preferred_allocation_ms_median"] = statistics.median(gpa_ms)
+        if len(picked) != 1 or picked[0] not in devices:
+            daemon_fail(f"GetPreferredAllocation(size 1) gave {picked}")
+
+        areq = pb.AllocateRequest()
+        areq.container_requests.add(devicesIDs=picked)
+        t_alloc = time.monotonic()
+        cresp = stub.Allocate(areq, timeout=PLUGIN_WAIT_S).container_responses[0]
+        line["allocate_ms"] = (time.monotonic() - t_alloc) * 1e3
+        paths = [d.host_path for d in cresp.devices]
+        line["device_specs"] = paths
+        if cresp.envs.get(constants.NVIDIA_VISIBLE_DEVICES) != picked[0]:
+            daemon_fail(f"Allocate's env {dict(cresp.envs)} does not name {picked}")
+        if not paths or not all(os.path.exists(p) for p in paths):
+            daemon_fail(f"Allocate's device specs {paths} are not all on the host")
+        bogus = pb.AllocateRequest()
+        bogus.container_requests.add(devicesIDs=["GPU-not-a-card"])
+        try:
+            stub.Allocate(bogus, timeout=PLUGIN_WAIT_S)
+            code = grpc.StatusCode.OK
+        except grpc.RpcError as e:
+            code = e.code()
+        if code != grpc.StatusCode.INVALID_ARGUMENT:
+            daemon_fail(f"an unknown id got {code}, not INVALID_ARGUMENT")
+
+        # The pod, with the response's env; CUDA_VISIBLE_DEVICES stands in
+        # for what the NVIDIA container runtime makes of
+        # NVIDIA_VISIBLE_DEVICES for a real pod.
+        env = dict(os.environ, **cresp.envs)
+        env["CUDA_VISIBLE_DEVICES"] = cresp.envs[constants.NVIDIA_VISIBLE_DEVICES]
+        pod = subprocess.Popen([sys.executable, *POD_ARGS], cwd=ROOT, env=env, text=True,
+                               stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        pod_lines: queue.Queue = queue.Queue()
+
+        def read_pod() -> None:
+            for raw in pod.stdout:
+                pod_lines.put((time.monotonic(), raw))
+            pod_lines.put(None)
+
+        threading.Thread(target=read_pod, daemon=True).start()
+        report, footprint = None, None
+        while (item := pod_lines.get(timeout=600)) is not None:
+            t_line, raw = item
+            if not raw.startswith("{"):
+                continue
+            snap = json.loads(raw)
+            if "partial" in snap:
+                line.setdefault("allocate_to_stage_s", {})[snap["partial"]] = t_line - t_alloc
+            if snap.get("partial") == "first_step" and footprint is None:
+                line["allocate_to_first_step_s"] = t_line - t_alloc
+                # While the pod trains: the card's context holders (this
+                # script and the pod, not the daemon) and what each maps.
+                footprint = {"compute_apps": compute_apps(), "daemon": mapped(daemon.pid),
+                             "pod": mapped(pod.pid)}
+            elif "partial" not in snap:
+                report = snap
+                line["allocate_to_report_s"] = t_line - t_alloc
+        rc = pod.wait(timeout=60)
+        err = pod.stderr.read()
+        pod.stderr.close()
+        if rc != 0 or report is None:
+            print(err[-4000:], file=sys.stderr, flush=True)
+            fail(f"the pod exited {rc} with report {report}")
+        n_layers = ModelConfig.bench().n_layers
+        launches = report["kernel_launches"]
+        line.update({
+            "pod": {k: report.get(k) for k in (
+                "ok", "device_kind", "expected_devices", "devices_match", "steps_run",
+                "time_to_devices_s", "time_to_first_step_s", "step_time_s", "mfu",
+                "first_loss", "kernel_launches")},
+            "main_path_step_time_s": main_report.get("step_time_s"),
+            "footprint": footprint,
+        })
+        if not (report["ok"] and report["expected_devices"] == 1 and report["devices_match"]):
+            fail(f"the pod's report is not ok on the allocated card: {line['pod']}")
+        want = {name: n_layers * report["steps_run"] for name in FLASH}
+        want["rmsnorm"] = 0
+        if launches != want:
+            fail(f"the pod launched {launches}, expected {want}")
+        if footprint is None:
+            fail("the pod never reported its first step")
+        grown = line["card_memory_used_mib"]["daemon_serving"] - used_before
+        if (len(footprint["compute_apps"]) != 2 or footprint["daemon"]["libtorch"]
+                or not footprint["pod"]["libtorch"] or grown > DAEMON_MEMORY_MIB):
+            fail(f"the daemon may hold a CUDA context: {footprint}, card memory +{grown} MiB "
+                 f"with it serving (2 context holders expected: this script and the pod)")
+        if not lists.empty():
+            fail(f"the daemon re-sent its device list while the pod ran: {lists.get()}")
+
+        t0 = time.monotonic()
+        daemon.send_signal(signal.SIGHUP)
+        t_reg, req = kubelet.next_registration()
+        line["sighup_to_register_s"] = t_reg - t0
+        t0 = time.monotonic()
+        daemon.send_signal(signal.SIGTERM)
+        rc = daemon.wait(timeout=PLUGIN_WAIT_S)
+        line["sigterm_to_exit_s"] = time.monotonic() - t0
+        socket_left = (work / constants.PLUGIN_SOCKET_NAME).exists()
+        line["daemon_rc"] = rc
+        emit({"plugin_pod": line})
+        if rc != 0 or socket_left:
+            daemon_fail(f"SIGTERM: the daemon exited {rc}, its socket left: {socket_left}")
+    finally:
+        if daemon.poll() is None:
+            daemon.kill()
+            daemon.wait()
+        if channel is not None:
+            channel.close()
+        kubelet.server.stop(grace=0)
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA "
@@ -1238,13 +1525,15 @@ def main() -> int:
     phase_node_card()
     sweep_launches = phase_kv_sweep(entries)
     phase_bench_leg()
+    pod_launches = phase_plugin_pod(main_report)
     dist.destroy_process_group()
     path_launches = {name: (launches[name], steps) for name in FLASH}
     path_launches["rmsnorm"] = (norm_launches["rmsnorm"], norm_steps)
     by_path = {"bench": launches, "norm": norm_launches, "multi_step": multi_launches,
                "generate_dense": dense_gen, "generate_flash": flash_gen,
                "sharded": sharded_launches, "moe": moe_launches, "ring": ring_launches,
-               "resume": resume_launches, "kv_sweep": sweep_launches}
+               "resume": resume_launches, "kv_sweep": sweep_launches,
+               "plugin_pod": pod_launches}
     emit({"kernels": [
         dict(entries[name], launches=n, launches_per_step=n / per,
              launches_by_path={path: counts[name] for path, counts in by_path.items()})

@@ -1,9 +1,13 @@
-"""PyTorch/CUDA port of the smoke workload of ``k8s_device_plugin_tpu``.
+"""PyTorch/CUDA port of ``k8s_device_plugin_tpu``: the smoke workload the
+plugin schedules, and the node daemon that hands out NVIDIA cards
+(``python -m k8s_device_plugin_tpu_torch``).
 
 The JAX package beside this one is the reference each module here is held
 against. Module paths mirror it (``ops/attention.py``,
-``workload/model.py``, ...). This package imports ``torch`` and ``numpy``
-only: never ``jax`` and nothing of ``k8s_device_plugin_tpu``.
+``workload/model.py``, ``server/plugin.py``, ...). This package imports
+``torch``, ``numpy`` and, in the node daemon, ``grpc`` and ``protobuf``:
+never ``jax`` and nothing of ``k8s_device_plugin_tpu``. The node daemon
+reads the cards through NVML and never imports ``torch``.
 
 Entry points run on the CUDA card unless the caller passes
 ``device="cpu"``; on the CPU every kernel wrapper uses its plain PyTorch

@@ -1,6 +1,45 @@
-"""The environment names of the JAX package's ``api/constants.py`` that the
-node layers of the port read. The rest of that module comes with the
-plugin server."""
+"""Device-plugin protocol constants: the names of the JAX package's
+``api/constants.py`` that the port's node daemon reads, with NVIDIA values
+where the two differ. The PodResources, checkpoint, DRA, tracing and
+scheduler names come with their planes."""
+
+# Protocol version spoken over the Registration/DevicePlugin services.
+VERSION = "v1beta1"
+
+# Directory the kubelet serves its registration socket from and watches for
+# plugin sockets. Mounted into the DaemonSet pod via hostPath.
+DEVICE_PLUGIN_PATH = "/var/lib/kubelet/device-plugins/"
+
+# The kubelet's own registration socket (relative to DEVICE_PLUGIN_PATH).
+KUBELET_SOCKET_NAME = "kubelet.sock"
+
+# This plugin's socket (relative to DEVICE_PLUGIN_PATH): the name NVIDIA's
+# own device plugin serves under (the reference's was nvidia-topo.sock,
+# server.go:31, for its nvidia.com/gpu-topo resource).
+PLUGIN_SOCKET_NAME = "nvidia-gpu.sock"
+
+# Extended resource advertised to the kubelet: the name NVIDIA's plugin
+# and every GPU pod spec use. The reference advertised "nvidia.com/gpu-topo"
+# (server.go:30); --resource-name sets it.
+RESOURCE_NAME = "nvidia.com/gpu"
+
+# Device health states (kubelet contract).
+HEALTHY = "Healthy"
+UNHEALTHY = "Unhealthy"
+
+# Pod annotation carrying the real card assignment (the cards' UUIDs), as
+# the JAX plugin's "google.com/tpu-devices" does; the reference used
+# "nvidia.com/gpu-topo" for it (server.go:199).
+POD_DEVICES_ANNOTATION = "nvidia.com/gpu-devices"
+
+# The container env the NVIDIA container runtime reads to inject the
+# allocated cards, the NVIDIA driver's libraries and the node-level
+# device nodes (the reference's server.go:196-198).
+NVIDIA_VISIBLE_DEVICES = "NVIDIA_VISIBLE_DEVICES"
+
+# The NVIDIA driver's node-level control device, which every CUDA process
+# opens beside its cards' /dev/nvidia<minor>.
+NVIDIACTL = "nvidiactl"
 
 # Understood as the reference's DP_DISABLE_HEALTHCHECKS: a comma-separated
 # list of check classes to disable. Classes: "all", "events" (the XID

@@ -96,25 +96,35 @@ class NvmlInfo:
              dev_dir: str = DEFAULT_DEV) -> List[GpuChip]:
         """Every card NVML sees (every card of the node, whatever
         ``CUDA_VISIBLE_DEVICES`` says), sorted by PCI address as the JAX
-        scanner sorts."""
+        scanner sorts. A card NVML reports lost cannot be identified (its
+        UUID reads "GPU is lost" too), so it is left out with an error
+        logged: withdrawn, never advertised Healthy."""
         chips = []
         for index in range(self._nvml.device_count()):
-            h = self._nvml.handle(index)
-            name = self._nvml.name(h)
-            pci_addr = self._pci_addr(h)
-            spec = card_spec(name)
-            chips.append(GpuChip(
-                index=index,
-                uuid=self._nvml.uuid(h),
-                name=name,
-                dev_path=os.path.join(dev_dir, f"nvidia{self._nvml.minor_number(h)}"),
-                pci_addr=pci_addr,
-                numa_node=numa_node_of(sysfs_pci_dir, pci_addr) if pci_addr else -1,
-                chip_type=spec.name if spec else "unknown",
-                hbm_bytes=self._nvml.memory(h).total,
-            ))
+            try:
+                chips.append(self._card(index, sysfs_pci_dir, dev_dir))
+            except nvml.NvmlError as e:
+                if e.code != nvml.ERROR_GPU_IS_LOST:
+                    raise
+                log.error("card %d is lost (%s); not listed", index, e)
         chips.sort(key=lambda c: (c.pci_addr, c.index))
         return chips
+
+    def _card(self, index: int, sysfs_pci_dir: str, dev_dir: str) -> GpuChip:
+        h = self._nvml.handle(index)
+        name = self._nvml.name(h)
+        pci_addr = self._pci_addr(h)
+        spec = card_spec(name)
+        return GpuChip(
+            index=index,
+            uuid=self._nvml.uuid(h),
+            name=name,
+            dev_path=os.path.join(dev_dir, f"nvidia{self._nvml.minor_number(h)}"),
+            pci_addr=pci_addr,
+            numa_node=numa_node_of(sysfs_pci_dir, pci_addr) if pci_addr else -1,
+            chip_type=spec.name if spec else "unknown",
+            hbm_bytes=self._nvml.memory(h).total,
+        )
 
     def _pci_addr(self, h) -> str:
         """The card's bus ID in sysfs form; "" where NVML does not give it
@@ -371,6 +381,9 @@ class NoCards:
     def scan(self, sysfs_pci_dir: str = DEFAULT_SYSFS_PCI,
              dev_dir: str = DEFAULT_DEV) -> List[GpuChip]:
         return []
+
+    def close(self) -> None:
+        pass
 
 
 def get_backend(lib_path: str = nvml.LIBRARY):

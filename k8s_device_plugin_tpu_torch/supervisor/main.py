@@ -1,0 +1,249 @@
+"""Process supervisor: discovery → serve → register → watch → restart. The
+counterpart of the JAX package's ``supervisor/main.py`` for NVIDIA cards,
+and of the reference's main loop (main.go:23-113).
+
+``Daemon.build_and_serve`` builds one plugin generation: the node's cards
+through NVML (``discovery/scanner``), their ``LinkTopology``, a
+``GpuPlacementState``, the ``GpuDevicePlugin``, and the health watcher,
+whose first sweep runs before the plugin serves, so a card already broken
+is never advertised Healthy. ``Daemon.run`` then sits on an event queue fed
+by the fs watcher and the signal handlers: a re-created kubelet.sock
+(kubelet restart) or SIGHUP tears the generation down and builds the next;
+SIGTERM or SIGINT returns 0.
+
+As in the JAX daemon, a node without cards (no NVML, or NVML with no card)
+serves zero devices instead of blocking before registration as the
+reference does (main.go:33-41), and SIGHUP re-runs discovery, so an NVIDIA
+driver installed later is picked up without a restart. One NVML backend lives
+across generations, since a hardware XID withdraws its card until the
+daemon restarts (``discovery/scanner.NvmlInfo``); only a node that had no
+NVML looks for it again.
+
+The daemon reads NVML only. It never imports ``torch`` and never creates a
+CUDA context, which would cost device memory on every card of the node.
+
+The planes that are not ported yet bring their flags with them: the kube
+client and controller, DRA, telemetry, audit, the metrics endpoint,
+tracing's switch, the flight recorder's dumps, the black box and the
+profilers.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import queue
+import signal
+import sys
+from typing import List, Optional
+
+from ..api import constants
+from ..discovery import nvml
+from ..discovery.chips import GpuChip
+from ..discovery.scanner import DEFAULT_DEV, DEFAULT_SYSFS_PCI, NoCards, get_backend
+from ..health.watcher import HealthWatcher, healthchecks_disabled
+from ..server.plugin import GpuDevicePlugin, PluginConfig
+from ..topology.links import LinkTopology
+from ..topology.placement import GpuPlacementState
+from ..utils import logging as tpulog
+from ..utils import profiling
+from ..utils.flightrecorder import RECORDER
+from ..utils.logging import get_logger
+from .watchers import FsWatcher, SignalWatcher
+
+log = get_logger(__name__)
+
+
+@dataclasses.dataclass
+class DaemonConfig:
+    device_plugin_dir: str = constants.DEVICE_PLUGIN_PATH
+    # Where a card's NUMA node is read (<dir>/<bus id>/numa_node) and where
+    # its /dev/nvidia<minor> and the NVIDIA driver's /dev/nvidiactl live.
+    sysfs_pci_dir: str = DEFAULT_SYSFS_PCI
+    dev_dir: str = DEFAULT_DEV
+    resource_name: str = constants.RESOURCE_NAME
+    substitute_on_allocate: bool = False
+    health_interval_s: float = 5.0
+    # CDI kind for Allocate responses ("" disables; see PluginConfig).
+    cdi_kind: str = ""
+    # Registration path: "register" (dial kubelet, reference-style),
+    # "watcher" (plugins_registry socket, kubelet >= 1.12), or "both".
+    registration_mode: str = "register"
+    plugins_registry_dir: str = "/var/lib/kubelet/plugins_registry/"
+    # The NVML library to load (the dynamic loader's search by default).
+    nvml_library: str = nvml.LIBRARY
+
+
+class Daemon:
+    """One node's device-plugin process."""
+
+    def __init__(self, cfg: DaemonConfig):
+        self.cfg = cfg
+        self.backend = None
+        self.events: "queue.Queue" = queue.Queue()
+        self.plugin: Optional[GpuDevicePlugin] = None
+        self.health: Optional[HealthWatcher] = None
+
+    # -- build/teardown of one plugin generation ---------------------------
+
+    def discover(self) -> List[GpuChip]:
+        """The node's cards through NVML. The backend is kept across
+        generations; a node that had no NVML (``NoCards``) looks again."""
+        if self.backend is None or isinstance(self.backend, NoCards):
+            self.backend = get_backend(self.cfg.nvml_library)
+        chips = self.backend.scan(self.cfg.sysfs_pci_dir, self.cfg.dev_dir)
+        log.info(
+            "discovered %d cards (%s) via %s",
+            len(chips),
+            chips[0].name if chips else "-",
+            self.backend.version(),
+        )
+        return chips
+
+    def build_and_serve(self) -> None:
+        chips = self.discover()
+        topology = LinkTopology(chips, self.backend)
+        state = GpuPlacementState(topology)
+        self.plugin = GpuDevicePlugin(
+            topology,
+            state=state,
+            config=PluginConfig(
+                resource_name=self.cfg.resource_name,
+                device_plugin_dir=self.cfg.device_plugin_dir,
+                substitute_on_allocate=self.cfg.substitute_on_allocate,
+                cdi_kind=self.cfg.cdi_kind,
+                registration_mode=self.cfg.registration_mode,
+                plugins_registry_dir=self.cfg.plugins_registry_dir,
+                extra_device_paths=(os.path.join(self.cfg.dev_dir, constants.NVIDIACTL),),
+            ),
+        )
+        if chips:
+            self.health = HealthWatcher(
+                self.backend,
+                self.cfg.sysfs_pci_dir,
+                self.cfg.dev_dir,
+                chips,
+                self.plugin.notify_health,
+                interval_s=self.cfg.health_interval_s,
+            )
+            if not healthchecks_disabled():
+                # Synchronous first sweep BEFORE serving: a card that is
+                # already broken at daemon start must never be advertised
+                # Healthy for a poll interval.
+                self.health.poll_once()
+        self.plugin.serve()
+        # Kubelet-restart watcher: a restarted kubelet wipes its plugin
+        # registry (and our socket); the node would advertise zero cards
+        # until this daemon re-registers.
+        self.plugin.start_restart_watch()
+        if self.health is not None:
+            self.health.start()
+
+    def teardown(self) -> None:
+        if self.health is not None:
+            self.health.stop()
+            self.health = None
+        if self.plugin is not None:
+            self.plugin.stop()
+            self.plugin = None
+
+    # -- supervisor loop ---------------------------------------------------
+
+    def run(self) -> int:
+        """The restart loop, until SIGTERM or SIGINT (which return 0)."""
+        fs = FsWatcher(self.cfg.device_plugin_dir, self.events)
+        sigs = SignalWatcher(self.events)
+        fs.start()
+        sigs.start()
+        # The supervisor loop's heartbeat: one beat per event-queue turn.
+        hb = profiling.HEARTBEATS.register("supervisor", interval_s=1.0, max_silence_s=60.0)
+        restart = True
+        try:
+            while True:
+                hb.beat()
+                if restart:
+                    self.teardown()
+                    try:
+                        self.build_and_serve()
+                    except Exception:
+                        log.exception("build/serve failed; will retry on "
+                                      "next kubelet event or SIGHUP")
+                    restart = False
+                try:
+                    kind, payload = self.events.get(timeout=1.0)
+                except queue.Empty:
+                    continue
+                if kind == "create" and payload == constants.KUBELET_SOCKET_NAME:
+                    log.info("kubelet socket recreated; restarting plugin")
+                    RECORDER.record(
+                        "plugin_restart",
+                        "kubelet socket recreated; rebuilding",
+                        reason="kubelet_socket",
+                    )
+                    restart = True
+                elif kind == "signal" and payload == signal.SIGHUP:
+                    log.info("SIGHUP; restarting plugin")
+                    RECORDER.record("plugin_restart", "SIGHUP rebuild", reason="sighup")
+                    restart = True
+                elif kind == "signal" and payload in (signal.SIGTERM, signal.SIGINT):
+                    log.info("signal %d; shutting down", payload)
+                    return 0
+        finally:
+            self.teardown()
+            if self.backend is not None:
+                self.backend.close()
+                self.backend = None
+            fs.stop()
+            sigs.stop()
+            profiling.HEARTBEATS.unregister("supervisor")
+
+
+def parse_args(argv) -> DaemonConfig:
+    p = argparse.ArgumentParser(
+        prog="nvidia-device-plugin",
+        description="Kubernetes device plugin for NVIDIA cards, over NVML",
+    )
+    p.add_argument("--device-plugin-dir", default=constants.DEVICE_PLUGIN_PATH)
+    p.add_argument("--sysfs-pci-dir", default=DEFAULT_SYSFS_PCI,
+                   help="sysfs PCI devices dir, where each card's NUMA node "
+                   "is read")
+    p.add_argument("--dev-dir", default=DEFAULT_DEV,
+                   help="dir of the cards' nvidia<minor> nodes and nvidiactl")
+    p.add_argument("--resource-name", default=constants.RESOURCE_NAME)
+    p.add_argument(
+        "--substitute-on-allocate",
+        action="store_true",
+        help="reference-compatible Allocate-time substitution for kubelets "
+        "without GetPreferredAllocation",
+    )
+    p.add_argument("--health-interval", type=float, default=5.0)
+    p.add_argument("--cdi-kind", default="",
+                   help="emit CDI device names of this kind in Allocate "
+                   "responses (e.g. nvidia.com/gpu); empty disables")
+    p.add_argument("--registration-mode", default="register",
+                   choices=["register", "watcher", "both"],
+                   help="kubelet registration path: dial its Register RPC "
+                   "(reference-compatible), serve a plugins_registry "
+                   "watcher socket, or both")
+    p.add_argument("--plugins-registry-dir",
+                   default="/var/lib/kubelet/plugins_registry/")
+    p.add_argument("-v", "--verbose", action="count", default=0)
+    a = p.parse_args(argv)
+    tpulog.setup(verbose=a.verbose)
+    return DaemonConfig(
+        device_plugin_dir=a.device_plugin_dir,
+        sysfs_pci_dir=a.sysfs_pci_dir,
+        dev_dir=a.dev_dir,
+        resource_name=a.resource_name,
+        substitute_on_allocate=a.substitute_on_allocate,
+        health_interval_s=a.health_interval,
+        cdi_kind=a.cdi_kind,
+        registration_mode=a.registration_mode,
+        plugins_registry_dir=a.plugins_registry_dir,
+    )
+
+
+def main(argv=None) -> int:
+    cfg = parse_args(argv if argv is not None else sys.argv[1:])
+    return Daemon(cfg).run()

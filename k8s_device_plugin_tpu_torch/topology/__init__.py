@@ -1,1 +1,2 @@
-"""How the node's cards are linked (``links.py``)."""
+"""How the node's cards are linked (``links.py``) and which of them a
+request gets (``placement.py``)."""

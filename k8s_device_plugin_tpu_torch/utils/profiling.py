@@ -1,10 +1,13 @@
 """Two parts of the JAX package's ``utils/profiling.py``: the workload's
 profiler trace of a block (``trace``) and named regions inside it
-(``annotate``); and the node daemon's loop liveness (``Heartbeat``,
-``HEARTBEATS``) and the supervised thread target (``supervised``,
-``run_supervised``) that makes a background loop's death loud. The stall
-watchdog, lockdep, GC and sampling profiler of that module come with the
-plugin server.
+(``annotate``); and the node daemon's handler timing (``timed``), loop
+liveness (``Heartbeat``, ``HEARTBEATS``) and the supervised thread target
+(``supervised``, ``run_supervised``) that makes a background loop's death
+loud. The stall watchdog, lockdep, GC, SLO capture and sampling profiler of
+that module come with the observability plane.
+
+The node daemon imports this module and never touches the card, so
+``torch`` is imported only inside the workload's two functions.
 """
 
 from __future__ import annotations
@@ -15,12 +18,22 @@ import time
 from collections.abc import Callable, Iterator
 from typing import Dict, Optional
 
-import torch
-from torch.profiler import ProfilerActivity
-
 from .logging import get_logger
 
 log = get_logger(__name__)
+
+
+@contextlib.contextmanager
+def timed(histogram, **labels) -> Iterator[None]:
+    """Observe the block's wall time into ``histogram`` (required: each
+    caller names its registry's histogram, e.g. ``metrics.RPC_LATENCY``)."""
+    if histogram is None or not hasattr(histogram, "observe"):
+        raise TypeError("timed() requires an explicit Histogram (e.g. metrics.RPC_LATENCY)")
+    start = time.monotonic()
+    try:
+        yield
+    finally:
+        histogram.observe(time.monotonic() - start, **labels)
 
 
 @contextlib.contextmanager
@@ -32,6 +45,9 @@ def trace(trace_dir: str | None) -> Iterator[None]:
     if not trace_dir:
         yield
         return
+    import torch
+    from torch.profiler import ProfilerActivity
+
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
@@ -40,9 +56,11 @@ def trace(trace_dir: str | None) -> Iterator[None]:
         yield
 
 
-def annotate(name: str) -> torch.profiler.record_function:
+def annotate(name: str) -> "torch.profiler.record_function":
     """A named region inside an active trace (``record_function``); costs
     next to nothing outside one."""
+    import torch
+
     return torch.profiler.record_function(name)
 
 

@@ -1,13 +1,28 @@
-"""The one function of the JAX package's ``utils/tracing.py`` that the
-decision ledger and the flight recorder call: ``current()``. Spans, their
-collector and the carriers come with the plugin server; until then no span
-is ever open, so every record goes out untraced."""
+"""The span model of the JAX package's ``utils/tracing.py``, as far as the
+device-plugin server's ``Allocate`` and the decision ledger, flight
+recorder and latency histograms need it: ``enabled``/``enable``/
+``disable``, ``span`` (a thread-local stack, so ``current()`` names the
+innermost open span) and a bounded in-memory collector of finished spans.
+The carriers, adoption and OTLP export, and the daemon's switch that turns
+tracing on, come with the observability plane.
+
+**Exact no-op when disabled** (the default): every entry point checks one
+module-level bool first, and ``span()`` then returns a shared no-op that
+yields ``None``.
+"""
 
 from __future__ import annotations
 
 import collections
+import os
 import threading
-from typing import Optional
+import time
+from typing import List, Optional, Tuple
+
+_lock = threading.Lock()
+_enabled = False
+_service = ""
+_tls = threading.local()
 
 
 class SpanContext(collections.namedtuple("SpanContext", "trace_id span_id")):
@@ -16,8 +31,139 @@ class SpanContext(collections.namedtuple("SpanContext", "trace_id span_id")):
     __slots__ = ()
 
 
-_enabled = False
-_tls = threading.local()
+def _ids() -> Tuple[str, str]:
+    return os.urandom(16).hex(), os.urandom(8).hex()
+
+
+class SpanCollector:
+    """The last ``capacity`` finished spans of this process, oldest
+    dropped first."""
+
+    def __init__(self, capacity: int = 4096):
+        self._spans: "collections.deque" = collections.deque(maxlen=capacity)
+        self._lock = threading.Lock()
+
+    def add(self, span: dict) -> None:
+        with self._lock:
+            self._spans.append(span)
+
+    def spans(self) -> List[dict]:
+        with self._lock:
+            return list(self._spans)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+
+
+COLLECTOR = SpanCollector()
+
+
+class Span:
+    """One in-flight span. Finished spans live on as plain dicts in the
+    collector."""
+
+    __slots__ = (
+        "trace_id", "span_id", "parent_span_id", "name", "service",
+        "start_ns", "end_ns", "attrs", "error",
+    )
+
+    def __init__(self, name: str, parent: Optional[SpanContext] = None,
+                 service: str = "", **attrs):
+        if parent is not None:
+            self.trace_id = parent.trace_id
+            self.parent_span_id = parent.span_id
+            self.span_id = os.urandom(8).hex()
+        else:
+            self.trace_id, self.span_id = _ids()
+            self.parent_span_id = ""
+        self.name = name
+        self.service = service or _service
+        self.start_ns = time.time_ns()
+        self.end_ns = 0
+        self.attrs = {k: str(v) for k, v in attrs.items()}
+        self.error = ""
+
+    @property
+    def context(self) -> SpanContext:
+        return SpanContext(self.trace_id, self.span_id)
+
+    def set(self, **attrs) -> None:
+        self.attrs.update((k, str(v)) for k, v in attrs.items())
+
+    def finish(self, error: str = "") -> dict:
+        self.end_ns = time.time_ns()
+        if error:
+            self.error = error
+        d = {
+            "trace_id": self.trace_id,
+            "span_id": self.span_id,
+            "parent_span_id": self.parent_span_id,
+            "name": self.name,
+            "service": self.service,
+            "start_ns": self.start_ns,
+            "end_ns": self.end_ns,
+            "attrs": self.attrs,
+            "error": self.error,
+        }
+        COLLECTOR.add(d)
+        return d
+
+
+class _SpanCM:
+    """Context manager for one span; pushes and pops the thread-local
+    current-span stack."""
+
+    __slots__ = ("_span",)
+
+    def __init__(self, s: Span):
+        self._span = s
+
+    def __enter__(self) -> Span:
+        stack = getattr(_tls, "stack", None)
+        if stack is None:
+            stack = _tls.stack = []
+        stack.append(self._span)
+        return self._span
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        stack = getattr(_tls, "stack", None)
+        if stack and stack[-1] is self._span:
+            stack.pop()
+        self._span.finish(error=f"{exc_type.__name__}: {exc}" if exc_type else "")
+        return False
+
+
+class _NoopCM:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *a) -> bool:
+        return False
+
+
+_NOOP = _NoopCM()
+
+
+def enabled() -> bool:
+    return _enabled
+
+
+def enable(service: str = "plugin") -> None:
+    """Turn tracing on for this process; ``service`` names the daemon in
+    the spans it records."""
+    global _enabled, _service
+    with _lock:
+        _service = service
+        _enabled = True
+
+
+def disable() -> None:
+    global _enabled
+    with _lock:
+        _enabled = False
 
 
 def current() -> Optional[SpanContext]:
@@ -29,3 +175,16 @@ def current() -> Optional[SpanContext]:
     if not stack:
         return None
     return stack[-1].context
+
+
+def span(name: str, parent: Optional[SpanContext] = None, service: str = "", **attrs):
+    """Context manager for one span. Disabled: a shared no-op that yields
+    None. Otherwise the innermost open span on this thread (or ``parent``)
+    is the new span's parent."""
+    if not _enabled:
+        return _NOOP
+    if parent is None:
+        stack = getattr(_tls, "stack", None)
+        if stack:
+            parent = stack[-1].context
+    return _SpanCM(Span(name, parent=parent, service=service, **attrs))

@@ -150,8 +150,8 @@ import chip_smoke
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
        or re.match(r"{JAX_PACKAGE.pattern}", m)]
-new = [m for m in names if m.split(".")[1] in ("api", "discovery", "health", "tools",
-                                                "topology")]
+new = [m for m in names if m.split(".")[1] in ("api", "discovery", "health", "server",
+                                                "supervisor", "tools", "topology")]
 print(len(names), len(new), bad)
 """
     env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHON")}
@@ -159,8 +159,8 @@ print(len(names), len(new), bad)
         [sys.executable, "-c", code], capture_output=True, text=True,
         timeout=120, cwd=ROOT, env=env, check=True,
     ).stdout.split()
-    # every module of the port was imported, the node layers' and tools' 13 among them
-    assert int(out[0]) >= 47 and int(out[1]) == 13
+    # every module of the port was imported, the node daemon's and tools' 22 among them
+    assert int(out[0]) >= 58 and int(out[1]) == 22
     assert out[2:] == ["[]"]
 
 

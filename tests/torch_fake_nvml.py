@@ -140,3 +140,69 @@ def hgx_node(fake: FakeNvml, sysfs_dir, n: int = 4, switch_links: int = 18,
             same = numa[order[a]] == numa[order[b]]
             fake.set_ancestor(a, b, "NODE" if same else "SYS")
     return uuids
+
+
+class NodeScript:
+    """A node's controls written as the lines of a ``FAKE_NVML_SCRIPT`` file
+    (``tests/fake_nvml.c``), for a process that loads the fake library
+    itself: the node daemon started as its own process. It takes the calls
+    ``hgx_node`` and ``grid_node`` make on a ``FakeNvml``; a card's
+    telemetry is not scripted (every card reads an H100 at rest)."""
+
+    def __init__(self):
+        self.lines = []
+        self.n = 0
+
+    def add_device(self, uuid: str, bus_id: str, *, name: str = H100, minor: int = 0,
+                   **_telemetry) -> int:
+        self.lines.append(f"device {uuid} {bus_id} {minor} {name}")
+        self.n += 1
+        return self.n - 1
+
+    def set_link(self, dev: int, link: int, active: bool = True, remote: int = LINK_SWITCH,
+                 remote_bus: str = "") -> None:
+        self.lines.append(f"link {dev} {link} {int(active)} {remote} {remote_bus}".rstrip())
+
+    def set_p2p_nvlink(self, a: int, b: int, status: int = P2P_OK) -> None:
+        self.lines.append(f"p2p {a} {b} {status}")
+
+    def set_ancestor(self, a: int, b: int, label: str) -> None:
+        self.lines.append(f"ancestor {a} {b} {TOPOLOGY[label]}")
+
+    def write(self, path) -> str:
+        with open(path, "w") as f:
+            f.write("\n".join(self.lines) + "\n")
+        return str(path)
+
+
+def grid_bus(slot: int) -> str:
+    return f"00000000:{0x18 + 0x10 * slot:02X}:00.0"
+
+
+def grid_node(fake, sysfs_dir, n: int, edges, nvlinks: int = 2, numa: int = 0) -> list:
+    """``n`` H100s in PCI order (NVML index = slot) whose direct NVLinks
+    (``nvlinks`` a pair, peer to peer, no switch) join the pairs of
+    ``edges``; every other pair talks over PCIe across the CPUs (SYS).
+    Each card's ``numa_node`` is written under ``sysfs_dir``. Returns the
+    UUIDs by NVML index."""
+    uuids = []
+    for slot in range(n):
+        uuid = hgx_uuid(slot)
+        assert fake.add_device(uuid, grid_bus(slot), minor=slot) == slot
+        uuids.append(uuid)
+        addr = "0000:" + grid_bus(slot).split(":", 1)[1].lower()
+        os.makedirs(os.path.join(str(sysfs_dir), addr), exist_ok=True)
+        with open(os.path.join(str(sysfs_dir), addr, "numa_node"), "w") as f:
+            f.write(f"{numa}\n")
+    used = [0] * n
+    for a, b in edges:
+        for _ in range(nvlinks):
+            fake.set_link(a, used[a], remote=LINK_GPU, remote_bus=grid_bus(b))
+            fake.set_link(b, used[b], remote=LINK_GPU, remote_bus=grid_bus(a))
+            used[a] += 1
+            used[b] += 1
+    linked = {frozenset(e) for e in edges}
+    for a in range(n):
+        for b in range(a + 1, n):
+            fake.set_ancestor(a, b, "NODE" if frozenset((a, b)) in linked else "SYS")
+    return uuids
