@@ -135,16 +135,27 @@ caught while the run goes on:
    agreement of false or a suspect timing. Its attempts and the merged
    cases' times are printed.
 16. Plugin → pod: this script serves the kubelet's Registration service
-   on ``<tmp>/kubelet.sock`` (the port's ``api/grpc_defs.py``) and starts
-   the node daemon, ``python -m k8s_device_plugin_tpu_torch
-   --device-plugin-dir <tmp>``, over the real NVML and ``/dev``. The
+   on ``<tmp>/kubelet.sock`` and its PodResources service on
+   ``<tmp>/pod-resources/kubelet.sock`` (the port's ``api/grpc_defs.py``),
+   starts ``tests/fake_apiserver.FakeApiServer`` (standard library only)
+   on localhost with a node, writes a kube config naming it (as JSON), and
+   starts the node daemon, ``python -m k8s_device_plugin_tpu_torch
+   --device-plugin-dir <tmp> --node-name <node> --kubeconfig <file>
+   --podresources-socket <socket>``, over the real NVML and ``/dev``. The
    daemon must register (version v1beta1, ``nvidia.com/gpu``, its
    endpoint, GetPreferredAllocation available); its first ListAndWatch
    answer must hold every card ``nvidia-smi --query-gpu=uuid`` lists, each
-   Healthy; GetPreferredAllocation(size 1) must give one of them (the
-   median of 20 calls is printed); Allocate of it must name its UUID in
-   ``NVIDIA_VISIBLE_DEVICES`` with device specs whose host paths exist, and
-   an unknown id must get INVALID_ARGUMENT. Then the pod: ``python -m
+   Healthy. Before Allocate the node's ``nvidia.com/gpu-topology``
+   annotation must list those cards with ``nvidia-smi``'s memory.total,
+   all available and none failed, and the node condition ``GPUsHealthy``
+   must be True. GetPreferredAllocation(size 1) must give one of the cards
+   (the median of 20 calls is printed); Allocate of it must name its UUID
+   in ``NVIDIA_VISIBLE_DEVICES`` with device specs whose host paths exist,
+   and an unknown id must get INVALID_ARGUMENT. Then, as the kubelet and
+   the API server would, the PodResources entry of the pod and the pod
+   itself (on the node, Running, requesting ``nvidia.com/gpu: 1``): the
+   pod's ``nvidia.com/gpu-devices`` annotation must become the UUID and
+   the node annotation's ``available`` must lose it. Then the pod: ``python -m
    k8s_device_plugin_tpu_torch.workload.smoke --bench --steps 5`` with the
    response's env, and ``CUDA_VISIBLE_DEVICES`` set from
    ``NVIDIA_VISIBLE_DEVICES`` as the NVIDIA container runtime would. Its
@@ -157,11 +168,17 @@ caught while the run goes on:
    pod) and the daemon must not map ``libtorch`` (the pod must). NVML's
    own init maps ``libcuda`` and opens ``/dev/nvidia-uvm``, so those are
    printed, not held. The ListAndWatch stream must send no new list while
-   the pod runs. Last, SIGHUP must lead to a new registration and SIGTERM to an
-   exit with code 0 and the daemon's socket removed. One line with the
-   times to registration, of the two RPCs, from Allocate to the pod's first
-   step and to its report, of SIGHUP and SIGTERM, the pod's report beside
-   phase 5's step time, the footprint, and the card's name and power limit.
+   the pod runs; the API-server writes made while it trains are counted.
+   After it exits its PodResources entry goes and the pod is deleted from
+   the API server: the card must come back into ``available``. Last,
+   SIGHUP must lead to a new registration and a new node annotation, and
+   SIGTERM to an exit with code 0, the daemon's socket removed and no
+   controller thread left draining. One line with the times to
+   registration and to the first node annotation, of the two RPCs, from
+   Allocate to the pod's annotation, to the republish, to the pod's first
+   step and to its report, from the pod's delete to the republish, of
+   SIGHUP and SIGTERM, the pod's report beside phase 5's step time, the
+   footprint, the API-server writes, and the card's name and power limit.
 
 Then one ``{"kernels": [...]}`` line (each kernel's launches from the path
 that runs it: K1-K3 from phase 5, K4 from phase 6; every path's counts
@@ -1287,9 +1304,9 @@ DAEMON_MEMORY_MIB = 64
 class Kubelet:
     """The kubelet's Registration service on ``<dir>/kubelet.sock``, built
     on the port's ``api/grpc_defs.py``: every RegisterRequest is queued
-    with the time it came."""
+    with the time it came and what ``mark()`` read then."""
 
-    def __init__(self, directory: str):
+    def __init__(self, directory: str, mark=lambda: None):
         import grpc
         from concurrent import futures
 
@@ -1301,7 +1318,7 @@ class Kubelet:
 
         class Registration(RegistrationServicer):
             def Register(self, request, context):
-                registrations.put((time.monotonic(), request))
+                registrations.put((time.monotonic(), request, mark()))
                 return pb.Empty()
 
         self.server = grpc.server(futures.ThreadPoolExecutor(max_workers=2))
@@ -1316,21 +1333,117 @@ class Kubelet:
             fail(f"the daemon did not register within {PLUGIN_WAIT_S} s")
 
 
+class PodResources:
+    """The kubelet's PodResources service on ``socket_path``, built on the
+    port's ``api/grpc_defs.py``: each pod's ``nvidia.com/gpu`` ids in one
+    container, as ``set`` records them."""
+
+    def __init__(self, socket_path: str):
+        import grpc
+        from concurrent import futures
+
+        from k8s_device_plugin_tpu_torch.api import constants
+        from k8s_device_plugin_tpu_torch.api import podresources_pb2 as prpb
+        from k8s_device_plugin_tpu_torch.api.grpc_defs import (
+            PodResourcesListerServicer, add_pod_resources_servicer)
+
+        self.socket_path = socket_path
+        lock = self._lock = threading.Lock()
+        pods = self._pods = {}
+
+        def message(key, ids):
+            return prpb.PodResources(namespace=key[0], name=key[1], containers=[
+                prpb.ContainerResources(name="main", devices=[prpb.ContainerDevices(
+                    resource_name=constants.RESOURCE_NAME, device_ids=ids)])])
+
+        class Lister(PodResourcesListerServicer):
+            def List(self, request, context):
+                with lock:
+                    items = list(pods.items())
+                return prpb.ListPodResourcesResponse(
+                    pod_resources=[message(k, v) for k, v in items])
+
+            def Get(self, request, context):
+                key = (request.pod_namespace, request.pod_name)
+                with lock:
+                    ids = pods.get(key)
+                if ids is None:  # the kubelet's answer for a pod it has not admitted
+                    context.abort(grpc.StatusCode.UNKNOWN, f"pod {key} not found")
+                return prpb.GetPodResourcesResponse(pod_resources=message(key, ids))
+
+        os.makedirs(os.path.dirname(socket_path), exist_ok=True)
+        self.server = grpc.server(futures.ThreadPoolExecutor(max_workers=2))
+        add_pod_resources_servicer(Lister(), self.server)
+        self.server.add_insecure_port(f"unix:{socket_path}")
+        self.server.start()
+
+    def set(self, namespace: str, name: str, ids) -> None:
+        with self._lock:
+            self._pods[(namespace, name)] = list(ids)
+
+    def drop(self, namespace: str, name: str) -> None:
+        with self._lock:
+            self._pods.pop((namespace, name), None)
+
+
+NODE_NAME = "smoke-node"
+POD_NAME = "smoke-pod"
+
+
 def phase_plugin_pod(main_report: dict) -> dict:
-    """The node daemon hands this card to a pod, which trains on it."""
+    """The node daemon hands this card to a pod, which trains on it, and
+    tells a fake API server which card the pod holds."""
     import grpc
 
     from k8s_device_plugin_tpu_torch.api import constants
     from k8s_device_plugin_tpu_torch.api import deviceplugin_pb2 as pb
     from k8s_device_plugin_tpu_torch.api.grpc_defs import DevicePluginStub
     from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
+    from tests.fake_apiserver import FakeApiServer
 
     torch.cuda.empty_cache()
-    smi_uuids = subprocess.run(
-        ["nvidia-smi", "--query-gpu=uuid", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.split()
+    smi_memory = {}
+    for row in subprocess.run(
+            ["nvidia-smi", "--query-gpu=uuid,memory.total", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60, check=True).stdout.splitlines():
+        uuid, mib = (v.strip() for v in row.split(","))
+        smi_memory[uuid] = int(mib)
+    smi_uuids = list(smi_memory)
     work = Path(tempfile.mkdtemp(prefix="plugin_pod_"))
-    kubelet = Kubelet(str(work))
+    api = FakeApiServer()
+    # Each registration carries how many node patches had landed by then.
+    kubelet = Kubelet(str(work), mark=lambda: len(api.node_patches))
+    podres = PodResources(str(work / "pod-resources" / "kubelet.sock"))
+    api_url = api.start()
+    api.add_node(NODE_NAME)
+    kubeconfig = work / "kubeconfig.json"
+    kubeconfig.write_text(json.dumps({
+        "apiVersion": "v1", "kind": "Config", "current-context": "smoke",
+        "contexts": [{"name": "smoke", "context": {"cluster": "fake", "user": "smoke"}}],
+        "clusters": [{"name": "fake", "cluster": {"server": api_url}}],
+        "users": [{"name": "smoke", "user": {"token": "smoke"}}],
+    }))
+
+    def writes() -> int:
+        """The API server's writes so far: node, node status and pod
+        patches, Events, evictions."""
+        return (len(api.node_patches) + len(api.node_status_patches) + len(api.pod_patches)
+                + len(api.events) + len(api.evictions))
+
+    def node_topology():
+        raw = api.nodes[NODE_NAME]["metadata"].get("annotations", {}).get(
+            constants.TOPOLOGY_ANNOTATION)
+        return json.loads(raw) if raw else None
+
+    def node_condition():
+        conds = (api.nodes[NODE_NAME].get("status") or {}).get("conditions") or []
+        return next((c for c in conds if c.get("type") == "GPUsHealthy"), None)
+
+    def pod_devices():
+        pod = api.pods.get(("default", POD_NAME)) or {}
+        return (pod.get("metadata", {}).get("annotations") or {}).get(
+            constants.POD_DEVICES_ANNOTATION)
+
     log_path = work / "daemon.log"
     line: dict = {"nvidia_smi": nvidia_smi()}
     channel = None
@@ -1338,14 +1451,31 @@ def phase_plugin_pod(main_report: dict) -> dict:
     with open(log_path, "w") as log_file:
         t_start = time.monotonic()
         daemon = subprocess.Popen([sys.executable, "-m", "k8s_device_plugin_tpu_torch",
-                                   "--device-plugin-dir", str(work)],
+                                   "--device-plugin-dir", str(work), "--node-name", NODE_NAME,
+                                   "--kubeconfig", str(kubeconfig),
+                                   "--podresources-socket", podres.socket_path],
                                   cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT)
     try:
         def daemon_fail(msg: str) -> None:
             print(log_path.read_text()[-4000:], file=sys.stderr, flush=True)
             fail(msg)
 
-        t_reg, req = kubelet.next_registration()
+        def seen(**preds) -> dict:
+            """Poll every predicate every 2 ms until each has held once:
+            the first time each held, and what it gave."""
+            got: dict = {}
+            deadline = time.monotonic() + PLUGIN_WAIT_S
+            while len(got) < len(preds):
+                for name, pred in preds.items():
+                    if name not in got and (value := pred()):
+                        got[name] = (time.monotonic(), value)
+                if time.monotonic() > deadline:
+                    daemon_fail(f"not seen within {PLUGIN_WAIT_S} s: "
+                                f"{sorted(set(preds) - set(got))}")
+                time.sleep(0.002)
+            return got
+
+        t_reg, req, _ = kubelet.next_registration()
         line["register_s"] = t_reg - t_start
         if (req.version, req.resource_name, req.endpoint,
                 req.options.get_preferred_allocation_available) != (
@@ -1374,6 +1504,25 @@ def phase_plugin_pod(main_report: dict) -> dict:
         line["devices"] = len(devices)
         if sorted(devices) != sorted(smi_uuids) or set(devices.values()) != {constants.HEALTHY}:
             daemon_fail(f"ListAndWatch sent {devices}; nvidia-smi lists {len(smi_uuids)} cards")
+
+        # What the node told the cluster before any allocation.
+        first_pub = seen(annotation=node_topology, condition=node_condition)
+        t_ann, topo = first_pub["annotation"]
+        line["start_to_annotation_s"] = t_ann - t_start
+        cards = {c["id"]: c["hbm_bytes"] // 2 ** 20 for c in topo["chips"]}
+        condition = first_pub["condition"][1]
+        line["node"] = {"cards": len(cards), "product": topo["product"],
+                        "labels": api.nodes[NODE_NAME]["metadata"].get("labels", {}),
+                        "condition": condition["status"]}
+        if cards != smi_memory:
+            daemon_fail(f"the node annotation's cards and memory {cards}; "
+                        f"nvidia-smi: {smi_memory}")
+        if sorted(topo["available"]) != sorted(smi_uuids) or topo["failed"]:
+            daemon_fail(f"before Allocate the annotation has available {topo['available']}, "
+                        f"failed {topo['failed']}")
+        if condition["status"] != "True":
+            daemon_fail(f"the node condition before Allocate: {condition}")
+        status_patches = len(api.node_status_patches)
 
         preq = pb.PreferredAllocationRequest()
         preq.container_requests.add(available_deviceIDs=list(devices), allocation_size=1)
@@ -1408,6 +1557,27 @@ def phase_plugin_pod(main_report: dict) -> dict:
         if code != grpc.StatusCode.INVALID_ARGUMENT:
             daemon_fail(f"an unknown id got {code}, not INVALID_ARGUMENT")
 
+        # The kubelet records the assignment and the pod appears on the
+        # node; the controller writes its card, the publisher withdraws it.
+        podres.set("default", POD_NAME, picked)
+        api.add_pod({
+            "metadata": {"name": POD_NAME, "namespace": "default", "uid": "smoke-pod-uid",
+                         "annotations": {}},
+            "spec": {"nodeName": NODE_NAME, "containers": [{"name": "main", "resources": {
+                "requests": {constants.RESOURCE_NAME: "1"}}}]},
+            "status": {"phase": "Running"},
+        })
+        after = seen(pod_annotation=pod_devices,
+                     # the whole publish: the annotation, the labels, the condition
+                     republish=lambda: ((t := node_topology()) and picked[0] not in t["available"]
+                                        and len(api.node_status_patches) > status_patches))
+        line["allocate_to_pod_annotation_s"] = after["pod_annotation"][0] - t_alloc
+        line["allocate_to_republish_s"] = after["republish"][0] - t_alloc
+        if after["pod_annotation"][1] != picked[0]:
+            daemon_fail(f"the pod's {constants.POD_DEVICES_ANNOTATION} is "
+                        f"{after['pod_annotation'][1]}, not {picked[0]}")
+        writes_before_pod = writes()
+
         # The pod, with the response's env; CUDA_VISIBLE_DEVICES stands in
         # for what the NVIDIA container runtime makes of
         # NVIDIA_VISIBLE_DEVICES for a real pod.
@@ -1441,6 +1611,8 @@ def phase_plugin_pod(main_report: dict) -> dict:
                 report = snap
                 line["allocate_to_report_s"] = t_line - t_alloc
         rc = pod.wait(timeout=60)
+        line["api_writes"] = {"before_pod": writes_before_pod,
+                              "while_pod_trained": writes() - writes_before_pod}
         err = pod.stderr.read()
         pod.stderr.close()
         if rc != 0 or report is None:
@@ -1472,19 +1644,54 @@ def phase_plugin_pod(main_report: dict) -> dict:
         if not lists.empty():
             fail(f"the daemon re-sent its device list while the pod ran: {lists.get()}")
 
+        # The pod is gone: the kubelet drops its entry, the API server its
+        # object, and the card comes back.
+        podres.drop("default", POD_NAME)
+        status_patches = len(api.node_status_patches)
+        t0 = time.monotonic()
+        api.delete_pod("default", POD_NAME)
+        back = seen(back=lambda: (t := node_topology()) and picked[0] in t["available"] and t,
+                    # the publish ends with the condition: its labels are in by then
+                    settled=lambda: len(api.node_status_patches) > status_patches)
+        t_back, topo = back["back"]
+        line["delete_to_republish_s"] = t_back - t0
+        if sorted(topo["available"]) != sorted(smi_uuids):
+            daemon_fail(f"after the pod's delete the annotation has available "
+                        f"{topo['available']}")
+
+        # SIGHUP: the new generation registers, then publishes the node's
+        # annotation anew. Only a node patch that carries the annotation
+        # and landed after the registration counts.
+        published = len(api.node_patches)
         t0 = time.monotonic()
         daemon.send_signal(signal.SIGHUP)
-        t_reg, req = kubelet.next_registration()
+        t_reg, req, patches_at_reg = kubelet.next_registration()
         line["sighup_to_register_s"] = t_reg - t0
+
+        def annotation_patch_from(start: int):
+            """The first node patch from index ``start`` on that writes
+            the topology annotation, as a 1-tuple, or None."""
+            for i, (_, body) in enumerate(api.node_patches[start:], start):
+                if constants.TOPOLOGY_ANNOTATION in (
+                        (body.get("metadata") or {}).get("annotations") or {}):
+                    return (i,)
+            return None
+
+        t_pub, _ = seen(republish=lambda: annotation_patch_from(patches_at_reg))["republish"]
+        line["sighup_to_republish_s"] = t_pub - t0
+        line["sighup_node_patches_before_register"] = patches_at_reg - published
         t0 = time.monotonic()
         daemon.send_signal(signal.SIGTERM)
         rc = daemon.wait(timeout=PLUGIN_WAIT_S)
         line["sigterm_to_exit_s"] = time.monotonic() - t0
         socket_left = (work / constants.PLUGIN_SOCKET_NAME).exists()
+        draining = "still draining" in log_path.read_text()
         line["daemon_rc"] = rc
+        line["api_writes"]["total"] = writes()
         emit({"plugin_pod": line})
-        if rc != 0 or socket_left:
-            daemon_fail(f"SIGTERM: the daemon exited {rc}, its socket left: {socket_left}")
+        if rc != 0 or socket_left or draining:
+            daemon_fail(f"SIGTERM: the daemon exited {rc}, its socket left: {socket_left}, "
+                        f"controller threads left draining: {draining}")
     finally:
         if daemon.poll() is None:
             daemon.kill()
@@ -1492,6 +1699,8 @@ def phase_plugin_pod(main_report: dict) -> dict:
         if channel is not None:
             channel.close()
         kubelet.server.stop(grace=0)
+        podres.server.stop(grace=0)
+        api.stop()
         shutil.rmtree(work, ignore_errors=True)
     return launches
 

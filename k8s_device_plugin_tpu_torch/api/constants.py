@@ -1,7 +1,7 @@
 """Device-plugin protocol constants: the names of the JAX package's
 ``api/constants.py`` that the port's node daemon reads, with NVIDIA values
-where the two differ. The PodResources, checkpoint, DRA, tracing and
-scheduler names come with their planes."""
+where the two differ. The DRA and the extender-only names come with their
+planes."""
 
 # Protocol version spoken over the Registration/DevicePlugin services.
 VERSION = "v1beta1"
@@ -12,6 +12,15 @@ DEVICE_PLUGIN_PATH = "/var/lib/kubelet/device-plugins/"
 
 # The kubelet's own registration socket (relative to DEVICE_PLUGIN_PATH).
 KUBELET_SOCKET_NAME = "kubelet.sock"
+
+# Kubelet device-manager checkpoint file (read-only to us); the reference
+# reads it at controller.go:184-197.
+KUBELET_CHECKPOINT = DEVICE_PLUGIN_PATH + "kubelet_internal_checkpoint"
+
+# Kubelet PodResources API socket (podresources/v1, GA in k8s 1.28), which
+# the controller prefers over the checkpoint file above.
+POD_RESOURCES_PATH = "/var/lib/kubelet/pod-resources/"
+POD_RESOURCES_SOCKET = POD_RESOURCES_PATH + "kubelet.sock"
 
 # This plugin's socket (relative to DEVICE_PLUGIN_PATH): the name NVIDIA's
 # own device plugin serves under (the reference's was nvidia-topo.sock,
@@ -31,6 +40,25 @@ UNHEALTHY = "Unhealthy"
 # the JAX plugin's "google.com/tpu-devices" does; the reference used
 # "nvidia.com/gpu-topo" for it (server.go:199).
 POD_DEVICES_ANNOTATION = "nvidia.com/gpu-devices"
+
+# Node annotation carrying the node's cards and their links
+# (topology/schema.py), read by a scheduler extender: the JAX plugin's
+# "google.com/tpu-topology"; the reference used "nvidia.com/gpu-topo" for it
+# (server.go:296).
+TOPOLOGY_ANNOTATION = "nvidia.com/gpu-topology"
+
+# Node labels of NVIDIA GPU Feature Discovery, which scheduling already
+# selects on: the card's product name and the node's card count (the JAX
+# plugin labels "google.com/tpu-topology" and "google.com/tpu-accelerator").
+PRODUCT_LABEL = "nvidia.com/gpu.product"
+COUNT_LABEL = "nvidia.com/gpu.count"
+
+# The scheduler extender's pod vocabulary, which the controller reads: the
+# allocation trace carrier, the gang admitter's release stamp and the gang
+# label. The extender is the JAX package's, so these are its keys.
+TRACE_ANNOTATION = "tpu.google.com/trace-context"
+ADMIT_TS_ANNOTATION = "tpu.google.com/admitted-at"
+GANG_NAME_LABEL = "tpu.google.com/gang-name"
 
 # The container env the NVIDIA container runtime reads to inject the
 # allocated cards, the NVIDIA driver's libraries and the node-level

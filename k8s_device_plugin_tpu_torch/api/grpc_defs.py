@@ -1,14 +1,14 @@
 """Hand-written gRPC service wiring for the device-plugin v1beta1 API: the
 part of the JAX package's ``api/grpc_defs.py`` that the device-plugin
-server uses (the DevicePlugin, Registration and plugin-watcher services and
-their client stubs). The PodResources and DRA services come with their
-planes.
+server and the pod controller use (the DevicePlugin, Registration,
+plugin-watcher and kubelet PodResources services and their client stubs).
+The DRA service comes with its plane.
 
 grpcio ships the runtime but not protoc's gRPC code generator, so the
 service descriptors that ``protoc --grpc_python_out`` would emit are
 written here against grpc's generic-handler and multicallable APIs. The
-message classes come from ``deviceplugin_pb2`` and
-``pluginregistration_pb2``.
+message classes come from ``deviceplugin_pb2``, ``pluginregistration_pb2``
+and ``podresources_pb2``.
 
 Wire-compatible with the kubelet: the method paths are
 "/v1beta1.Registration/Register" and "/v1beta1.DevicePlugin/<Method>", as
@@ -21,6 +21,7 @@ import grpc
 
 from . import deviceplugin_pb2 as pb
 from . import pluginregistration_pb2 as regpb
+from . import podresources_pb2 as prpb
 
 REGISTRATION_SERVICE = "v1beta1.Registration"
 DEVICE_PLUGIN_SERVICE = "v1beta1.DevicePlugin"
@@ -218,4 +219,72 @@ class DevicePluginStub:
             f"/{DEVICE_PLUGIN_SERVICE}/PreStartContainer",
             request_serializer=pb.PreStartContainerRequest.SerializeToString,
             response_deserializer=pb.PreStartContainerResponse.FromString,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Kubelet PodResources API (podresources/v1): the kubelet serves this on
+# /var/lib/kubelet/pod-resources/kubelet.sock and the controller reads it
+# through the stub. The servicer is for a stand-in kubelet.
+# ---------------------------------------------------------------------------
+
+POD_RESOURCES_SERVICE = "v1.PodResourcesLister"
+
+
+class PodResourcesListerServicer:
+    """Base class for the kubelet-side PodResourcesLister service."""
+
+    def List(self, request: prpb.ListPodResourcesRequest, context) -> prpb.ListPodResourcesResponse:
+        raise NotImplementedError
+
+    def GetAllocatableResources(
+        self, request: prpb.AllocatableResourcesRequest, context
+    ) -> prpb.AllocatableResourcesResponse:
+        raise NotImplementedError
+
+    def Get(self, request: prpb.GetPodResourcesRequest, context) -> prpb.GetPodResourcesResponse:
+        raise NotImplementedError
+
+
+def add_pod_resources_servicer(servicer: PodResourcesListerServicer, server: grpc.Server) -> None:
+    handlers = {
+        "List": grpc.unary_unary_rpc_method_handler(
+            servicer.List,
+            request_deserializer=prpb.ListPodResourcesRequest.FromString,
+            response_serializer=prpb.ListPodResourcesResponse.SerializeToString,
+        ),
+        "GetAllocatableResources": grpc.unary_unary_rpc_method_handler(
+            servicer.GetAllocatableResources,
+            request_deserializer=prpb.AllocatableResourcesRequest.FromString,
+            response_serializer=prpb.AllocatableResourcesResponse.SerializeToString,
+        ),
+        "Get": grpc.unary_unary_rpc_method_handler(
+            servicer.Get,
+            request_deserializer=prpb.GetPodResourcesRequest.FromString,
+            response_serializer=prpb.GetPodResourcesResponse.SerializeToString,
+        ),
+    }
+    server.add_generic_rpc_handlers(
+        (grpc.method_handlers_generic_handler(POD_RESOURCES_SERVICE, handlers),)
+    )
+
+
+class PodResourcesListerStub:
+    """Client for the kubelet's PodResourcesLister service."""
+
+    def __init__(self, channel: grpc.Channel):
+        self.List = channel.unary_unary(
+            f"/{POD_RESOURCES_SERVICE}/List",
+            request_serializer=prpb.ListPodResourcesRequest.SerializeToString,
+            response_deserializer=prpb.ListPodResourcesResponse.FromString,
+        )
+        self.GetAllocatableResources = channel.unary_unary(
+            f"/{POD_RESOURCES_SERVICE}/GetAllocatableResources",
+            request_serializer=prpb.AllocatableResourcesRequest.SerializeToString,
+            response_deserializer=prpb.AllocatableResourcesResponse.FromString,
+        )
+        self.Get = channel.unary_unary(
+            f"/{POD_RESOURCES_SERVICE}/Get",
+            request_serializer=prpb.GetPodResourcesRequest.SerializeToString,
+            response_deserializer=prpb.GetPodResourcesResponse.FromString,
         )

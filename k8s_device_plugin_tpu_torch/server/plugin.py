@@ -25,8 +25,13 @@ Where the GPU plugin differs from the TPU one is the container response:
   pod-devices annotation; and CDI names ``<cdi_kind>=<uuid>`` when
   ``cdi_kind`` is set.
 
-The capacity gauges of the TPU plugin's box space and the SLO capture of
-Allocate latency come with the telemetry and observability planes.
+As in JAX, two hooks tell the kube plane (``controller/wiring.py``):
+``on_availability_change`` on every allocation, free and health
+transition (the node annotation's republish), and
+``on_health_transition(card_id, healthy)`` (the Kubernetes Event and the
+eviction of the pods on a broken card). The capacity gauges of the TPU
+plugin's box space and the SLO capture of Allocate latency come with the
+telemetry and observability planes.
 """
 
 from __future__ import annotations
@@ -145,6 +150,16 @@ class GpuDevicePlugin(DevicePluginServicer):
         # Serializes Allocate plan→commit so concurrent RPCs (8-thread
         # executor) can't plan overlapping card sets.
         self._allocate_lock = threading.Lock()
+        # Invoked (no args) whenever allocatable capacity changes —
+        # allocation, free, health transition. The wiring attaches the
+        # node-annotation republisher here so a scheduler extender sees
+        # live availability.
+        self.on_availability_change: Optional[Callable[[], None]] = None
+        # Invoked (card_id, healthy) on health transitions; the wiring
+        # attaches a Kubernetes Event emitter and the controller's
+        # eviction (the reference wires an event broadcaster but never
+        # emits, controller.go:76-80).
+        self.on_health_transition: Optional[Callable[[str, bool], None]] = None
         # Cards held by a co-resident plane the kubelet can't see (a DRA
         # driver's prepared claims). Allocate refuses these outright.
         self.external_holds: Optional[Callable[[], set]] = None
@@ -433,18 +448,34 @@ class GpuDevicePlugin(DevicePluginServicer):
                 chip=chip_id,
             )
             self._bump()
-            self._update_chip_gauges()
+            self._availability_changed()
+            hook = self.on_health_transition
+            if hook is not None:
+                try:
+                    hook(chip_id, healthy)
+                except Exception:
+                    log.exception("health-transition hook failed")
 
     def free_devices(self, ids: Iterable[str]) -> None:
         """Controller free path (pod deleted)."""
         self.state.free(ids)
-        self._update_chip_gauges()
+        self._availability_changed()
 
     def mark_allocated(self, ids: Iterable[str]) -> None:
         """Controller allocation path (checkpoint rebuild/reconcile) —
-        like Allocate, keeps the gauges fresh."""
+        like Allocate, keeps the gauges and the published availability
+        fresh."""
         self.state.allocate(ids)
+        self._availability_changed()
+
+    def _availability_changed(self) -> None:
         self._update_chip_gauges()
+        hook = self.on_availability_change
+        if hook is not None:
+            try:
+                hook()
+            except Exception:
+                log.exception("availability-change hook failed")
 
     def _update_chip_gauges(self) -> None:
         available = self.state.available()
@@ -662,7 +693,7 @@ class GpuDevicePlugin(DevicePluginServicer):
                         requested=",".join(sorted(requested)),
                         assigned=",".join(sorted(assigned)),
                     )
-        self._update_chip_gauges()
+        self._availability_changed()
         return resp
 
     def PreStartContainer(self, request, context):

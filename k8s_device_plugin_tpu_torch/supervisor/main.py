@@ -6,7 +6,12 @@ and of the reference's main loop (main.go:23-113).
 through NVML (``discovery/scanner``), their ``LinkTopology``, a
 ``GpuPlacementState``, the ``GpuDevicePlugin``, and the health watcher,
 whose first sweep runs before the plugin serves, so a card already broken
-is never advertised Healthy. ``Daemon.run`` then sits on an event queue fed
+is never advertised Healthy; after serving, the kube plane
+(``controller/wiring.py``): the node's ``nvidia.com/gpu-topology``
+annotation, its labels and ``GPUsHealthy`` condition, and the pod
+controller, which writes each pod's cards onto its
+``nvidia.com/gpu-devices`` annotation, frees them when the pod goes and
+evicts the pods of a broken card. ``Daemon.run`` then sits on an event queue fed
 by the fs watcher and the signal handlers: a re-created kubelet.sock
 (kubelet restart) or SIGHUP tears the generation down and builds the next;
 SIGTERM or SIGINT returns 0.
@@ -19,13 +24,19 @@ across generations, since a hardware XID withdraws its card until the
 daemon restarts (``discovery/scanner.NvmlInfo``); only a node that had no
 NVML looks for it again.
 
+As in the JAX daemon, the kube client is built before serving, with its
+``DegradedMode`` (flipped by the client's circuit breaker, marked fresh by
+the controller's relists), and a node with no reachable kube config logs a
+warning and serves its cards without the controller. Every start names its
+kube config (``--kubeconfig``, default ``$KUBECONFIG``, else the in-cluster
+service account) or turns the plane off (``--no-controller``).
+
 The daemon reads NVML only. It never imports ``torch`` and never creates a
 CUDA context, which would cost device memory on every card of the node.
 
-The planes that are not ported yet bring their flags with them: the kube
-client and controller, DRA, telemetry, audit, the metrics endpoint,
-tracing's switch, the flight recorder's dumps, the black box and the
-profilers.
+The planes that are not ported yet bring their flags with them: DRA,
+telemetry, audit, the metrics endpoint, tracing's switch, the flight
+recorder's dumps, the black box and the profilers.
 """
 
 from __future__ import annotations
@@ -41,7 +52,8 @@ from typing import List, Optional
 from ..api import constants
 from ..discovery import nvml
 from ..discovery.chips import GpuChip
-from ..discovery.scanner import DEFAULT_DEV, DEFAULT_SYSFS_PCI, NoCards, get_backend
+from ..discovery.scanner import (
+    DEFAULT_DEV, DEFAULT_NUMA_DIR, DEFAULT_SYSFS_PCI, NoCards, get_backend)
 from ..health.watcher import HealthWatcher, healthchecks_disabled
 from ..server.plugin import GpuDevicePlugin, PluginConfig
 from ..topology.links import LinkTopology
@@ -57,14 +69,31 @@ log = get_logger(__name__)
 
 @dataclasses.dataclass
 class DaemonConfig:
+    node_name: str = ""
     device_plugin_dir: str = constants.DEVICE_PLUGIN_PATH
     # Where a card's NUMA node is read (<dir>/<bus id>/numa_node) and where
     # its /dev/nvidia<minor> and the NVIDIA driver's /dev/nvidiactl live.
     sysfs_pci_dir: str = DEFAULT_SYSFS_PCI
     dev_dir: str = DEFAULT_DEV
+    # Where the host's NUMA nodes and memory/CPU summary are read for the
+    # node annotation.
+    numa_dir: str = DEFAULT_NUMA_DIR
+    proc_dir: str = "/proc"
     resource_name: str = constants.RESOURCE_NAME
     substitute_on_allocate: bool = False
     health_interval_s: float = 5.0
+    resync_interval_s: float = 30.0
+    enable_controller: bool = True
+    kubeconfig: str = ""
+    # Kubelet PodResources socket for reconciliation ("" pins the
+    # checkpoint file).
+    podresources_socket: str = constants.POD_RESOURCES_SOCKET
+    evict_on_unhealthy: bool = True
+    # Degraded-serving staleness cap (utils/resilience.DegradedMode):
+    # while the kube circuit breaker is open the controller serves its
+    # last-known-good view; past this many seconds of staleness the mode
+    # turns "paused".
+    staleness_cap_s: float = 60.0
     # CDI kind for Allocate responses ("" disables; see PluginConfig).
     cdi_kind: str = ""
     # Registration path: "register" (dial kubelet, reference-style),
@@ -84,6 +113,8 @@ class Daemon:
         self.events: "queue.Queue" = queue.Queue()
         self.plugin: Optional[GpuDevicePlugin] = None
         self.health: Optional[HealthWatcher] = None
+        self.controller = None  # set by the kube wiring when enabled
+        self._kube_client = None  # built before serving (build_and_serve)
 
     # -- build/teardown of one plugin generation ---------------------------
 
@@ -102,6 +133,27 @@ class Daemon:
         return chips
 
     def build_and_serve(self) -> None:
+        # The kube client before serving, as in JAX; it soft-fails (no
+        # reachable kube config) and the cards are served all the same.
+        self._kube_client = None
+        if self.cfg.enable_controller:
+            try:
+                from ..kube.client import KubeClient
+                from ..utils import metrics
+                from ..utils.resilience import DegradedMode
+
+                self._kube_client = KubeClient.from_env(self.cfg.kubeconfig)
+                # Explicit degraded mode for the plugin's kube plane:
+                # flipped by the client's circuit breaker; the controller
+                # marks it fresh on every successful relist.
+                self._kube_client.resilience.degraded = DegradedMode(
+                    staleness_cap_s=self.cfg.staleness_cap_s,
+                    name="plugin",
+                    gauge=metrics.KUBE_DEGRADED_MODE,
+                    staleness_gauge=metrics.KUBE_DEGRADED_STALENESS,
+                )
+            except Exception as e:
+                log.warning("kube client unavailable pre-serve: %s", e)
         chips = self.discover()
         topology = LinkTopology(chips, self.backend)
         state = GpuPlacementState(topology)
@@ -139,8 +191,30 @@ class Daemon:
         self.plugin.start_restart_watch()
         if self.health is not None:
             self.health.start()
+        self._start_kube_integration()
+
+    def _start_kube_integration(self) -> None:
+        """Node-annotation publishing and the pod controller, on the client
+        built before serving; soft-fails when no API server is reachable
+        (a node without a kube config has already logged why)."""
+        if self._kube_client is None:
+            return
+        try:
+            from ..controller.wiring import start_kube_integration
+
+            self.controller, _ = start_kube_integration(self, client=self._kube_client)
+            self.controller.degraded = self._kube_client.resilience.degraded
+        except Exception as e:
+            log.warning("kube integration disabled: %s", e)
+            self.controller = None
 
     def teardown(self) -> None:
+        if self.controller is not None:
+            try:
+                self.controller.stop()
+            except Exception:
+                log.exception("controller stop failed")
+            self.controller = None
         if self.health is not None:
             self.health.stop()
             self.health = None
@@ -204,6 +278,7 @@ def parse_args(argv) -> DaemonConfig:
         prog="nvidia-device-plugin",
         description="Kubernetes device plugin for NVIDIA cards, over NVML",
     )
+    p.add_argument("--node-name", default=os.environ.get("NODE_NAME", ""))
     p.add_argument("--device-plugin-dir", default=constants.DEVICE_PLUGIN_PATH)
     p.add_argument("--sysfs-pci-dir", default=DEFAULT_SYSFS_PCI,
                    help="sysfs PCI devices dir, where each card's NUMA node "
@@ -218,6 +293,7 @@ def parse_args(argv) -> DaemonConfig:
         "without GetPreferredAllocation",
     )
     p.add_argument("--health-interval", type=float, default=5.0)
+    p.add_argument("--resync-interval", type=float, default=30.0)
     p.add_argument("--cdi-kind", default="",
                    help="emit CDI device names of this kind in Allocate "
                    "responses (e.g. nvidia.com/gpu); empty disables")
@@ -228,16 +304,41 @@ def parse_args(argv) -> DaemonConfig:
                    "watcher socket, or both")
     p.add_argument("--plugins-registry-dir",
                    default="/var/lib/kubelet/plugins_registry/")
+    p.add_argument("--podresources-socket",
+                   default=constants.POD_RESOURCES_SOCKET,
+                   help="kubelet PodResources API socket, preferred over "
+                   "the checkpoint file for reconciliation; '' forces "
+                   "checkpoint-only")
+    p.add_argument("--no-evict-on-unhealthy", action="store_true",
+                   help="do not evict pods whose cards go Unhealthy "
+                   "(eviction is on by default so they reschedule onto "
+                   "healthy capacity)")
+    p.add_argument("--no-controller", action="store_true",
+                   help="no kube plane: no node annotation, no pod controller")
+    p.add_argument("--kubeconfig", default=os.environ.get("KUBECONFIG", ""),
+                   help="kube config of the API server (default $KUBECONFIG, "
+                   "else the in-cluster service account)")
+    p.add_argument("--staleness-cap-s", type=float, default=60.0,
+                   help="degraded-serving staleness cap: while the kube "
+                   "circuit breaker is open the controller serves its "
+                   "last-known-good pod view and skips evictions")
     p.add_argument("-v", "--verbose", action="count", default=0)
     a = p.parse_args(argv)
     tpulog.setup(verbose=a.verbose)
     return DaemonConfig(
+        node_name=a.node_name,
         device_plugin_dir=a.device_plugin_dir,
         sysfs_pci_dir=a.sysfs_pci_dir,
         dev_dir=a.dev_dir,
         resource_name=a.resource_name,
         substitute_on_allocate=a.substitute_on_allocate,
         health_interval_s=a.health_interval,
+        resync_interval_s=a.resync_interval,
+        enable_controller=not a.no_controller,
+        kubeconfig=a.kubeconfig,
+        podresources_socket=a.podresources_socket,
+        evict_on_unhealthy=not a.no_evict_on_unhealthy,
+        staleness_cap_s=a.staleness_cap_s,
         cdi_kind=a.cdi_kind,
         registration_mode=a.registration_mode,
         plugins_registry_dir=a.plugins_registry_dir,

@@ -1,2 +1,3 @@
-"""How the node's cards are linked (``links.py``) and which of them a
-request gets (``placement.py``)."""
+"""How the node's cards are linked (``links.py``), which of them a request
+gets (``placement.py``), and the node annotation that tells a scheduler
+both (``schema.py``)."""

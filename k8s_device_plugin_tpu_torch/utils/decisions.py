@@ -2,8 +2,9 @@
 as the health watcher records into it: a bounded, queryable ring of
 structured decisions (kind, machine-readable reason token, message, the
 pod/gang/node it concerns, the active trace), gated on :meth:`enable` so
-that recording costs one bool read when off. The black-box taps and the
-trace joins (``tag_gang``, ``retrace``) come with the plugin server."""
+that recording costs one bool read when off, and ``retrace``, the pod
+controller's join of ``Allocate``'s records into the pod's trace. The
+black-box taps and ``tag_gang`` come with their planes."""
 
 from __future__ import annotations
 
@@ -92,6 +93,22 @@ class DecisionLedger:
                 dropped=self.dropped,
                 capacity=self.capacity,
             )
+
+    def retrace(self, old_trace_id: str, new_trace_id: str) -> int:
+        """Rewrite records stamped under ``old_trace_id`` into
+        ``new_trace_id`` (keeping ``retraced_from``): the ledger side of
+        the plugin-Allocate adoption (``tracing.adopt``). Returns how many
+        records moved."""
+        if not old_trace_id or old_trace_id == new_trace_id:
+            return 0
+        n = 0
+        with self._lock:
+            for rec in self._records:
+                if rec.get("trace_id") == old_trace_id:
+                    rec["attrs"]["retraced_from"] = old_trace_id
+                    rec["trace_id"] = new_trace_id
+                    n += 1
+        return n
 
     def __len__(self) -> int:
         with self._lock:

@@ -1,8 +1,9 @@
 """The metric classes of the JAX package's ``utils/metrics.py`` (counter,
 gauge, histogram with trace exemplars, registry) and the families the
 port's device-plugin server, health watcher, decision ledger, flight
-recorder and supervised loops write, under the JAX names and labels. The
-HTTP endpoint and the other planes' families come with those planes."""
+recorder, supervised loops, kube client (``utils/resilience.py``) and pod
+controller write, under the JAX names and labels. The HTTP endpoint and
+the other planes' families come with those planes."""
 
 from __future__ import annotations
 
@@ -268,4 +269,64 @@ LOOP_STALLS = REGISTRY.counter(
     "tpu_loop_stall_total",
     "Loop stall transitions by loop and reason: died (the thread exited "
     "on an unhandled exception; run_supervised counts it)",
+)
+EVICTIONS = REGISTRY.counter(
+    "tpu_plugin_evictions_total",
+    "Pods evicted because a chip they hold went Unhealthy, by outcome "
+    "(evicted/failed)",
+)
+# The kube client's resilience layer (utils/resilience.py).
+KUBE_RETRIES = REGISTRY.counter(
+    "tpu_plugin_kube_retries_total",
+    "Kube API attempts retried after a transport-level failure, by verb",
+)
+KUBE_CIRCUIT_STATE = REGISTRY.gauge(
+    "tpu_plugin_kube_circuit_state",
+    "Kube API circuit breaker: 0 closed, 1 open (failing fast), "
+    "2 half-open (probing)",
+)
+KUBE_REQUEST_LATENCY = REGISTRY.histogram(
+    "tpu_plugin_kube_request_latency_seconds",
+    "Wall latency of individual kube API request attempts, by verb and "
+    "outcome",
+)
+KUBE_QUEUED_WRITES = REGISTRY.gauge(
+    "tpu_plugin_kube_queued_writes",
+    "State-publishing writes queued while the apiserver is unreachable "
+    "(drained on reconnect; >0 for long = degraded mode)",
+)
+KUBE_CALL_OUTCOMES = REGISTRY.counter(
+    "tpu_plugin_kube_call_outcomes_total",
+    "Kube API call outcomes by verb and outcome (ok / retry / "
+    "retry_after / semantic / unavailable / circuit_open) — the "
+    "resilience layer's per-verb success/retry rate",
+)
+KUBE_DEGRADED_MODE = REGISTRY.gauge(
+    "tpu_plugin_kube_degraded_mode",
+    "1 while consumers run in explicit degraded mode (circuit breaker "
+    "open: serving last-known-good state, mutations failing fast)",
+)
+KUBE_DEGRADED_STALENESS = REGISTRY.gauge(
+    "tpu_plugin_kube_degraded_staleness_seconds",
+    "Age of the last successful cluster-state sync behind degraded "
+    "serving; past the staleness cap admission pauses",
+)
+KUBE_WATCH_STREAMS = REGISTRY.counter(
+    "tpu_plugin_kube_watch_streams_total",
+    "Watch stream recoveries by outcome: resumed (from bookmarked "
+    "resourceVersion after a drop) vs. relist (410 Gone forced a full "
+    "relist)",
+)
+# Scheduling-SLO buckets (seconds): admission to reconcile spans seconds
+# to an hour.
+SLO_BUCKETS = (
+    0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0,
+    600.0, 1800.0, 3600.0,
+)
+POD_TIME_TO_ALLOCATE = REGISTRY.histogram(
+    "tpu_pod_time_to_allocate_seconds",
+    "Admission-stamp to controller reconcile per pod: how long a "
+    "released pod took to be scheduled, allocated, and reconciled to "
+    "its real chips (exemplar-linked to the allocation trace)",
+    buckets=SLO_BUCKETS,
 )

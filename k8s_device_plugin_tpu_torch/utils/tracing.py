@@ -1,10 +1,12 @@
 """The span model of the JAX package's ``utils/tracing.py``, as far as the
-device-plugin server's ``Allocate`` and the decision ledger, flight
-recorder and latency histograms need it: ``enabled``/``enable``/
-``disable``, ``span`` (a thread-local stack, so ``current()`` names the
-innermost open span) and a bounded in-memory collector of finished spans.
-The carriers, adoption and OTLP export, and the daemon's switch that turns
-tracing on, come with the observability plane.
+device-plugin server's ``Allocate``, the pod controller and the decision
+ledger, flight recorder and latency histograms need it: ``enabled``/
+``enable``/``disable``, ``span`` (a thread-local stack, so ``current()``
+names the innermost open span), a bounded in-memory collector of finished
+spans, reading the trace carrier off a pod (``extract``) and adopting the
+provisional ``Allocate`` span into the pod's trace (``adopt``). Writing
+carriers, the OTLP export and the daemon's switch that turns tracing on
+come with the observability plane.
 
 **Exact no-op when disabled** (the default): every entry point checks one
 module-level bool first, and ``span()`` then returns a shared no-op that
@@ -17,7 +19,7 @@ import collections
 import os
 import threading
 import time
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 _lock = threading.Lock()
 _enabled = False
@@ -50,6 +52,30 @@ class SpanCollector:
     def spans(self) -> List[dict]:
         with self._lock:
             return list(self._spans)
+
+    def reparent(self, span_id: str, parent: SpanContext) -> bool:
+        """Rewrite one collected span (and its collected descendants)
+        into ``parent``'s trace; see :func:`adopt`."""
+        with self._lock:
+            target = next((s for s in self._spans if s["span_id"] == span_id), None)
+            if target is None:
+                return False
+            old_trace = target["trace_id"]
+            target.setdefault("attrs", {})["adopted_from"] = old_trace
+            target["trace_id"] = parent.trace_id
+            target["parent_span_id"] = parent.span_id
+            # Children recorded under the provisional trace follow.
+            descendants = {span_id}
+            changed = True
+            while changed:
+                changed = False
+                for s in self._spans:
+                    if (s["trace_id"] == old_trace and s["parent_span_id"] in descendants
+                            and s["span_id"] not in descendants):
+                        s["trace_id"] = parent.trace_id
+                        descendants.add(s["span_id"])
+                        changed = True
+            return True
 
     def clear(self) -> None:
         with self._lock:
@@ -188,3 +214,52 @@ def span(name: str, parent: Optional[SpanContext] = None, service: str = "", **a
         if stack:
             parent = stack[-1].context
     return _SpanCM(Span(name, parent=parent, service=service, **attrs))
+
+
+def adopt(span_id: str, parent: SpanContext) -> bool:
+    """Re-parent an already-collected span into ``parent``'s trace: the
+    plugin-side join. Allocate runs before any pod identity is knowable
+    (the kubelet's RPC carries device ids only), so its span is recorded
+    under a provisional trace and adopted once the controller resolves the
+    pod and reads its carrier annotation. The provisional trace id is kept
+    as the ``adopted_from`` attribute. False when the ring has already
+    dropped the span."""
+    return COLLECTOR.reparent(span_id, parent)
+
+
+def parse_traceparent(value: str) -> Optional[SpanContext]:
+    """A W3C traceparent (``00-<trace>-<span>-<flags>``), or None."""
+    parts = (value or "").strip().split("-")
+    if len(parts) != 4:
+        return None
+    _, trace_id, span_id, _ = parts
+    if len(trace_id) != 32 or len(span_id) != 16:
+        return None
+    try:
+        int(trace_id, 16), int(span_id, 16)
+    except ValueError:
+        return None
+    return SpanContext(trace_id, span_id)
+
+
+def extract(pod: Optional[dict]) -> Optional[SpanContext]:
+    """Read the carrier annotation off a pod object (or a bare annotations
+    dict). None when absent or malformed: a bad carrier must never fail the
+    work it rode in on."""
+    if not isinstance(pod, dict):
+        return None
+    from ..api import constants
+
+    ann: Dict = pod
+    meta = pod.get("metadata")
+    if isinstance(meta, dict):
+        ann = meta.get("annotations") or {}
+    raw = ann.get(constants.TRACE_ANNOTATION) if isinstance(ann, dict) else None
+    return parse_traceparent(raw) if raw else None
+
+
+def pod_key(pod: dict) -> str:
+    """Stable correlation key for a pod object: uid when present, else
+    namespace/name."""
+    meta = (pod or {}).get("metadata") or {}
+    return meta.get("uid") or f"{meta.get('namespace', 'default')}/{meta.get('name', '')}"

@@ -6,9 +6,12 @@ two planes where both have it: ``jax`` (a fake TPU sysfs tree,
 tests/fakes.py) and ``torch`` (the fake NVML library, tests/fake_nvml.c).
 The restart loop runs in-process, driven through its event queue; the CLI
 runs end to end as its own process with the fake library first on
-``LD_LIBRARY_PATH``. Every wait has a deadline.
+``LD_LIBRARY_PATH``. Every daemon start names its kube config (a
+tests/fake_apiserver.FakeApiServer's) or turns the kube plane off, so no
+start reaches an in-cluster API server. Every wait has a deadline.
 """
 
+import json
 import os
 import queue
 import shutil
@@ -34,6 +37,7 @@ from k8s_device_plugin_tpu_torch.discovery.scanner import NoCards, NvmlInfo
 from k8s_device_plugin_tpu_torch.supervisor import main, watchers
 from tests import fakes
 from tests import torch_fake_nvml as fk
+from tests.fake_apiserver import FakeApiServer
 from tests.fake_kubelet import FakeKubelet
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -114,6 +118,7 @@ class TorchNode:
 
     def daemon(self, **kw):
         kw.setdefault("nvml_library", self.fake.path)
+        kw.setdefault("enable_controller", False)
         return main.Daemon(main.DaemonConfig(
             device_plugin_dir=self.dp_dir, sysfs_pci_dir=self.sysfs, dev_dir=self.dev, **kw))
 
@@ -161,7 +166,7 @@ def wait_for(predicate, timeout=WAIT_S):
 def test_port_pb2_descriptors_equal_jax_byte_for_byte():
     assert pb.DESCRIPTOR.serialized_pb == jax_pb.DESCRIPTOR.serialized_pb
     assert regpb.DESCRIPTOR.serialized_pb == jax_regpb.DESCRIPTOR.serialized_pb
-    for name in ("deviceplugin_pb2.py", "pluginregistration_pb2.py"):
+    for name in ("deviceplugin_pb2.py", "pluginregistration_pb2.py", "podresources_pb2.py"):
         assert (ROOT / "k8s_device_plugin_tpu_torch" / "api" / name).read_bytes() == \
             (ROOT / "k8s_device_plugin_tpu" / "api" / name).read_bytes()
 
@@ -359,7 +364,34 @@ def test_parse_args_defaults_and_flags():
         plugins_registry_dir="/reg")
 
 
-@pytest.mark.parametrize("flag", ["--no-controller", "--metrics-port=0", "--trace",
+def test_parse_args_takes_the_kube_planes_flags(monkeypatch):
+    """The kube plane's flags, under the JAX names and defaults, are
+    parsed and refused no longer."""
+    monkeypatch.delenv("KUBECONFIG", raising=False)
+    monkeypatch.delenv("NODE_NAME", raising=False)
+    monkeypatch.delenv("TPU_STALENESS_CAP_S", raising=False)
+    jax = jax_main.parse_args([])
+    cfg = main.parse_args([])
+    for field in ("node_name", "kubeconfig", "enable_controller", "resync_interval_s",
+                  "evict_on_unhealthy", "staleness_cap_s", "numa_dir", "proc_dir"):
+        assert getattr(cfg, field) == getattr(jax, field), field
+    assert cfg.podresources_socket == jax.podresources_socket == \
+        "/var/lib/kubelet/pod-resources/kubelet.sock"
+    monkeypatch.setenv("KUBECONFIG", "/etc/kc")
+    monkeypatch.setenv("NODE_NAME", "node-a")
+    cfg = main.parse_args([])
+    assert (cfg.kubeconfig, cfg.node_name) == ("/etc/kc", "node-a")
+    cfg = main.parse_args([
+        "--node-name", "n1", "--kubeconfig", "/kc", "--no-controller",
+        "--resync-interval", "2.5", "--podresources-socket", "", "--no-evict-on-unhealthy",
+        "--staleness-cap-s", "7",
+    ])
+    assert (cfg.node_name, cfg.kubeconfig, cfg.enable_controller, cfg.resync_interval_s,
+            cfg.podresources_socket, cfg.evict_on_unhealthy, cfg.staleness_cap_s) == (
+        "n1", "/kc", False, 2.5, "", False, 7.0)
+
+
+@pytest.mark.parametrize("flag", ["--telemetry-interval-s=1", "--metrics-port=0", "--trace",
                                   "--libtpu-path=", "--accelerator-type=v5e", "--dra",
                                   "--registration-mode=bogus"])
 def test_parse_args_refuses_flags_of_planes_not_ported(flag):
@@ -391,7 +423,7 @@ def test_cli_end_to_end_subprocess(tmp_path, dp_dir, kubelet):
     proc = subprocess.Popen(
         [sys.executable, "-m", "k8s_device_plugin_tpu_torch",
          "--device-plugin-dir", str(dp_dir), "--sysfs-pci-dir", str(tmp_path / "sys"),
-         "--dev-dir", str(tmp_path / "dev"), "--health-interval", "0.2"],
+         "--dev-dir", str(tmp_path / "dev"), "--health-interval", "0.2", "--no-controller"],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     try:
         assert kubelet.registered.wait(15)
@@ -430,3 +462,110 @@ def test_daemon_leaves_cuda_uninitialised_on_card():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=ROOT, check=True).stdout.split()
     assert int(out[0]) >= 1 and out[1] == "False"
+
+
+def write_kubeconfig(path, url) -> str:
+    """A kube config naming ``url``, written as JSON (a subset of YAML)."""
+    path.write_text(json.dumps({
+        "apiVersion": "v1", "kind": "Config", "current-context": "c",
+        "contexts": [{"name": "c", "context": {"cluster": "cl", "user": "u"}}],
+        "clusters": [{"name": "cl", "cluster": {"server": url}}],
+        "users": [{"name": "u", "user": {"token": "t"}}],
+    }))
+    return str(path)
+
+
+KUBE_THREADS = {"pod-informer", "pod-worker", "topology-publisher"}
+
+
+@pytest.mark.parametrize("controller", [False, True], ids=["no_controller", "kube_plane"])
+def test_kube_plane_threads_start_only_when_asked(tmp_path, dp_dir, kubelet, fake, controller):
+    """``--no-controller`` starts no kube thread and makes no API call; with
+    the plane on, the node annotation is published, and each generation's
+    teardown joins the controller's and the publisher's threads."""
+    api = FakeApiServer()
+    url = api.start()
+    api.add_node("node-a")
+    node = TorchNode(tmp_path, dp_dir, fake)
+    node.add_cards(4)
+    daemon = node.daemon(enable_controller=controller, node_name="node-a",
+                         kubeconfig=write_kubeconfig(tmp_path / "kc.json", url),
+                         podresources_socket="")
+    t = run_daemon_thread(daemon)
+    try:
+        assert kubelet.registered.wait(WAIT_S)
+        first_list(kubelet)
+        names = lambda: {th.name for th in threading.enumerate()}  # noqa: E731
+        if controller:
+            wait_for(lambda: "nvidia.com/gpu-topology"
+                     in api.nodes["node-a"]["metadata"].get("annotations", {}))
+            assert KUBE_THREADS <= names()
+            kubelet.registered.clear()
+            daemon.events.put(("signal", signal.SIGHUP))
+            assert kubelet.registered.wait(WAIT_S)
+            wait_for(lambda: daemon.controller is not None)
+        else:
+            time.sleep(0.3)
+            assert daemon.controller is None and not KUBE_THREADS & names()
+            assert not api.node_patches and not api.node_status_patches
+    finally:
+        stop_daemon(daemon, t)
+        node.close()
+        api.stop()
+    assert not KUBE_THREADS & {th.name for th in threading.enumerate()}
+
+
+def test_node_without_a_kube_config_serves_its_cards(tmp_path, dp_dir, kubelet, fake, caplog):
+    """As in JAX, a kube config that cannot be read is a logged warning:
+    the cards are served and no controller runs."""
+    import logging
+
+    node = TorchNode(tmp_path, dp_dir, fake)
+    node.add_cards(4)
+    daemon = node.daemon(enable_controller=True, kubeconfig=str(tmp_path / "missing.yaml"))
+    t = run_daemon_thread(daemon)
+    try:
+        with caplog.at_level(logging.WARNING):
+            assert kubelet.registered.wait(WAIT_S)
+            assert len(first_list(kubelet).devices) == 4
+        assert daemon.controller is None
+        assert "kube client unavailable pre-serve" in caplog.text
+        assert not KUBE_THREADS & {th.name for th in threading.enumerate()}
+    finally:
+        stop_daemon(daemon, t)
+        node.close()
+
+
+def test_daemon_with_the_kube_plane_loads_no_torch(tmp_path):
+    """The daemon's process, its kube plane running against a fake API
+    server (the node annotation published), has loaded no torch or JAX."""
+    api = FakeApiServer()
+    url = api.start()
+    api.add_node("node-a")
+    lib = fk.build(tmp_path)
+    script = fk.NodeScript()
+    fk.hgx_node(script, tmp_path / "sys", 2)
+    code = (
+        "import sys, time\n"
+        "from k8s_device_plugin_tpu_torch.supervisor.main import Daemon, DaemonConfig\n"
+        f"d = Daemon(DaemonConfig(device_plugin_dir={str(tmp_path / 'dp')!r}, "
+        f"sysfs_pci_dir={str(tmp_path / 'sys')!r}, dev_dir={str(tmp_path / 'dev')!r}, "
+        f"nvml_library={lib!r}, node_name='node-a', podresources_socket='', "
+        f"kubeconfig={write_kubeconfig(tmp_path / 'kc.json', url)!r}, "
+        "registration_mode='watcher', "
+        f"plugins_registry_dir={str(tmp_path / 'reg')!r}))\n"
+        "d.build_and_serve()\n"
+        "assert d.controller is not None\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax')))\n"
+        "d.teardown()\n"
+    )
+    (tmp_path / "dp").mkdir()
+    env = dict(os.environ, FAKE_NVML_SCRIPT=script.write(tmp_path / "node.txt"))
+    try:
+        out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                             timeout=120, cwd=ROOT, env=env)
+        assert out.returncode == 0, out.stderr[-2000:]
+        assert out.stdout.strip() == "[]"
+        assert "nvidia.com/gpu-topology" in api.nodes["node-a"]["metadata"]["annotations"]
+    finally:
+        api.stop()

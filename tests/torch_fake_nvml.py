@@ -169,6 +169,13 @@ class NodeScript:
     def set_ancestor(self, a: int, b: int, label: str) -> None:
         self.lines.append(f"ancestor {a} {b} {TOPOLOGY[label]}")
 
+    def xid_file(self, path) -> str:
+        """Name the file whose appended ``"<device> <xid>"`` lines the
+        daemon's library takes as XID events (``push_xid`` for another
+        process)."""
+        self.lines.append(f"xids {path}")
+        return str(path)
+
     def write(self, path) -> str:
         with open(path, "w") as f:
             f.write("\n".join(self.lines) + "\n")
