@@ -141,7 +141,14 @@ caught while the run goes on:
    on localhost with a node, writes a kube config naming it (as JSON), and
    starts the node daemon, ``python -m k8s_device_plugin_tpu_torch
    --device-plugin-dir <tmp> --node-name <node> --kubeconfig <file>
-   --podresources-socket <socket>``, over the real NVML and ``/dev``. The
+   --podresources-socket <socket> --metrics-port <free port>
+   --telemetry-interval-s 0.5 --audit-interval-s 2 --trace --decisions``,
+   over the real NVML and ``/dev``. From its start to SIGTERM this script
+   polls the daemon's HTTP plane every 0.5 s: ``/healthz`` must answer 200
+   on every poll from its first answer on, ``/metrics`` must parse as the
+   Prometheus text format with ``tpu_plugin_chips{state="total"}`` equal
+   to nvidia-smi's card count, and ``/debug/telemetry`` and
+   ``/debug/audit`` must answer JSON (``/debug/resilience`` once). The
    daemon must register (version v1beta1, ``nvidia.com/gpu``, its
    endpoint, GetPreferredAllocation available); its first ListAndWatch
    answer must hold every card ``nvidia-smi --query-gpu=uuid`` lists, each
@@ -151,12 +158,12 @@ caught while the run goes on:
    must be True. GetPreferredAllocation(size 1) must give one of the cards
    (the median of 20 calls is printed); Allocate of it must name its UUID
    in ``NVIDIA_VISIBLE_DEVICES`` with device specs whose host paths exist,
-   and an unknown id must get INVALID_ARGUMENT. Then, as the kubelet and
-   the API server would, the PodResources entry of the pod and the pod
-   itself (on the node, Running, requesting ``nvidia.com/gpu: 1``): the
+   and an unknown id must get INVALID_ARGUMENT. Then, as the API server and
+   the kubelet would, the pod (on the node, Pending, requesting
+   ``nvidia.com/gpu: 1``), its PodResources entry, and the pod Running: the
    pod's ``nvidia.com/gpu-devices`` annotation must become the UUID and
    the node annotation's ``available`` must lose it. Then the pod: ``python -m
-   k8s_device_plugin_tpu_torch.workload.smoke --bench --steps 5`` with the
+   k8s_device_plugin_tpu_torch.workload.smoke --bench --steps 25`` with the
    response's env, and ``CUDA_VISIBLE_DEVICES`` set from
    ``NVIDIA_VISIBLE_DEVICES`` as the NVIDIA container runtime would. Its
    report must be ok with one expected device, each flash kernel and delta
@@ -169,16 +176,32 @@ caught while the run goes on:
    own init maps ``libcuda`` and opens ``/dev/nvidia-uvm``, so those are
    printed, not held. The ListAndWatch stream must send no new list while
    the pod runs; the API-server writes made while it trains are counted.
+   While its timed steps run (after its first step, before its report), at
+   least one poll must show the card's ``tpu_chip_*`` series labelled with
+   the pod's ``pod``, ``namespace`` and ``container``, a duty cycle of 50%
+   or more, memory used within 2% of memory.total of ``nvidia-smi``'s
+   memory.used read in the same poll, and a power reading no higher than
+   the card's power limit; every such poll must read
+   ``tpu_node_free_chips`` one below the card count.
    After it exits its PodResources entry goes and the pod is deleted from
-   the API server: the card must come back into ``available``. Last,
+   the API server: the card must come back into ``available``, its series
+   must lose the pod's labels within one sampler interval and 1 s, and
+   ``tpu_node_free_chips`` must return to the card count. Last,
    SIGHUP must lead to a new registration and a new node annotation, and
    SIGTERM to an exit with code 0, the daemon's socket removed and no
-   controller thread left draining. One line with the times to
+   controller thread left draining; before it, the audit must have swept 3
+   times or more, every sweep clean (``tpu_audit_sweeps_total`` has no
+   ``findings`` or ``error`` outcome, every polled ``/debug/audit`` lists
+   no finding) and ``tpu_audit_last_clean_sweep_timestamp`` must have
+   advanced. One line with the times to
    registration and to the first node annotation, of the two RPCs, from
    Allocate to the pod's annotation, to the republish, to the pod's first
    step and to its report, from the pod's delete to the republish, of
    SIGHUP and SIGTERM, the pod's report beside phase 5's step time, the
-   footprint, the API-server writes, and the card's name and power limit.
+   footprint, the API-server writes; the start to the first ``/healthz``
+   200, the median ``/metrics`` scrape, sampler pass and audit sweep, the
+   card's duty, power, temperature and memory during the pod's steps beside
+   nvidia-smi's; and the card's name and power limit.
 
 Then one ``{"kernels": [...]}`` line (each kernel's launches from the path
 that runs it: K1-K3 from phase 5, K4 from phase 6; every path's counts
@@ -203,9 +226,12 @@ import signal
 import statistics
 import subprocess
 import sys
+import re
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.request
 from pathlib import Path
 
 import torch
@@ -1260,7 +1286,7 @@ def phase_bench_leg() -> None:
 
 
 # The pod's training run, as a user's pod spec would start it.
-POD_ARGS = ("-m", "k8s_device_plugin_tpu_torch.workload.smoke", "--bench", "--steps", "5")
+POD_ARGS = ("-m", "k8s_device_plugin_tpu_torch.workload.smoke", "--bench", "--steps", "25")
 PLUGIN_WAIT_S = 60
 
 
@@ -1299,6 +1325,139 @@ def memory_used_mib() -> int:
 # A CUDA context costs hundreds of MiB of device memory; the daemon's
 # start may move the card's used memory by less than this.
 DAEMON_MEMORY_MIB = 64
+
+# The daemon's observability plane in this phase: the sampler's and the
+# auditor's cadence, and how often this script polls the HTTP plane.
+TELEMETRY_INTERVAL_S = 0.5
+AUDIT_INTERVAL_S = 2.0
+POLL_S = 0.5
+SAMPLE_LINE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})?\s+(\S+)$")
+LABEL_PAIR = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"(,|$)')
+
+
+def parse_metrics(text: str) -> list:
+    """Every sample of a Prometheus text exposition, as (name, labels,
+    value); a line that is neither a comment nor a well-formed sample
+    raises ValueError."""
+    samples = []
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        m = SAMPLE_LINE.match(line)
+        if m is None:
+            raise ValueError(f"/metrics line is not the Prometheus text format: {line!r}")
+        name, raw, value = m.groups()
+        labels, pos = {}, 0
+        for lm in LABEL_PAIR.finditer(raw or ""):
+            if lm.start() != pos:
+                break
+            labels[lm.group(1)] = lm.group(2)
+            pos = lm.end()
+        if pos != len(raw or ""):
+            raise ValueError(f"/metrics labels are not the Prometheus text format: {line!r}")
+        samples.append((name, labels, float(value)))
+    return samples
+
+
+def http_get(url: str) -> tuple[int, bytes]:
+    """(status, body) of one GET; a refused connection reads as status 0."""
+    try:
+        with urllib.request.urlopen(url, timeout=5) as resp:
+            return resp.status, resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+    except OSError:
+        return 0, b""
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Observer(threading.Thread):
+    """Polls the daemon's HTTP plane from its start until ``stop()``:
+    ``/healthz`` every 10 ms until its first answer, then every ``POLL_S``
+    ``/healthz``, ``/metrics`` (timed and parsed), ``/debug/telemetry``,
+    ``/debug/audit`` and, while ``smi`` is set, nvidia-smi's memory and
+    power limit right after the scrape. A poll that raises ends the thread
+    with its message in ``error``; ``check`` fails the run on it."""
+
+    def __init__(self, base: str):
+        super().__init__(name="observer", daemon=True)
+        self.base = base
+        self.t_first_ok = None
+        self.healthz: list = []  # status of every poll from the first answer on
+        self.polls: list = []
+        self.error = None
+        self.smi = threading.Event()
+        self._stop_evt = threading.Event()
+
+    def stop(self) -> None:
+        self._stop_evt.set()
+        if self.is_alive():
+            self.join(timeout=30)
+
+    def check(self, daemon_fail) -> None:
+        """Fails the run if a poll raised, or if the thread ended before
+        ``stop()`` or outlived it."""
+        if self.error is not None:
+            daemon_fail(f"the HTTP plane's poll failed: {self.error}")
+        if self.is_alive() == self._stop_evt.is_set():
+            daemon_fail(f"the HTTP poller is alive: {self.is_alive()}, "
+                        f"stopped: {self._stop_evt.is_set()}")
+
+    def run(self) -> None:
+        try:
+            self._poll()
+        except Exception as e:  # noqa: BLE001 - reported by check()
+            self.error = f"{type(e).__name__}: {e}"
+
+    def _poll(self) -> None:
+        while not self._stop_evt.is_set() and self.t_first_ok is None:
+            if http_get(self.base + "/healthz")[0] == 200:
+                self.t_first_ok = time.monotonic()
+                self.healthz.append(200)
+            else:
+                time.sleep(0.01)
+        while not self._stop_evt.wait(POLL_S):
+            self.healthz.append(http_get(self.base + "/healthz")[0])
+            t0 = time.monotonic()
+            status, body = http_get(self.base + "/metrics")
+            poll = {"t": time.monotonic(), "metrics_status": status,
+                    "scrape_ms": (time.monotonic() - t0) * 1e3,
+                    "samples": parse_metrics(body.decode()) if status == 200 else None}
+            if self.smi.is_set():
+                row = subprocess.run(
+                    ["nvidia-smi", "--query-gpu=memory.used,memory.total,power.limit",
+                     "--format=csv,noheader,nounits"],
+                    capture_output=True, text=True, timeout=60, check=True).stdout
+                used, total, limit = (float(v) for v in row.splitlines()[0].split(","))
+                poll["smi"] = {"memory_used_mib": used, "memory_total_mib": total,
+                               "power_limit_w": limit}
+            for name in ("telemetry", "audit"):
+                status, body = http_get(f"{self.base}/debug/{name}")
+                poll[name] = json.loads(body) if status == 200 else {"status": status}
+            self.polls.append(poll)
+
+
+def card_series(samples, uuid: str) -> dict:
+    """family → (labels, value) of the card's ``tpu_chip_*`` series (the
+    links left out)."""
+    return {name: (labels, value) for name, labels, value in samples
+            if name.startswith("tpu_chip_") and labels.get("chip") == uuid
+            and "link" not in labels}
+
+
+def sample_value(samples, name: str, **labels):
+    """The value of one series, or None."""
+    for n, lab, value in samples:
+        if n == name and all(lab.get(k) == v for k, v in labels.items()):
+            return value
+    return None
 
 
 class Kubelet:
@@ -1390,6 +1549,106 @@ NODE_NAME = "smoke-node"
 POD_NAME = "smoke-pod"
 
 
+def pod_telemetry(observer: Observer, t_steps, uuid: str, n_cards: int,
+                  daemon_fail) -> dict:
+    """The polls made while the pod's timed steps ran: each must read one
+    free card fewer than the node has, and at least one must show the card
+    attributed to the pod, busy, with NVML's memory used within 2% of
+    memory.total of nvidia-smi's and a power reading within the limit."""
+    observer.check(daemon_fail)
+    if t_steps is None or t_steps[1] is None:
+        daemon_fail("the pod's timed steps were not seen")
+    inside = [p for p in list(observer.polls) if t_steps[0] < p["t"] < t_steps[1]
+              and p["samples"] is not None and "smi" in p]
+    rows, good = [], 0
+    for p in inside:
+        series = card_series(p["samples"], uuid)
+        labels = series.get("tpu_chip_duty_cycle", ({}, None))[0]
+        value = {name: v for name, (_, v) in series.items()}
+        smi = p["smi"]
+        used_mib = value.get("tpu_chip_hbm_used_bytes", -1) / 2 ** 20
+        row = {"duty_pct": value.get("tpu_chip_duty_cycle"),
+               "power_w": value.get("tpu_chip_power_watts"),
+               "temp_c": value.get("tpu_chip_temperature_celsius"),
+               "memory_used_mib": used_mib, "smi_memory_used_mib": smi["memory_used_mib"],
+               "free_cards": sample_value(p["samples"], "tpu_node_free_chips"),
+               "attributed": {k: labels.get(k) for k in ("pod", "namespace", "container")}}
+        rows.append(row)
+        if row["free_cards"] != n_cards - 1:
+            daemon_fail(f"tpu_node_free_chips read {row['free_cards']} while the pod held "
+                        f"its card ({n_cards} cards)")
+        if (row["attributed"] == {"pod": POD_NAME, "namespace": "default", "container": "main"}
+                and (row["duty_pct"] or 0) >= 50
+                and abs(used_mib - smi["memory_used_mib"]) <= 0.02 * smi["memory_total_mib"]
+                and row["power_w"] is not None and row["power_w"] <= smi["power_limit_w"]):
+            good += 1
+    if not good:
+        daemon_fail(f"no poll during the pod's steps showed its card attributed, busy, its "
+                    f"memory and power right: {rows}")
+    return {"polls_during_steps": len(rows), "polls_meeting_every_limit": good,
+            "power_limit_w": inside[0]["smi"]["power_limit_w"], "samples": rows}
+
+
+def observability(observer: Observer, t_start: float, n_cards: int, daemon_fail) -> dict:
+    """The daemon's HTTP plane over the phase: /healthz 200 on every poll
+    from its first answer, /metrics in the text format with the card count,
+    JSON from /debug/*, and an audit that swept 3 times or more and was clean
+    every time, its last-clean stamp advancing. The medians of the scrape,
+    the sampler's pass and the audit's sweep. Stops the polls."""
+    observer.stop()
+    observer.check(daemon_fail)
+    status, body = http_get(observer.base + "/debug/resilience")
+    resilience = json.loads(body) if status == 200 else None
+    polls = [p for p in observer.polls if p["samples"] is not None]
+    if observer.t_first_ok is None or not polls:
+        daemon_fail("the daemon's /healthz or /metrics never answered")
+    bad = [code for code in observer.healthz if code != 200]
+    if bad:
+        daemon_fail(f"/healthz answered {bad} after its first 200")
+    if any(p["metrics_status"] != 200 for p in observer.polls):
+        daemon_fail("a /metrics poll did not answer 200")
+    last = polls[-1]["samples"]
+    total = sample_value(last, "tpu_plugin_chips", state="total")
+    if total != n_cards:
+        daemon_fail(f'tpu_plugin_chips{{state="total"}} is {total}, nvidia-smi lists {n_cards}')
+    if any("enabled" not in p["telemetry"] or "enabled" not in p["audit"]
+           for p in observer.polls):
+        daemon_fail("/debug/telemetry or /debug/audit did not answer its JSON")
+    if resilience is None or "call_outcomes" not in resilience:
+        daemon_fail(f"/debug/resilience answered {status}")
+    # Each generation's sampler counts its own passes: (pass, its ms).
+    passes = {(p["telemetry"]["ticks"], p["telemetry"]["last_pass_ms"])
+              for p in observer.polls if p["telemetry"].get("ticks")}
+    sweeps = {}
+    for p in observer.polls:
+        a = p["audit"]
+        if a.get("findings") or a.get("errors"):
+            daemon_fail(f"an audit sweep found {a.get('findings')} (errors {a.get('errors')})")
+        if a.get("sweeps"):
+            sweeps[a["last_sweep_ts"]] = a["last_duration_ms"]
+    outcomes = {lab["outcome"]: v for n, lab, v in last if n == "tpu_audit_sweeps_total"}
+    stamps = [sample_value(p["samples"], "tpu_audit_last_clean_sweep_timestamp") for p in polls]
+    stamps = [v for v in stamps if v]
+    if (outcomes.get("clean", 0) < 3 or outcomes.get("findings", 0) or outcomes.get("error", 0)
+            or len(stamps) < 2 or stamps[-1] <= stamps[0]):
+        daemon_fail(f"the audit: sweeps {outcomes}, last-clean stamps {stamps[:1]}..{stamps[-1:]}")
+    return {
+        "start_to_healthz_s": observer.t_first_ok - t_start,
+        "healthz_polls": len(observer.healthz),
+        "metrics_scrape_ms_median": statistics.median(p["scrape_ms"] for p in polls),
+        "metrics_samples": len(last),
+        "sampler_pass_ms_median": statistics.median(ms for _, ms in passes),
+        "sampler_passes_seen": len(passes),
+        "audit_sweep_ms_median": statistics.median(sweeps.values()),
+        "audit_sweeps": outcomes,
+        "audit_sweep_seconds_mean": (
+            sample_value(last, "tpu_audit_sweep_seconds_sum")
+            / sample_value(last, "tpu_audit_sweep_seconds_count")),
+        "audit_last_clean_advanced_s": stamps[-1] - stamps[0],
+        "resilience_call_outcomes": resilience["call_outcomes"],
+    }
+
+
 def phase_plugin_pod(main_report: dict) -> dict:
     """The node daemon hands this card to a pod, which trains on it, and
     tells a fake API server which card the pod holds."""
@@ -1448,13 +1707,20 @@ def phase_plugin_pod(main_report: dict) -> dict:
     line: dict = {"nvidia_smi": nvidia_smi()}
     channel = None
     used_before = memory_used_mib()
+    port = free_port()
+    observer = Observer(f"http://127.0.0.1:{port}")
     with open(log_path, "w") as log_file:
         t_start = time.monotonic()
         daemon = subprocess.Popen([sys.executable, "-m", "k8s_device_plugin_tpu_torch",
                                    "--device-plugin-dir", str(work), "--node-name", NODE_NAME,
                                    "--kubeconfig", str(kubeconfig),
-                                   "--podresources-socket", podres.socket_path],
+                                   "--podresources-socket", podres.socket_path,
+                                   "--metrics-port", str(port),
+                                   "--telemetry-interval-s", str(TELEMETRY_INTERVAL_S),
+                                   "--audit-interval-s", str(AUDIT_INTERVAL_S),
+                                   "--trace", "--decisions"],
                                   cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT)
+    observer.start()
     try:
         def daemon_fail(msg: str) -> None:
             print(log_path.read_text()[-4000:], file=sys.stderr, flush=True)
@@ -1557,16 +1823,21 @@ def phase_plugin_pod(main_report: dict) -> dict:
         if code != grpc.StatusCode.INVALID_ARGUMENT:
             daemon_fail(f"an unknown id got {code}, not INVALID_ARGUMENT")
 
-        # The kubelet records the assignment and the pod appears on the
-        # node; the controller writes its card, the publisher withdraws it.
-        podres.set("default", POD_NAME, picked)
+        # The pod is bound to the node, the kubelet records the assignment
+        # and starts it; the controller writes its card, the publisher
+        # withdraws it. (In this order no audit sweep can find the kubelet
+        # holding a card for a pod the API server does not know.)
         api.add_pod({
             "metadata": {"name": POD_NAME, "namespace": "default", "uid": "smoke-pod-uid",
                          "annotations": {}},
             "spec": {"nodeName": NODE_NAME, "containers": [{"name": "main", "resources": {
                 "requests": {constants.RESOURCE_NAME: "1"}}}]},
-            "status": {"phase": "Running"},
+            "status": {"phase": "Pending"},
         })
+        podres.set("default", POD_NAME, picked)
+        running = api.pods[("default", POD_NAME)]
+        running["status"] = {"phase": "Running"}
+        api.update_pod(running)
         after = seen(pod_annotation=pod_devices,
                      # the whole publish: the annotation, the labels, the condition
                      republish=lambda: ((t := node_topology()) and picked[0] not in t["available"]
@@ -1594,6 +1865,7 @@ def phase_plugin_pod(main_report: dict) -> dict:
 
         threading.Thread(target=read_pod, daemon=True).start()
         report, footprint = None, None
+        t_steps = None
         while (item := pod_lines.get(timeout=600)) is not None:
             t_line, raw = item
             if not raw.startswith("{"):
@@ -1603,6 +1875,9 @@ def phase_plugin_pod(main_report: dict) -> dict:
                 line.setdefault("allocate_to_stage_s", {})[snap["partial"]] = t_line - t_alloc
             if snap.get("partial") == "first_step" and footprint is None:
                 line["allocate_to_first_step_s"] = t_line - t_alloc
+                # The timed steps start: each poll also reads nvidia-smi.
+                t_steps = [t_line, None]
+                observer.smi.set()
                 # While the pod trains: the card's context holders (this
                 # script and the pod, not the daemon) and what each maps.
                 footprint = {"compute_apps": compute_apps(), "daemon": mapped(daemon.pid),
@@ -1610,6 +1885,9 @@ def phase_plugin_pod(main_report: dict) -> dict:
             elif "partial" not in snap:
                 report = snap
                 line["allocate_to_report_s"] = t_line - t_alloc
+                if t_steps is not None:
+                    t_steps[1] = t_line
+                observer.smi.clear()
         rc = pod.wait(timeout=60)
         line["api_writes"] = {"before_pod": writes_before_pod,
                               "while_pod_trained": writes() - writes_before_pod}
@@ -1643,6 +1921,8 @@ def phase_plugin_pod(main_report: dict) -> dict:
                  f"with it serving (2 context holders expected: this script and the pod)")
         if not lists.empty():
             fail(f"the daemon re-sent its device list while the pod ran: {lists.get()}")
+        line["telemetry"] = pod_telemetry(observer, t_steps, picked[0], len(smi_uuids),
+                                          daemon_fail)
 
         # The pod is gone: the kubelet drops its entry, the API server its
         # object, and the card comes back.
@@ -1658,6 +1938,25 @@ def phase_plugin_pod(main_report: dict) -> dict:
         if sorted(topo["available"]) != sorted(smi_uuids):
             daemon_fail(f"after the pod's delete the annotation has available "
                         f"{topo['available']}")
+
+        def scrape():
+            status, body = http_get(f"{observer.base}/metrics")
+            try:
+                return parse_metrics(body.decode()) if status == 200 else []
+            except ValueError as e:
+                daemon_fail(str(e))
+
+        # The card's series lose the pod's labels by the next sample plus
+        # 1 s, and the free-card gauge counts the card again.
+        unlabelled = seen(
+            unlabelled=lambda: (m := scrape()) and card_series(m, picked[0]) and not any(
+                "pod" in lab for lab, _ in card_series(m, picked[0]).values()),
+            free=lambda: sample_value(scrape(), "tpu_node_free_chips") == len(smi_uuids))
+        line["delete_to_unlabelled_s"] = unlabelled["unlabelled"][0] - t0
+        line["delete_to_free_gauge_s"] = unlabelled["free"][0] - t0
+        if line["delete_to_unlabelled_s"] > TELEMETRY_INTERVAL_S + 1.0:
+            daemon_fail(f"the card's series kept the pod's labels "
+                        f"{line['delete_to_unlabelled_s']:.3f} s after its delete")
 
         # SIGHUP: the new generation registers, then publishes the node's
         # annotation anew. Only a node patch that carries the annotation
@@ -1680,6 +1979,7 @@ def phase_plugin_pod(main_report: dict) -> dict:
         t_pub, _ = seen(republish=lambda: annotation_patch_from(patches_at_reg))["republish"]
         line["sighup_to_republish_s"] = t_pub - t0
         line["sighup_node_patches_before_register"] = patches_at_reg - published
+        line["observability"] = observability(observer, t_start, len(smi_uuids), daemon_fail)
         t0 = time.monotonic()
         daemon.send_signal(signal.SIGTERM)
         rc = daemon.wait(timeout=PLUGIN_WAIT_S)
@@ -1693,6 +1993,7 @@ def phase_plugin_pod(main_report: dict) -> dict:
             daemon_fail(f"SIGTERM: the daemon exited {rc}, its socket left: {socket_left}, "
                         f"controller threads left draining: {draining}")
     finally:
+        observer.stop()
         if daemon.poll() is None:
             daemon.kill()
             daemon.wait()

@@ -19,6 +19,11 @@ node's pods that request ``nvidia.com/gpu``, and
 * on a card going **unhealthy** — evict the pods holding it (the Eviction
   API, so PodDisruptionBudgets hold), which the reference never does.
 
+Beside the pod tracking it keeps the card→pod attribution map
+(``chip_attribution``: pod, namespace, container from the PodResources
+API, and the gang label) that the telemetry sampler labels each card's
+series with and the audit's ``attribution_vs_kubelet`` checks.
+
 Card ids are NVML UUIDs, the same ids the kubelet holds.
 
 Implementation shape: a list+watch loop feeding a work queue, one worker
@@ -43,6 +48,7 @@ from ..utils.flightrecorder import RECORDER
 from ..utils.logging import get_logger
 from ..utils.podresources import is_gpu_pod
 from ..utils.resilience import (
+    TRACKER,
     Backoff,
     PendingWrites,
     UnavailableError,
@@ -128,6 +134,13 @@ class Controller:
         # pod uid -> chip ids we believe it holds (for delete-time free when
         # the annotation is missing).
         self._pod_devices: Dict[str, Set[str]] = {}
+        # chip id -> {pod, namespace, container, gang} for the chips we
+        # track: the attribution side of _pod_devices, read by the
+        # telemetry sampler (chip_attribution) to label tpu_chip_* series
+        # with the holder. Own lock: the sampler reads from its thread
+        # while the worker mutates.
+        self._attr_lock = threading.Lock()
+        self._chip_attr: Dict[str, Dict[str, str]] = {}
         # Optional TopologyPublisher owned by the wiring; stopped with us.
         self.publisher = None
         # Optional utils/resilience.DegradedMode (supervisor wiring):
@@ -194,6 +207,96 @@ class Controller:
         self._threads = []
 
     # ------------------------------------------------------------------
+    # Chip→pod attribution (the telemetry sampler's join source)
+    # ------------------------------------------------------------------
+
+    def chip_attribution(self) -> Dict[str, Dict[str, str]]:
+        """chip id → {pod, namespace, container, gang} for every chip a
+        tracked pod holds. The sampler (telemetry.py) joins this against
+        the per-chip counters each tick; entries appear at reconcile and
+        vanish when the chips are freed, so a scrape after a pod's
+        deletion carries no stale attribution."""
+        with self._attr_lock:
+            return {
+                cid: {k: v for k, v in attr.items() if k != "_partial"}
+                for cid, attr in self._chip_attr.items()
+            }
+
+    def _record_attribution(
+        self,
+        meta: dict,
+        chip_ids,
+        container_of: Optional[Dict[str, str]] = None,
+        partial: bool = False,
+    ) -> None:
+        """``partial=True`` marks a rebuild-time record (no container
+        lookup ran; an apiserver-less rebuild has no labels either) so
+        _attribution_stale refreshes it at the pod's next reconcile
+        pass instead of trusting it forever."""
+        name = meta.get("name", "")
+        ns = meta.get("namespace", "default")
+        gang = (meta.get("labels") or {}).get(constants.GANG_NAME_LABEL, "")
+        container_of = container_of or {}
+        with self._attr_lock:
+            for cid in chip_ids:
+                self._chip_attr[cid] = {
+                    "pod": name,
+                    "namespace": ns,
+                    "container": container_of.get(cid, ""),
+                    "gang": gang,
+                    "_partial": partial,
+                }
+
+    def _drop_attribution(self, chip_ids) -> None:
+        with self._attr_lock:
+            for cid in chip_ids:
+                self._chip_attr.pop(cid, None)
+
+    def _attribution_stale(self, meta: dict, chip_ids) -> bool:
+        """True when any chip's record is missing, names another pod,
+        or is a rebuild-time partial (container/gang not yet looked
+        up): the conditions under which the tracked-pod resync branch
+        pays the per-container PodResources lookup."""
+        name = meta.get("name", "")
+        ns = meta.get("namespace", "default")
+        with self._attr_lock:
+            return any(
+                (attr := self._chip_attr.get(cid)) is None
+                or attr["pod"] != name
+                or attr["namespace"] != ns
+                or attr.get("_partial")
+                for cid in chip_ids
+            )
+
+    def _container_of_chips(self, meta: dict) -> Optional[Dict[str, str]]:
+        """real chip id → container name, from the PodResources API's
+        per-container assignment (translated through the plugin's
+        substitution record like reconciliation). Empty on checkpoint-
+        only kubelets: the checkpoint has no container dimension, so
+        those series attribute to the pod with container unset. None on
+        a TRANSIENT lookup failure (kubelet mid-restart), so the caller
+        records the attribution as partial and the next resync retries
+        instead of freezing an empty container forever."""
+        if not self.podres.available():
+            return {}
+        try:
+            by_container = self.podres.pod_container_device_ids(
+                meta.get("namespace", "default"),
+                meta.get("name", ""),
+                self.resource_name,
+            )
+        except Exception as e:
+            log.warning("podresources container lookup failed: %s", e)
+            return None
+        out: Dict[str, str] = {}
+        for container, kids in (by_container or {}).items():
+            for kid in kids:
+                rid = self.plugin.substitutions.get(kid, kid)
+                if rid in self.plugin.topology.by_id:
+                    out[rid] = container
+        return out
+
+    # ------------------------------------------------------------------
     # Startup state rebuild (a gap of the reference)
     # ------------------------------------------------------------------
 
@@ -230,6 +333,7 @@ class Controller:
         # Normalize both sources to live pods keyed the way _handle_delete
         # will look them up (uid; namespace/name when no uid is knowable).
         live: Dict[str, List[str]] = {}
+        meta_by_key: Dict[str, dict] = {}
         if items is None:
             if by_uid:
                 live = dict(by_uid)
@@ -237,6 +341,12 @@ class Controller:
                 live = {
                     _nsname({"namespace": ns, "name": name}): ids
                     for (ns, name), ids in by_name.items()
+                }
+                meta_by_key = {
+                    _nsname({"namespace": ns, "name": name}): {
+                        "namespace": ns, "name": name,
+                    }
+                    for (ns, name) in by_name
                 }
         else:
             # One (namespace, name) assignment belongs to exactly ONE pod
@@ -269,6 +379,7 @@ class Controller:
                     ids = by_uid.get(meta.get("uid", ""))
                 if ids:
                     live[meta.get("uid", "")] = ids
+                    meta_by_key[meta.get("uid", "")] = meta
         allocated = []
         for key, ids in live.items():
             real = [self.plugin.shadow_map.get(i, i) for i in ids]
@@ -276,6 +387,12 @@ class Controller:
             allocated.extend(known)
             if known:
                 self._pod_devices[key] = set(known)
+                # Rebuild-time attribution (pod identity, and the gang
+                # label when the API server answered); marked partial so
+                # the next reconcile pass refreshes the container (and,
+                # API-server-less, the gang) via _attribution_stale.
+                if key in meta_by_key:
+                    self._record_attribution(meta_by_key[key], known, partial=True)
         if allocated:
             self.plugin.mark_allocated(allocated)
             log.info(
@@ -375,6 +492,7 @@ class Controller:
                 if e.status_code == 410:  # resourceVersion too old: relist
                     log.info("watch expired; relisting")
                     metrics.KUBE_WATCH_STREAMS.inc(outcome="relist")
+                    TRACKER.record_watch("relist")
                     resource_version = ""
                 else:
                     log.warning("watch error: %s", e)
@@ -394,6 +512,7 @@ class Controller:
                     # a resume from the bookmarked rv, not a relist —
                     # the apiserver replays everything we missed.
                     metrics.KUBE_WATCH_STREAMS.inc(outcome="resumed")
+                    TRACKER.record_watch("resumed")
                 self._stop.wait(self._watch_backoff.next_delay())
 
     def _enqueue(self, etype: str, pod: dict, retries: int = 0) -> None:
@@ -454,6 +573,7 @@ class Controller:
             if key not in live_keys:
                 ids = self._pod_devices.pop(key, set())
                 if ids:
+                    self._drop_attribution(ids)
                     self.plugin.free_devices(ids)
                     log.info(
                         "pruned stale tracking for vanished pod %s "
@@ -549,6 +669,14 @@ class Controller:
                 # apiserver-less rebuild (rebuild_state).
                 self._pod_devices.pop(_nsname(meta), None)
                 self._pod_devices[uid] = set(ids)
+                # Refresh the attribution only when it is missing or names
+                # another pod (daemon restart, recreation): this branch
+                # runs on every resync for every reconciled pod, and an
+                # unconditional per-container lookup would cost a
+                # PodResources RPC each pass.
+                if self._attribution_stale(meta, ids):
+                    containers = self._container_of_chips(meta)
+                    self._record_attribution(meta, ids, containers, partial=containers is None)
             return
         kubelet_ids = self._kubelet_ids_for_pod(meta)
         if not kubelet_ids:
@@ -657,6 +785,8 @@ class Controller:
         # Migrate any rebuild-time namespace/name tracking to the uid key.
         self._pod_devices.pop(nsname, None)
         self._pod_devices[uid] = set(real)
+        containers = self._container_of_chips(meta)
+        self._record_attribution(meta, real, containers, partial=containers is None)
         self.plugin.mark_allocated(real)
         log.info(
             "reconciled pod %s/%s -> chips %s",
@@ -714,6 +844,11 @@ class Controller:
         ids |= self._pod_devices.pop(_nsname(meta), set())
         if not ids:
             return
+        # The deleted pod's attribution drops for ALL its chips, including
+        # any a replacement still holds: the stale pod name must never
+        # scrape again, and the replacement's own reconcile re-attributes
+        # the chips it keeps.
+        self._drop_attribution(ids)
         # A replacement pod can already be RUNNING on this pod's chips by
         # the time the DELETED event lands (kubelet freed + re-Allocated
         # them while the old API object lingered on its grace period); its

@@ -218,6 +218,7 @@ class KubeClient:
         verb: str = "",
         deadline_s: Optional[float] = None,
         idempotent: bool = True,
+        mutating: bool = False,
         **kw,
     ) -> requests.Response:
         """Resilient request returning the raw Response (streaming
@@ -225,12 +226,16 @@ class KubeClient:
         streaming errors are the caller's reconnect loop's job.
 
         ``idempotent=False`` caps the envelope at ONE attempt (the
-        Eviction subresource — a blind retry can double-evict)."""
+        Eviction subresource — a blind retry can double-evict);
+        ``mutating=True`` records the call in the resilience tracker's
+        mutation ring, the evidence the ``degraded_consistency`` audit
+        invariant checks against breaker-open windows."""
         return self.resilience.call(
             lambda: self._attempt(method, path, **kw),
             verb=verb or method,
             deadline_s=deadline_s,
             idempotent=idempotent,
+            mutating=mutating,
         )
 
     def _request_json(
@@ -240,6 +245,7 @@ class KubeClient:
         verb: str = "",
         deadline_s: Optional[float] = None,
         idempotent: bool = True,
+        mutating: bool = False,
         **kw,
     ) -> dict:
         """Resilient request + body parse. The parse happens INSIDE the
@@ -251,6 +257,7 @@ class KubeClient:
             verb=verb or method,
             deadline_s=deadline_s,
             idempotent=idempotent,
+            mutating=mutating,
         )
 
     def get(
@@ -281,6 +288,7 @@ class KubeClient:
             path,
             data=json.dumps(body),
             headers={"Content-Type": content_type},
+            mutating=True,
         )
 
     def create(
@@ -299,12 +307,13 @@ class KubeClient:
             data=json.dumps(body),
             headers={"Content-Type": "application/json"},
             idempotent=idempotent,
+            mutating=True,
         )
 
     def delete(self, path: str) -> dict:
         # Idempotent: a landed-then-retried DELETE answers 404, which
         # every call site already treats as already-gone.
-        return self._request_json("DELETE", path)
+        return self._request_json("DELETE", path, mutating=True)
 
     # -- nodes -------------------------------------------------------------
 
@@ -478,6 +487,7 @@ class KubeClient:
             f"/api/v1/namespaces/{namespace}/events",
             data=json.dumps(body),
             headers={"Content-Type": "application/json"},
+            mutating=True,
         )
 
     def evict_pod(self, namespace: str, name: str) -> dict:

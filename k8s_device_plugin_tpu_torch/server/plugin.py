@@ -29,9 +29,10 @@ As in JAX, two hooks tell the kube plane (``controller/wiring.py``):
 ``on_availability_change`` on every allocation, free and health
 transition (the node annotation's republish), and
 ``on_health_transition(card_id, healthy)`` (the Kubernetes Event and the
-eviction of the pods on a broken card). The capacity gauges of the TPU
-plugin's box space and the SLO capture of Allocate latency come with the
-telemetry and observability planes.
+eviction of the pods on a broken card). The same transitions mark the
+node's capacity gauges for recomputing when they are next read
+(``telemetry.capacity_changed``). The SLO capture
+of Allocate latency comes with the rest of the observability plane.
 """
 
 from __future__ import annotations
@@ -494,6 +495,12 @@ class GpuDevicePlugin(DevicePluginServicer):
             else:
                 metrics.CHIPS.remove(state=state)
         metrics.CHIPS.set(len(available), state="available")
+        # The capacity gauges ride the same hook: every allocate, free and
+        # health transition marks them, and the placement search for every
+        # size runs when they are read, not in the RPC.
+        from .. import telemetry
+
+        telemetry.capacity_changed(self.state)
 
     def _bump(self) -> None:
         with self._version_cv:

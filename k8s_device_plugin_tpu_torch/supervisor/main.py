@@ -31,12 +31,21 @@ warning and serves its cards without the controller. Every start names its
 kube config (``--kubeconfig``, default ``$KUBECONFIG``, else the in-cluster
 service account) or turns the plane off (``--no-controller``).
 
+The observability plane, as in JAX: ``--metrics-port`` (default 2112, 0
+for none) serves ``/metrics``, ``/healthz`` (503 once the supervisor loop's
+heartbeat is older than its threshold) and ``/debug/*`` from one server
+started once a process; ``--trace`` turns on spans and the flight recorder,
+``--decisions`` the decision ledger, ``--log-json`` JSON-lines logs. Each
+plugin generation builds, last, the card telemetry sampler
+(``--telemetry-interval-s``, ``telemetry.py``) and the consistency auditor
+(``--audit-interval-s``, ``audit.py``), and its teardown stops both. The
+new flags are read from the command line only, with no environment alias.
+
 The daemon reads NVML only. It never imports ``torch`` and never creates a
 CUDA context, which would cost device memory on every card of the node.
 
-The planes that are not ported yet bring their flags with them: DRA,
-telemetry, audit, the metrics endpoint, tracing's switch, the flight
-recorder's dumps, the black box and the profilers.
+The planes that are not ported yet bring their flags with them: DRA, the
+flight recorder's dumps, the black box, the profilers and lockdep.
 """
 
 from __future__ import annotations
@@ -59,7 +68,8 @@ from ..server.plugin import GpuDevicePlugin, PluginConfig
 from ..topology.links import LinkTopology
 from ..topology.placement import GpuPlacementState
 from ..utils import logging as tpulog
-from ..utils import profiling
+from ..utils import metrics, profiling, tracing
+from ..utils.decisions import LEDGER
 from ..utils.flightrecorder import RECORDER
 from ..utils.logging import get_logger
 from .watchers import FsWatcher, SignalWatcher
@@ -102,19 +112,60 @@ class DaemonConfig:
     plugins_registry_dir: str = "/var/lib/kubelet/plugins_registry/"
     # The NVML library to load (the dynamic loader's search by default).
     nvml_library: str = nvml.LIBRARY
+    # /metrics, /healthz and /debug/* (utils/metrics.MetricsServer); 0 is
+    # no server.
+    metrics_port: int = 0
+    # Spans (/debug/traces, exemplars) and the flight recorder
+    # (/debug/events); the decision ledger (/debug/decisions), implied by
+    # trace.
+    trace: bool = False
+    decisions: bool = False
+    # The card telemetry sampler and the consistency auditor, each on its
+    # own thread at this cadence; 0 is no thread.
+    telemetry_interval_s: float = 0.0
+    audit_interval_s: float = 0.0
 
 
 class Daemon:
     """One node's device-plugin process."""
 
+    # The supervisor loop beats once an event-queue turn (at most 1 s when
+    # idle); /healthz reads 503 once it has been silent this long. Padded,
+    # since one turn may rebuild a generation (scan, serve, register).
+    heartbeat_stale_s = 60.0
+
     def __init__(self, cfg: DaemonConfig):
         self.cfg = cfg
+        if cfg.trace:
+            tracing.enable(service="plugin")
+            RECORDER.enable(service="plugin")
+        if cfg.decisions or cfg.trace:
+            LEDGER.enable(service="plugin")
         self.backend = None
         self.events: "queue.Queue" = queue.Queue()
         self.plugin: Optional[GpuDevicePlugin] = None
         self.health: Optional[HealthWatcher] = None
         self.controller = None  # set by the kube wiring when enabled
         self._kube_client = None  # built before serving (build_and_serve)
+        self.telemetry_sampler = None  # set by _start_telemetry when on
+        self.auditor = None  # set by _start_audit when on
+        # The build's identity is on the very first scrape.
+        metrics.set_build_info("plugin")
+        self.metrics_server = None
+        if cfg.metrics_port:
+            try:
+                self.metrics_server = metrics.MetricsServer(
+                    port=cfg.metrics_port, liveness_check=self.live)
+                log.info("metrics at %s/metrics", self.metrics_server.start())
+            except OSError as e:
+                log.warning("metrics endpoint disabled: %s", e)
+                self.metrics_server = None
+
+    def live(self) -> bool:
+        """/healthz: the supervisor loop has beaten within its threshold (or
+        has not started yet)."""
+        hb = profiling.HEARTBEATS.get("supervisor")
+        return hb is None or not hb.stalled()
 
     # -- build/teardown of one plugin generation ---------------------------
 
@@ -192,6 +243,54 @@ class Daemon:
         if self.health is not None:
             self.health.start()
         self._start_kube_integration()
+        self._start_telemetry()
+        self._start_audit()
+
+    def _start_telemetry(self) -> None:
+        """The card telemetry sampler, built after the controller so that its
+        card→pod map labels the series; no cards or interval 0 is no
+        thread."""
+        chips = self.plugin.topology.chips
+        if self.cfg.telemetry_interval_s <= 0 or not chips:
+            return
+        from .. import telemetry
+
+        self.telemetry_sampler = telemetry.TelemetrySampler(
+            self.backend,
+            self.cfg.sysfs_pci_dir,
+            chips,
+            interval_s=self.cfg.telemetry_interval_s,
+            attribution=self.controller.chip_attribution if self.controller is not None else None,
+        )
+        telemetry.install_sampler(self.telemetry_sampler)
+        self.telemetry_sampler.start()
+
+    def _start_audit(self) -> None:
+        """The consistency auditor, built last so that every plane it joins
+        exists; interval 0 is no thread."""
+        if self.cfg.audit_interval_s <= 0:
+            return
+        from .. import audit
+
+        controller = self.controller
+        node_audit = audit.NodeAudit(
+            self.plugin,
+            controller=controller,
+            client=self._kube_client,
+            node_name=(controller.node_name if controller is not None
+                       else self.cfg.node_name or os.uname().nodename),
+            checkpoint_path=(controller.checkpoint_path if controller is not None
+                             else os.path.join(self.cfg.device_plugin_dir,
+                                               "kubelet_internal_checkpoint")),
+            # The controller's PodResources channel is reused (grpc channels
+            # are thread-safe); without a controller the kubelet-joined
+            # invariants read the checkpoint only.
+            podres=controller.podres if controller is not None else None,
+            resource_name=self.cfg.resource_name,
+        )
+        self.auditor = node_audit.engine(interval_s=self.cfg.audit_interval_s)
+        audit.install_engine(self.auditor)
+        self.auditor.start()
 
     def _start_kube_integration(self) -> None:
         """Node-annotation publishing and the pod controller, on the client
@@ -209,6 +308,24 @@ class Daemon:
             self.controller = None
 
     def teardown(self) -> None:
+        if self.auditor is not None:
+            from .. import audit
+
+            try:
+                self.auditor.stop()
+            except Exception:
+                log.exception("auditor stop failed")
+            audit.install_engine(None)
+            self.auditor = None
+        if self.telemetry_sampler is not None:
+            from .. import telemetry
+
+            try:
+                self.telemetry_sampler.stop()
+            except Exception:
+                log.exception("telemetry sampler stop failed")
+            telemetry.install_sampler(None)
+            self.telemetry_sampler = None
         if self.controller is not None:
             try:
                 self.controller.stop()
@@ -221,6 +338,15 @@ class Daemon:
         if self.plugin is not None:
             self.plugin.stop()
             self.plugin = None
+        if self._kube_client is not None:
+            # The generation's degraded mode leaves the resilience tracker
+            # with it: a daemon rebuilt on every SIGHUP keeps one entry.
+            from ..utils.resilience import TRACKER
+
+            degraded = self._kube_client.resilience.degraded
+            if degraded is not None:
+                TRACKER.detach_degraded(degraded)
+            self._kube_client = None
 
     # -- supervisor loop ---------------------------------------------------
 
@@ -231,7 +357,8 @@ class Daemon:
         fs.start()
         sigs.start()
         # The supervisor loop's heartbeat: one beat per event-queue turn.
-        hb = profiling.HEARTBEATS.register("supervisor", interval_s=1.0, max_silence_s=60.0)
+        hb = profiling.HEARTBEATS.register("supervisor", interval_s=1.0,
+                                           max_silence_s=self.heartbeat_stale_s)
         restart = True
         try:
             while True:
@@ -271,6 +398,9 @@ class Daemon:
             fs.stop()
             sigs.stop()
             profiling.HEARTBEATS.unregister("supervisor")
+            if self.metrics_server is not None:
+                self.metrics_server.stop()
+                self.metrics_server = None
 
 
 def parse_args(argv) -> DaemonConfig:
@@ -322,9 +452,31 @@ def parse_args(argv) -> DaemonConfig:
                    help="degraded-serving staleness cap: while the kube "
                    "circuit breaker is open the controller serves its "
                    "last-known-good pod view and skips evictions")
+    p.add_argument("--metrics-port", type=int, default=2112,
+                   help="port of /metrics, /healthz and /debug/*; 0 disables")
+    p.add_argument("--trace", action="store_true",
+                   help="spans at /debug/traces (exemplars on the latency "
+                   "histograms) and the flight recorder at /debug/events; "
+                   "off is an exact no-op")
+    p.add_argument("--decisions", action="store_true",
+                   help="the decision ledger at /debug/decisions (allocate "
+                   "substitutions, health transitions, evictions, audit "
+                   "divergences); implied by --trace")
+    p.add_argument("--log-json", action="store_true",
+                   help="JSON-lines logs with trace correlation")
+    p.add_argument("--telemetry-interval-s", type=float, default=0.0,
+                   help="sample each card's telemetry (utilization, memory in "
+                   "use, temperature, power, NVLink state) every N seconds "
+                   "into the tpu_chip_* series, labeled by the holding pod; "
+                   "0 disables the sampler")
+    p.add_argument("--audit-interval-s", type=float, default=0.0,
+                   help="run the consistency auditor every N seconds "
+                   "(checkpoint vs PodResources vs pod annotations vs the "
+                   "attribution map vs the gauges; findings at /debug/audit "
+                   "and tpu_audit_*); 0 disables it")
     p.add_argument("-v", "--verbose", action="count", default=0)
     a = p.parse_args(argv)
-    tpulog.setup(verbose=a.verbose)
+    tpulog.setup(verbose=a.verbose, json=a.log_json, service="plugin")
     return DaemonConfig(
         node_name=a.node_name,
         device_plugin_dir=a.device_plugin_dir,
@@ -342,6 +494,11 @@ def parse_args(argv) -> DaemonConfig:
         cdi_kind=a.cdi_kind,
         registration_mode=a.registration_mode,
         plugins_registry_dir=a.plugins_registry_dir,
+        metrics_port=a.metrics_port,
+        trace=a.trace,
+        decisions=a.decisions,
+        telemetry_interval_s=a.telemetry_interval_s,
+        audit_interval_s=a.audit_interval_s,
     )
 
 

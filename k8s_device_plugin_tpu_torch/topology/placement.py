@@ -15,11 +15,16 @@ NVLink neighbours, then the smallest id.
 
 The TPU search over boxes of the ICI torus (``_best_box`` and its packed
 bitmask kernel) has no counterpart: NVIDIA cards form no torus, and their
-links are scored pair by pair.
+links are scored pair by pair. So the node's capacity view
+(``capacity_stats``, the twin of the JAX ``fragmentation_stats``) has no
+box volumes either: for each request size it asks ``select`` itself
+whether the size fits and what average pair score it would reach, so a
+gauge can never disagree with a placement.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 import threading
@@ -34,6 +39,15 @@ from .links import LinkTopology
 EXHAUSTIVE_MAX = 20000
 
 
+@functools.lru_cache(maxsize=64)
+def _combinations(m: int, k: int) -> np.ndarray:
+    """Every k-subset of range(m) as the rows of one array, in
+    lexicographic order (read-only: it is shared between calls)."""
+    out = np.array(list(itertools.combinations(range(m), k)), dtype=np.int64).reshape(-1, k)
+    out.flags.writeable = False
+    return out
+
+
 class GpuPlacementState:
     """Allocation bookkeeping plus the best-score selection policy.
 
@@ -46,6 +60,15 @@ class GpuPlacementState:
         self._lock = threading.RLock()
         self._allocated: Set[str] = set()
         self._unhealthy: Set[str] = set()
+        # The pair table as matrices over the topology's order, zero on the
+        # diagonal, for the exhaustive search: the topology is read once
+        # and never changes.
+        ids = topology.ids
+        self._pos = {i: k for k, i in enumerate(ids)}
+        self._score = np.array([[topology.score_pair(a, b) if a != b else 0 for b in ids]
+                                for a in ids], dtype=np.float64)
+        self._linked = np.array([[float(b in topology.neighbors(a)) for b in ids]
+                                 for a in ids], dtype=np.float64)
 
     # -- state (the JAX PlacementState's) ----------------------------------
 
@@ -162,22 +185,26 @@ class GpuPlacementState:
 
     def _best_set(self, n: int, must: List[str], rest: List[str]) -> List[str]:
         """The best-scoring n-set holding ``must``, over every one."""
-        topo = self.topology
         ids = must + rest
-        score = np.array([[topo.score_pair(a, b) for b in ids] for a in ids], dtype=np.int64)
-        links = np.array([[int(b in topo.neighbors(a)) for b in ids] for a in ids],
-                         dtype=np.int64)
-        combos = np.array(list(itertools.combinations(range(len(must), len(ids)),
-                                                      n - len(must))), dtype=np.int64)
+        idx = np.array([self._pos[i] for i in ids], dtype=np.int64)
+        score = self._score[np.ix_(idx, idx)]
+        links = self._linked[np.ix_(idx, idx)]
+        combos = _combinations(len(rest), n - len(must)) + len(must)
         sets = np.concatenate(
             [np.broadcast_to(np.arange(len(must)), (len(combos), len(must))), combos], axis=1)
         # Every set has n(n-1)/2 pairs, so the pair-score sum orders the
-        # sets as the average does, in exact integers.
-        i, j = np.triu_indices(n, 1)
-        total = score[sets[:, i], sets[:, j]].sum(axis=1)
-        nvlinks = links[sets[:, i], sets[:, j]].sum(axis=1)
+        # sets as the average does. With x a set's 0/1 row, x·S·x counts
+        # each pair twice, exactly: the sums are small integers.
+        x = np.zeros((len(sets), len(ids)))
+        np.put_along_axis(x, sets, 1.0, axis=1)
+        total = np.einsum("ij,ij->i", x @ score, x)
+        nvlinks = np.einsum("ij,ij->i", x @ links, x)
         best = total == total.max()
         best &= nvlinks == nvlinks[best].max()
+        if not must:
+            # ``rest`` is sorted and the rows come in lexicographic order,
+            # so the first tied row holds the smallest sorted ids.
+            return [ids[k] for k in sets[np.argmax(best)]]
         return min(sorted(ids[k] for k in row) for row in sets[best])
 
     def _grow(self, n: int, must: List[str], rest: List[str]) -> List[str]:
@@ -200,3 +227,21 @@ class GpuPlacementState:
             current.append(nxt)
             left.remove(nxt)
         return sorted(current)
+
+
+def capacity_stats(state: GpuPlacementState, free_ids: Iterable[str]) -> dict:
+    """The node's capacity over its healthy-and-free cards ``free_ids``, by
+    ``state``'s own search. Returns ``{"free", "placeable", "best_score"}``:
+    ``placeable`` maps every request size from 1 to the node's card count
+    to whether ``select`` places it now, and ``best_score`` each size from
+    2 to ``free`` to the average pair score of the set ``select`` picks
+    (a single card has no pair; a size past ``free`` has no set)."""
+    free = [i for i in free_ids if i in state.topology.by_id]
+    picks = {n: state.select(n, available=free) for n in range(1, len(free) + 1)}
+    return {
+        "free": len(free),
+        "placeable": {n: bool(picks.get(n)) for n in range(1, len(state.topology.chips) + 1)},
+        "best_score": {n: state.topology.set_score(ids)
+                       for n, ids in picks.items() if n >= 2 and ids},
+    }
+

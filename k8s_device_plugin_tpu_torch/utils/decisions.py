@@ -3,8 +3,9 @@ as the health watcher records into it: a bounded, queryable ring of
 structured decisions (kind, machine-readable reason token, message, the
 pod/gang/node it concerns, the active trace), gated on :meth:`enable` so
 that recording costs one bool read when off, and ``retrace``, the pod
-controller's join of ``Allocate``'s records into the pod's trace. The
-black-box taps and ``tag_gang`` come with their planes."""
+controller's join of ``Allocate``'s records into the pod's trace, and the
+``snapshot`` that ``/debug/decisions`` serves. The black-box taps and
+``tag_gang`` come with their planes."""
 
 from __future__ import annotations
 
@@ -147,6 +148,15 @@ class DecisionLedger:
         if limit > 0:
             out = out[-limit:]
         return out
+
+    def snapshot(self, **filters) -> dict:
+        """The /debug/decisions payload (``filters`` as :meth:`query`)."""
+        return {
+            "service": self.service,
+            "capacity": self.capacity,
+            "dropped": self.dropped,
+            "records": self.query(**filters),
+        }
 
 
 # One per process, like the flight recorder: a daemon is one process.

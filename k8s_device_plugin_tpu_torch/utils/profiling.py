@@ -3,8 +3,9 @@ profiler trace of a block (``trace``) and named regions inside it
 (``annotate``); and the node daemon's handler timing (``timed``), loop
 liveness (``Heartbeat``, ``HEARTBEATS``) and the supervised thread target
 (``supervised``, ``run_supervised``) that makes a background loop's death
-loud. The stall watchdog, lockdep, GC, SLO capture and sampling profiler of
-that module come with the observability plane.
+loud, with the registry's snapshot that the audit's ``thread_liveness``
+invariant reads. The stall watchdog, lockdep, GC, SLO capture and sampling
+profiler of that module come with the rest of the observability plane.
 
 The node daemon imports this module and never touches the card, so
 ``torch`` is imported only inside the workload's two functions.
@@ -16,7 +17,7 @@ import contextlib
 import threading
 import time
 from collections.abc import Callable, Iterator
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 from .logging import get_logger
 
@@ -96,6 +97,17 @@ class Heartbeat:
     def stalled(self) -> bool:
         return self.dead or self.age_s() > self.max_silence_s
 
+    def to_dict(self) -> dict:
+        return {
+            "name": self.name,
+            "interval_s": round(self.interval_s, 3),
+            "max_silence_s": round(self.max_silence_s, 3),
+            "age_s": round(self.age_s(), 3),
+            "beats": self.beats,
+            "dead": self.dead,
+            "dead_reason": self.dead_reason,
+        }
+
 
 def default_max_silence(interval_s: float) -> float:
     """Several missed intervals, floored generously: one slow tick must
@@ -133,6 +145,12 @@ class HeartbeatRegistry:
     def get(self, name: str) -> Optional[Heartbeat]:
         with self._lock:
             return self._beats.get(name)
+
+    def snapshot(self) -> List[dict]:
+        """Every registered loop's record (the ``thread_liveness`` audit
+        invariant reads it)."""
+        with self._lock:
+            return [hb.to_dict() for hb in self._beats.values()]
 
 
 HEARTBEATS = HeartbeatRegistry()

@@ -21,16 +21,20 @@ and the topology publisher's.
 * :class:`DegradedMode`, flipped by the breaker; :class:`PendingWrites`,
   the queue of state-publishing writes made while the API server is
   unreachable, delivered on reconnect.
+* :data:`TRACKER`, the process-wide record of what the layer did: call
+  outcomes, breaker windows, every successful mutation
+  (``Resilience.call(mutating=True)``), watch resumes and relists, and the
+  live ``DegradedMode`` of each daemon generation. ``/debug/resilience``
+  serves it and the audit's ``degraded_consistency`` invariant reads it.
 
 The metrics are the ``tpu_plugin_kube_*`` families of
 ``utils/metrics.py``. The extender's metric set and the hostile-apiserver
-self-test come with the scheduler extender; the JAX process-wide
-``ResilienceTracker`` comes with ``/debug/resilience`` and the audit, the
-only readers of its records.
+self-test come with the scheduler extender.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import random
@@ -242,6 +246,141 @@ class CircuitBreaker:
                 self._set_state(OPEN)
 
 
+# The most successful mutating calls the tracker remembers.
+MAX_MUTATIONS = 4096
+
+
+class ResilienceTracker:
+    """Process-global record of what the resilience layer did: the source
+    of ``/debug/resilience`` and of the ``degraded_consistency`` audit
+    invariant (audit.py).
+
+    Tracks, under one lock: per-(verb, outcome) call counts, breaker
+    open/close windows (monotonic clock), every successful mutating call
+    (timestamp and verb, bounded ring), watch stream outcomes (resumed vs.
+    relist), and the attached :class:`DegradedMode` instances, one per live
+    daemon generation (a generation's teardown detaches its own).
+    ``mutations_while_open()`` is the invariant's evidence and must always
+    be empty: a mutation landing while the breaker was open means some call
+    site bypassed the wrapper."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._outcomes: Dict[Tuple[str, str], int] = {}
+        self._mutations: "collections.deque" = collections.deque(maxlen=MAX_MUTATIONS)
+        # [open_ts, close_ts or None]: the live window has close None.
+        self._windows: List[List[Optional[float]]] = []
+        self._watch = {"resumed": 0, "relist": 0}
+        self._degraded: List["DegradedMode"] = []
+        self._retries_honoring_retry_after = 0
+
+    def reset(self) -> None:
+        """Tests only: a fresh slate between scenarios."""
+        with self._lock:
+            self._outcomes.clear()
+            self._mutations.clear()
+            self._windows.clear()
+            self._watch = {"resumed": 0, "relist": 0}
+            self._degraded.clear()
+            self._retries_honoring_retry_after = 0
+
+    def record_outcome(self, verb: str, outcome: str) -> None:
+        with self._lock:
+            key = (verb or "call", outcome)
+            self._outcomes[key] = self._outcomes.get(key, 0) + 1
+
+    def record_retry_after(self) -> None:
+        with self._lock:
+            self._retries_honoring_retry_after += 1
+
+    def record_mutation(self, verb: str) -> None:
+        with self._lock:
+            self._mutations.append((time.monotonic(), verb or "call"))
+
+    def record_circuit(self, state: int) -> None:
+        with self._lock:
+            now = time.monotonic()
+            live = self._windows and self._windows[-1][1] is None
+            if state == OPEN and not live:
+                self._windows.append([now, None])
+            elif state == CLOSED and live:
+                self._windows[-1][1] = now
+            # HALF_OPEN keeps the current window: the probe phase is still
+            # "open" for the no-mutations contract.
+
+    def record_watch(self, outcome: str) -> None:
+        with self._lock:
+            if outcome in self._watch:
+                self._watch[outcome] += 1
+
+    def attach_degraded(self, dm: "DegradedMode") -> None:
+        with self._lock:
+            if dm not in self._degraded:
+                self._degraded.append(dm)
+
+    def detach_degraded(self, dm: "DegradedMode") -> None:
+        """Forget a generation's mode once that generation is torn down, so
+        that a daemon rebuilt on every SIGHUP keeps one entry, not one per
+        rebuild."""
+        with self._lock:
+            if dm in self._degraded:
+                self._degraded.remove(dm)
+
+    def breaker_open(self) -> bool:
+        with self._lock:
+            return bool(self._windows) and self._windows[-1][1] is None
+
+    def mutations_while_open(self) -> List[Tuple[float, str]]:
+        """Mutations whose success timestamp falls inside any breaker open
+        window: the degraded_consistency invariant's evidence (always
+        expected empty)."""
+        with self._lock:
+            windows = [list(w) for w in self._windows]
+            muts = list(self._mutations)
+        now = time.monotonic()
+        bad = []
+        for ts, verb in muts:
+            for opened, closed in windows:
+                if opened <= ts <= (closed if closed is not None else now):
+                    bad.append((ts, verb))
+                    break
+        return bad
+
+    def snapshot(self) -> dict:
+        """The /debug/resilience payload."""
+        with self._lock:
+            now = time.monotonic()
+            outcomes: Dict[str, Dict[str, int]] = {}
+            for (verb, outcome), n in sorted(self._outcomes.items()):
+                outcomes.setdefault(verb, {})[outcome] = n
+            windows = [
+                {
+                    "opened_s_ago": round(now - o, 3),
+                    "closed_s_ago": round(now - c, 3) if c is not None else None,
+                }
+                for o, c in self._windows[-16:]
+            ]
+            degraded = list(self._degraded)
+            mutations = len(self._mutations)
+            watch = dict(self._watch)
+            retry_after = self._retries_honoring_retry_after
+        return {
+            "call_outcomes": outcomes,
+            "circuit_windows": windows,
+            "breaker_open": bool(windows) and windows[-1]["closed_s_ago"] is None,
+            "watch_streams": watch,
+            "mutations_recorded": mutations,
+            "mutations_while_open": len(self.mutations_while_open()),
+            "retries_honoring_retry_after": retry_after,
+            "degraded": [d.snapshot() for d in degraded],
+        }
+
+
+#: The one tracker every Resilience instance reports into (one daemon a
+#: process).
+TRACKER = ResilienceTracker()
+
+
 class DegradedMode:
     """Explicit consumer-facing degraded state, flipped by the circuit
     breaker: while active, consumers serve their last-known-good view
@@ -249,7 +388,9 @@ class DegradedMode:
     ``mark_fresh()``) is exported. Beyond ``staleness_cap_s`` the mode
     turns ``paused``: acting on a view that stale is worse than not
     acting. In the node daemon the controller marks it fresh on every
-    relist and skips its eviction sweep while it is active."""
+    relist and skips its eviction sweep while it is active. It attaches
+    itself to :data:`TRACKER`; the daemon detaches each generation's mode
+    at teardown."""
 
     def __init__(
         self,
@@ -269,6 +410,7 @@ class DegradedMode:
         self._entered_at = 0.0
         self._last_good = clock()
         self._entries = 0
+        TRACKER.attach_degraded(self)
 
     def on_circuit_state(self, state: int) -> None:
         """Breaker callback: OPEN enters degraded mode, CLOSED exits.
@@ -469,6 +611,7 @@ class Resilience:
         transition (the ring's disk dump on a trip comes with the flight
         recorder's dumps)."""
         self.metrics.circuit_state.set(state)
+        TRACKER.record_circuit(state)
         from .flightrecorder import RECORDER
         from .decisions import LEDGER
 
@@ -487,6 +630,7 @@ class Resilience:
             self.degraded.on_circuit_state(state)
 
     def _outcome(self, verb: str, outcome: str) -> None:
+        TRACKER.record_outcome(verb, outcome)
         if self.metrics.outcomes is not None:
             self.metrics.outcomes.inc(verb=verb or "call", outcome=outcome)
 
@@ -497,6 +641,7 @@ class Resilience:
         deadline_s: Optional[float] = None,
         max_attempts: Optional[int] = None,
         idempotent: bool = True,
+        mutating: bool = False,
     ):
         """Run ``fn`` under the policy. Semantic errors (non-retryable)
         propagate unchanged on the first attempt; transport-level
@@ -506,7 +651,10 @@ class Resilience:
 
         ``idempotent=False`` marks a mutation that must NEVER blind-
         retry (Eviction): one attempt, breaker-gated, every failure
-        surfaces to the caller. A 429/503 carrying Retry-After is (for idempotent calls)
+        surfaces to the caller. ``mutating=True`` records each SUCCESS in
+        :data:`TRACKER`, so the ``degraded_consistency`` audit invariant
+        can prove no mutation landed while the breaker was open. A 429/503
+        carrying Retry-After is (for idempotent calls)
         retried no sooner than the server asked, capped at
         ``RETRY_AFTER_CAP_S`` and the call deadline.
 
@@ -522,12 +670,12 @@ class Resilience:
         if tracing.enabled() and tracing.current() is not None:
             with tracing.span(f"kube.{verb or 'call'}") as sp:
                 result = self._call_inner(
-                    fn, verb, deadline_s, max_attempts, idempotent
+                    fn, verb, deadline_s, max_attempts, idempotent, mutating
                 )
                 if sp is not None:
                     sp.set(outcome="ok")
                 return result
-        return self._call_inner(fn, verb, deadline_s, max_attempts, idempotent)
+        return self._call_inner(fn, verb, deadline_s, max_attempts, idempotent, mutating)
 
     def _call_inner(
         self,
@@ -536,6 +684,7 @@ class Resilience:
         deadline_s: Optional[float] = None,
         max_attempts: Optional[int] = None,
         idempotent: bool = True,
+        mutating: bool = False,
     ):
         if not self.breaker.allow():
             self._outcome(verb, "circuit_open")
@@ -630,6 +779,8 @@ class Resilience:
                     )
                     self.breaker.record_success()
                     self._outcome(verb, "ok")
+                    if mutating:
+                        TRACKER.record_mutation(verb)
                     return result
         finally:
             _ACTIVE.depth -= 1
@@ -640,13 +791,15 @@ class Resilience:
         ) from last
 
     def _retry_sleep(self, verb: str, delay: float, reason: str) -> None:
-        """One retry pause: counted (metrics), flight-
+        """One retry pause: counted (metrics and tracker), flight-
         recorded (the ring is exactly where a retry storm's shape
         matters post-mortem), then slept."""
         from .flightrecorder import RECORDER
 
         self.metrics.retries.inc(verb=verb)
         self._outcome(verb, reason)
+        if reason == "retry_after":
+            TRACKER.record_retry_after()
         RECORDER.record(
             "kube_retry",
             f"kube {verb or 'call'} retrying in {delay * 1000:.0f}ms",

@@ -4,9 +4,10 @@ ledger, flight recorder and latency histograms need it: ``enabled``/
 ``enable``/``disable``, ``span`` (a thread-local stack, so ``current()``
 names the innermost open span), a bounded in-memory collector of finished
 spans, reading the trace carrier off a pod (``extract``) and adopting the
-provisional ``Allocate`` span into the pod's trace (``adopt``). Writing
-carriers, the OTLP export and the daemon's switch that turns tracing on
-come with the observability plane.
+provisional ``Allocate`` span into the pod's trace (``adopt``), and the
+collector's OTLP/JSON export that ``/debug/traces`` serves. The daemon's
+``--trace`` turns tracing on. Writing carriers comes with the scheduler
+extender, the one writer.
 
 **Exact no-op when disabled** (the default): every entry point checks one
 module-level bool first, and ``span()`` then returns a shared no-op that
@@ -44,9 +45,12 @@ class SpanCollector:
     def __init__(self, capacity: int = 4096):
         self._spans: "collections.deque" = collections.deque(maxlen=capacity)
         self._lock = threading.Lock()
+        self.dropped = 0
 
     def add(self, span: dict) -> None:
         with self._lock:
+            if len(self._spans) == self._spans.maxlen:
+                self.dropped += 1
             self._spans.append(span)
 
     def spans(self) -> List[dict]:
@@ -80,6 +84,39 @@ class SpanCollector:
     def clear(self) -> None:
         with self._lock:
             self._spans.clear()
+            self.dropped = 0
+
+    def otlp_json(self, trace_id: str = "") -> dict:
+        """The OTLP/JSON ``resourceSpans`` shape, one resource per service
+        (``trace_id`` narrows it to one trace)."""
+        spans = [s for s in self.spans() if not trace_id or s["trace_id"] == trace_id]
+        by_service: Dict[str, List[dict]] = {}
+        for s in spans:
+            by_service.setdefault(s.get("service", ""), []).append(s)
+        resource_spans = []
+        for service, members in sorted(by_service.items()):
+            resource_spans.append({
+                "resource": {"attributes": [{
+                    "key": "service.name",
+                    "value": {"stringValue": service or "unknown"},
+                }]},
+                "scopeSpans": [{
+                    "scope": {"name": "k8s_device_plugin_tpu_torch"},
+                    "spans": [{
+                        "traceId": s["trace_id"],
+                        "spanId": s["span_id"],
+                        "parentSpanId": s["parent_span_id"],
+                        "name": s["name"],
+                        "startTimeUnixNano": str(s["start_ns"]),
+                        "endTimeUnixNano": str(s["end_ns"]),
+                        "attributes": [{"key": k, "value": {"stringValue": v}}
+                                       for k, v in sorted((s.get("attrs") or {}).items())],
+                        "status": ({"code": 2, "message": s["error"]} if s.get("error")
+                                   else {"code": 0}),
+                    } for s in members],
+                }],
+            })
+        return {"resourceSpans": resource_spans, "dropped_spans": self.dropped}
 
 
 COLLECTOR = SpanCollector()

@@ -78,6 +78,7 @@ def system(tmp_path):
         "--health-interval", "0.2",
         "--resync-interval", "1",
         "--podresources-socket", "",
+        "--metrics-port", "0",
     ]
     proc = subprocess.Popen(argv, cwd=REPO, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT)
@@ -157,8 +158,9 @@ def test_full_lifecycle(system):
     assert sorted(annotation(api)["available"]) == sorted(uuids)
     assert annotation(api)["product"] == fk.H100
     assert len(annotation(api)["pairs"]) == 6
-    assert api.nodes[NODE]["metadata"]["labels"] == {
-        "nvidia.com/gpu.product": "NVIDIA-H100-80GB-HBM3", "nvidia.com/gpu.count": "4"}
+    # The labels are the publish's next patch after the annotation.
+    assert wait_for(lambda: api.nodes[NODE]["metadata"].get("labels") == {
+        "nvidia.com/gpu.product": "NVIDIA-H100-80GB-HBM3", "nvidia.com/gpu.count": "4"})
     assert wait_for(lambda: condition(api) is not None)
     assert condition(api)["status"] == "True"
 

@@ -176,6 +176,79 @@ def test_chip_smoke_fails_without_cuda():
     assert '"ok": true' not in proc.stdout
 
 
+class _Surfaces:
+    """A local HTTP server answering the paths chip_smoke.py's Observer
+    polls with ``bodies[path]`` (status 200)."""
+
+    def __init__(self, bodies: dict):
+        import http.server
+        import threading
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                body = bodies.get(self.path.split("?")[0])
+                self.send_response(200 if body is not None else 404)
+                self.end_headers()
+                self.wfile.write(body or b"")
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.base = f"http://127.0.0.1:{self.server.server_address[1]}"
+        threading.Thread(target=self.server.serve_forever, daemon=True).start()
+
+    def close(self):
+        self.server.shutdown()
+        self.server.server_close()
+
+
+GOOD_SURFACES = {"/healthz": b"ok", "/metrics": b'# TYPE x gauge\nx{a="b"} 1\n',
+                 "/debug/telemetry": b'{"enabled": true}', "/debug/audit": b'{"enabled": true}'}
+
+
+@pytest.mark.parametrize("fault", ["none", "metrics_not_text_format", "debug_not_json",
+                                   "never_started"])
+def test_chip_smoke_observer_fails_the_run_on_a_bad_poll(fault):
+    """A poll that raises in the Observer's thread (a malformed /metrics
+    line, a /debug body that is not JSON), or a thread that ended before
+    stop(), fails the run from the caller's thread through check()."""
+    import time
+
+    import chip_smoke
+
+    bodies = dict(GOOD_SURFACES)
+    if fault == "metrics_not_text_format":
+        bodies["/metrics"] = b"x{a=b} 1\n"
+    elif fault == "debug_not_json":
+        bodies["/debug/audit"] = b"<html>"
+    surfaces = _Surfaces(bodies)
+    observer = chip_smoke.Observer(surfaces.base)
+    failures = []
+    try:
+        if fault != "never_started":
+            observer.start()
+            deadline = time.monotonic() + 10
+            while (time.monotonic() < deadline and observer.error is None
+                   and len(observer.polls) < 2):
+                time.sleep(0.05)
+        if fault in ("none", "never_started"):
+            observer.check(failures.append)
+        observer.stop()
+        observer.check(failures.append)
+    finally:
+        observer.stop()
+        surfaces.close()
+    if fault == "none":
+        assert failures == [] and len(observer.polls) >= 2
+        assert observer.healthz[:2] == [200, 200]
+    elif fault == "never_started":
+        assert failures and "alive: False, stopped: False" in failures[0]
+    else:
+        assert failures and "poll failed" in failures[0]
+        assert observer.polls == [] and not observer.is_alive()
+
+
 def test_step_profile_groups_kernels_by_name():
     from k8s_device_plugin_tpu_torch.workload.step_profile import _group
 

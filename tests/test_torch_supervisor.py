@@ -348,7 +348,9 @@ def test_fs_watcher_sees_socket_recreate(tmp_path, monkeypatch, plane, mode):
 
 def test_parse_args_defaults_and_flags():
     cfg = main.parse_args([])
-    assert cfg == main.DaemonConfig()
+    # The command line's metrics port is the JAX 2112; a DaemonConfig built
+    # in a process (as the tests do) serves none.
+    assert cfg == main.DaemonConfig(metrics_port=2112)
     assert (cfg.resource_name, cfg.device_plugin_dir) == ("nvidia.com/gpu",
                                                          "/var/lib/kubelet/device-plugins/")
     cfg = main.parse_args([
@@ -361,7 +363,7 @@ def test_parse_args_defaults_and_flags():
         device_plugin_dir="/dp", sysfs_pci_dir="/pci", dev_dir="/d",
         resource_name="nvidia.com/gpu-topo", substitute_on_allocate=True,
         health_interval_s=0.5, cdi_kind="nvidia.com/gpu", registration_mode="both",
-        plugins_registry_dir="/reg")
+        plugins_registry_dir="/reg", metrics_port=2112)
 
 
 def test_parse_args_takes_the_kube_planes_flags(monkeypatch):
@@ -391,7 +393,7 @@ def test_parse_args_takes_the_kube_planes_flags(monkeypatch):
         "n1", "/kc", False, 2.5, "", False, 7.0)
 
 
-@pytest.mark.parametrize("flag", ["--telemetry-interval-s=1", "--metrics-port=0", "--trace",
+@pytest.mark.parametrize("flag", ["--profile-hz=10", "--blackbox-dir=/bb", "--lockdep",
                                   "--libtpu-path=", "--accelerator-type=v5e", "--dra",
                                   "--registration-mode=bogus"])
 def test_parse_args_refuses_flags_of_planes_not_ported(flag):
@@ -423,7 +425,8 @@ def test_cli_end_to_end_subprocess(tmp_path, dp_dir, kubelet):
     proc = subprocess.Popen(
         [sys.executable, "-m", "k8s_device_plugin_tpu_torch",
          "--device-plugin-dir", str(dp_dir), "--sysfs-pci-dir", str(tmp_path / "sys"),
-         "--dev-dir", str(tmp_path / "dev"), "--health-interval", "0.2", "--no-controller"],
+         "--dev-dir", str(tmp_path / "dev"), "--health-interval", "0.2", "--no-controller",
+         "--metrics-port", "0"],
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
     try:
         assert kubelet.registered.wait(15)

@@ -47,6 +47,8 @@ class FakeNvml:
             ("fake_nvml_set_p2p_nvlink", [i, i, i], None),
             ("fake_nvml_set_ancestor", [i, i, i], None),
             ("fake_nvml_set_lost", [i, i], None),
+            ("fake_nvml_set_telemetry", [i, ctypes.c_longlong, ctypes.c_longlong,
+                                         ctypes.c_longlong, ctypes.c_longlong], None),
             ("fake_nvml_set_events_supported", [i], None),
             ("fake_nvml_set_no_pci", [i], None),
             ("fake_nvml_push_event", [i, ull], None),
@@ -82,6 +84,13 @@ class FakeNvml:
     def set_lost(self, dev: int, lost: bool = True) -> None:
         self.lib.fake_nvml_set_lost(dev, int(lost))
 
+    def set_telemetry(self, dev: int, *, util_gpu=0, mem_used=0, temp_c=31,
+                      power_mw=71234) -> None:
+        """Card ``dev``'s counters from now on; None makes that counter
+        read NOT_SUPPORTED (memory: the whole memory query)."""
+        self.lib.fake_nvml_set_telemetry(
+            dev, *(-1 if v is None else int(v) for v in (util_gpu, mem_used, temp_c, power_mw)))
+
     def set_events_supported(self, supported: bool) -> None:
         self.lib.fake_nvml_set_events_supported(int(supported))
 
@@ -106,7 +115,8 @@ class FakeNvml:
 
 # An HGX H100 node's PCI addresses (NVML's form), as nvidia-smi lists them,
 # out of NVML's order so that the scan's sort shows.
-HGX_BUSES = ("00000000:18:00.0", "00000000:2A:00.0", "00000000:3A:00.0", "00000000:5D:00.0")
+HGX_BUSES = ("00000000:18:00.0", "00000000:2A:00.0", "00000000:3A:00.0", "00000000:5D:00.0",
+             "00000000:9A:00.0", "00000000:AB:00.0", "00000000:BA:00.0", "00000000:DB:00.0")
 
 
 def hgx_uuid(slot: int) -> str:
