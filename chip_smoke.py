@@ -142,7 +142,9 @@ caught while the run goes on:
    starts the node daemon, ``python -m k8s_device_plugin_tpu_torch
    --device-plugin-dir <tmp> --node-name <node> --kubeconfig <file>
    --podresources-socket <socket> --metrics-port <free port>
-   --telemetry-interval-s 0.5 --audit-interval-s 2 --trace --decisions``,
+   --telemetry-interval-s 0.5 --audit-interval-s 2 --trace --decisions
+   --profile-hz 19 --lockdep --flight-dir <tmp> --blackbox-dir <tmp>
+   --blackbox-fsync-s 0.5 --capture-dir <tmp> --capture-p99-ms 0.05``,
    over the real NVML and ``/dev``. From its start to SIGTERM this script
    polls the daemon's HTTP plane every 0.5 s: ``/healthz`` must answer 200
    on every poll from its first answer on, ``/metrics`` must parse as the
@@ -186,14 +188,31 @@ caught while the run goes on:
    After it exits its PodResources entry goes and the pod is deleted from
    the API server: the card must come back into ``available``, its series
    must lose the pod's labels within one sampler interval and 1 s, and
-   ``tpu_node_free_chips`` must return to the card count. Last,
+   ``tpu_node_free_chips`` must return to the card count. While the pod's
+   timed steps run, ``/debug/profile?seconds=2&format=collapsed`` must hold
+   samples of the daemon's named threads: the card telemetry sampler, the
+   auditor, the supervisor loop (the main thread) and a gRPC worker. After
+   the pod has gone the stand-in kubelet sends 40 more ``Allocate``s for
+   its card, as a kubelet does on each container restart: with
+   ``--capture-p99-ms 0.05``, below every ``Allocate`` measured on an H100
+   node (0.86–3.19 ms), the windowed p99 crosses once, and exactly one capture bundle
+   (``slo_allocate``) must be in the capture dir, with a profile section
+   holding samples, the flight ring, the ledger tail, the heartbeat table
+   and a metrics snapshot (the DaemonSet's 250 ms is the deployed value).
+   ``/debug/lockdep`` must read enabled with no cycle. Last,
    SIGHUP must lead to a new registration and a new node annotation, and
    SIGTERM to an exit with code 0, the daemon's socket removed and no
    controller thread left draining; before it, the audit must have swept 3
    times or more, every sweep clean (``tpu_audit_sweeps_total`` has no
    ``findings`` or ``error`` outcome, every polled ``/debug/audit`` lists
-   no finding) and ``tpu_audit_last_clean_sweep_timestamp`` must have
-   advanced. One line with the times to
+   no finding and runs ``lock_order``) and
+   ``tpu_audit_last_clean_sweep_timestamp`` must have advanced; no loop may
+   have counted a stall and the black box no drop. After SIGTERM the flight
+   dir must hold the ``shutdown`` dump, and the black box's segments must
+   all read clean through the port's ``utils/blackbox.read_dir``, the
+   newest ending in ``stop``, holding the ``Allocate`` flight events, the
+   allocate decisions, ``plugin.Allocate`` spans, and heartbeat and metrics
+   snapshots. One line with the times to
    registration and to the first node annotation, of the two RPCs, from
    Allocate to the pod's annotation, to the republish, to the pod's first
    step and to its report, from the pod's delete to the republish, of
@@ -201,7 +220,10 @@ caught while the run goes on:
    footprint, the API-server writes; the start to the first ``/healthz``
    200, the median ``/metrics`` scrape, sampler pass and audit sweep, the
    card's duty, power, temperature and memory during the pod's steps beside
-   nvidia-smi's; and the card's name and power limit.
+   nvidia-smi's; the median of the 41 ``Allocate``s, the profiler's passes
+   in its window against 19 Hz times the window, the bundle's bytes, the
+   black box's records, bytes and rotations; and the card's name and power
+   limit.
 
 Then one ``{"kernels": [...]}`` line (each kernel's launches from the path
 that runs it: K1-K3 from phase 5, K4 from phase 6; every path's counts
@@ -1331,6 +1353,20 @@ DAEMON_MEMORY_MIB = 64
 TELEMETRY_INTERVAL_S = 0.5
 AUDIT_INTERVAL_S = 2.0
 POLL_S = 0.5
+# The daemon's evidence planes in this phase: the sampling profiler's rate
+# (the DaemonSet's), the black box's fsync cadence, the Allocate p99
+# threshold of the SLO capture, and the Allocates the stand-in kubelet
+# sends again for the pod's card after the pod has gone (as a kubelet does
+# each time a container restarts). The threshold is below every Allocate
+# measured on an H100 node (0.86–3.19 ms), so the windowed p99 crosses it
+# once and exactly one bundle is written; the DaemonSet's 250 ms is the
+# deployed value.
+PROFILE_HZ = 19
+BLACKBOX_FSYNC_S = 0.5
+CAPTURE_P99_MS = 0.05
+REPEAT_ALLOCATES = 40
+# The seconds of samples /debug/profile is asked for while the pod trains.
+PROFILE_WINDOW_S = 2.0
 SAMPLE_LINE = re.compile(r"^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})?\s+(\S+)$")
 LABEL_PAIR = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"(,|$)')
 
@@ -1649,6 +1685,140 @@ def observability(observer: Observer, t_start: float, n_cards: int, daemon_fail)
     }
 
 
+class ProfileProbe(threading.Thread):
+    """While the pod trains: the sampler's pass count, then
+    ``PROFILE_WINDOW_S`` seconds of samples from ``/debug/profile`` in the
+    collapsed format, then the pass count again."""
+
+    def __init__(self, base: str):
+        super().__init__(name="profile-probe", daemon=True)
+        self.base = base
+        self.result = None
+        self.error = None
+
+    def run(self) -> None:
+        try:
+            t1 = time.monotonic()
+            s1 = json.loads(http_get(self.base + "/debug/profile")[1])
+            status, body = http_get(
+                f"{self.base}/debug/profile?seconds={PROFILE_WINDOW_S}&format=collapsed")
+            window = json.loads(body) if status == 200 else {"status": status}
+            t2 = time.monotonic()
+            self.result = (t1, t2, s1, window)
+        except Exception as e:  # noqa: BLE001 - reported by check()
+            self.error = f"{type(e).__name__}: {e}"
+
+    def check(self, t_steps, daemon_fail) -> dict:
+        """The window must fall inside the pod's timed steps and hold samples
+        of the daemon's named threads: the card telemetry sampler, the
+        auditor, the supervisor loop (the main thread) and gRPC's workers."""
+        self.join(timeout=PROFILE_WINDOW_S + 30)
+        if self.error is not None or self.result is None:
+            daemon_fail(f"/debug/profile during the pod's steps: {self.error}")
+        t1, t2, s1, window = self.result
+        if not (s1.get("enabled") and window.get("enabled") and window.get("folded")):
+            daemon_fail(f"/debug/profile answered {s1} then {str(window)[:400]}")
+        if not t_steps[0] <= t1 < t_steps[1]:
+            daemon_fail("the profile window began outside the pod's timed steps")
+        counts: dict = {}
+        for row in window["folded"].splitlines():
+            stack, n = row.rsplit(" ", 1)
+            thread = stack.split(";", 1)[0].removeprefix("thread:")
+            counts[thread] = counts.get(thread, 0) + int(n)
+        named = {"tpu-telemetry-sampler", "tpu-audit", "MainThread"}
+        grpc_workers = [t for t in counts if t.startswith("ThreadPoolExecutor")]
+        if not named <= set(counts) or not grpc_workers:
+            daemon_fail(f"the profile's threads {sorted(counts)} lack the sampler, the "
+                        f"auditor, the supervisor or a gRPC worker")
+        passes = window["stats"]["samples"] - s1["stats"]["samples"]
+        return {"window_s": t2 - t1, "window_end_after_steps_s": t2 - t_steps[1],
+                "passes": passes,
+                "passes_expected": PROFILE_HZ * (t2 - t1),
+                "pass_rate_hz": passes / (t2 - t1),
+                "samples_by_thread": counts,
+                "samples_total": window["stats"]["samples"]}
+
+
+def capture_bundle(capture_dir: Path, daemon_fail) -> dict:
+    """Exactly one SLO bundle, ``slo_allocate``, with a profile section
+    holding samples, the flight ring, the ledger tail, the heartbeat table
+    (the supervisor's and the running watchdog's own) and a metrics
+    snapshot."""
+    # The crossing writes its bundle inside the Allocate that evaluates it,
+    # before that RPC answers: it is on disk once the last Allocate returned.
+    bundles = sorted(capture_dir.glob("capture-*.json"))
+    if len(bundles) != 1 or not bundles[0].name.endswith("-slo_allocate.json"):
+        daemon_fail(f"capture bundles: {[b.name for b in bundles]}")
+    doc = json.loads(bundles[0].read_text())
+    prof = doc.get("profile") or {}
+    flight = [e["kind"] for e in (doc.get("flight") or {}).get("events", [])]
+    records = [r["kind"] for r in (doc.get("decisions") or {}).get("records", [])]
+    loops = [h["name"] for h in doc.get("heartbeats") or []]
+    if not (prof.get("enabled") and prof["stats"]["samples"] > 0 and prof.get("folded")
+            and "allocate" in flight and "allocate_substitution" in records
+            and {"supervisor", "stall_watchdog"} <= set(loops)
+            and "tpu_plugin_uptime_seconds" in doc.get("metrics", "")):
+        daemon_fail(f"the capture bundle lacks a section: profile {prof.get('stats')}, "
+                    f"flight {sorted(set(flight))}, decisions {sorted(set(records))}, "
+                    f"heartbeats {loops}")
+    return {"bytes": bundles[0].stat().st_size, "reason": doc["reason"],
+            "windowed_p99_ms": doc["windows"]["allocate"]["p99_ms"],
+            "profile_samples": prof["stats"]["samples"], "flight_events": len(flight),
+            "decisions": len(records), "heartbeats": loops}
+
+
+def evidence(observer: Observer, bb_live: dict, flight_dir: Path, blackbox_dir: Path,
+             daemon_fail) -> dict:
+    """After SIGTERM: the ``shutdown`` flight dump; a black box whose
+    segments all read clean through the port's ``read_dir``, the newest
+    ending in ``stop``, holding the Allocate flight events, the allocate
+    decisions, ``plugin.Allocate`` spans and heartbeat and metrics
+    snapshots; a running stall watchdog, which alone exports the heartbeat
+    ages, so that "no loop stalled" has a watchdog behind it; no loop
+    stalled and no black-box record dropped."""
+    from k8s_device_plugin_tpu_torch.utils.blackbox import read_dir
+
+    dumps = sorted(flight_dir.glob("flight-plugin-*-shutdown.json"))
+    if len(dumps) != 1:
+        daemon_fail(f"flight dumps: {sorted(p.name for p in flight_dir.glob('*'))}")
+    records, meta = read_dir(str(blackbox_dir))
+    statuses = {seg["status"] for seg in meta["segments"]}
+    kinds: dict = {}
+    for rec in records:
+        key = rec["kind"]
+        if key in ("flight", "decision", "span"):
+            key = f"{key}:{rec['data'].get('kind') or rec['data'].get('name')}"
+        kinds[key] = kinds.get(key, 0) + 1
+    if (statuses != {"clean"} or not records or records[-1]["kind"] != "stop"
+            or not all(kinds.get(k) for k in ("flight:allocate",
+                                              "decision:allocate_substitution",
+                                              "span:plugin.Allocate", "heartbeats",
+                                              "metrics"))):
+        daemon_fail(f"the black box: segments {meta['segments']}, records {kinds}")
+    invariants = [{i["name"] for i in p["audit"].get("invariants", [])} for p in observer.polls
+                  if p["audit"].get("sweeps")]
+    if not invariants or not all("lock_order" in names for names in invariants):
+        daemon_fail(f"the audit's invariants {invariants[-1:]} lack lock_order")
+    last = [p["samples"] for p in observer.polls if p["samples"] is not None][-1]
+    aged = {lab["loop"] for n, lab, v in last
+            if n == "tpu_thread_heartbeat_age_seconds" and "loop" in lab}
+    if not {"supervisor", "stall_watchdog"} <= aged:
+        daemon_fail(f"the last /metrics poll has heartbeat ages of {sorted(aged)}: "
+                    f"the stall watchdog is not running")
+    stalled = [lab for n, lab, v in last if n == "tpu_loop_stall_total" and v
+               and lab.get("reason") == "stalled"]
+    dropped = [lab for n, lab, v in last if n == "tpu_blackbox_dropped_total" and v]
+    if stalled or dropped or bb_live.get("enabled") is not True or bb_live.get("drops"):
+        daemon_fail(f"stalled loops {stalled}, black-box drops {dropped} "
+                    f"{bb_live.get('drops')}, black box enabled {bb_live.get('enabled')}")
+    return {"flight_dump_bytes": dumps[0].stat().st_size,
+            "heartbeat_ages_of": sorted(aged),
+            "blackbox": {"segments": len(meta["segments"]), "records_read": len(records),
+                         "records_written": bb_live["records_written"],
+                         "bytes_written": bb_live["bytes_written"],
+                         "rotations": bb_live["rotations"], "by_kind": kinds}}
+
+
 def phase_plugin_pod(main_report: dict) -> dict:
     """The node daemon hands this card to a pod, which trains on it, and
     tells a fake API server which card the pod holds."""
@@ -1704,6 +1874,7 @@ def phase_plugin_pod(main_report: dict) -> dict:
             constants.POD_DEVICES_ANNOTATION)
 
     log_path = work / "daemon.log"
+    flight_dir, blackbox_dir, capture_dir = work / "flight", work / "blackbox", work / "captures"
     line: dict = {"nvidia_smi": nvidia_smi()}
     channel = None
     used_before = memory_used_mib()
@@ -1718,7 +1889,13 @@ def phase_plugin_pod(main_report: dict) -> dict:
                                    "--metrics-port", str(port),
                                    "--telemetry-interval-s", str(TELEMETRY_INTERVAL_S),
                                    "--audit-interval-s", str(AUDIT_INTERVAL_S),
-                                   "--trace", "--decisions"],
+                                   "--trace", "--decisions",
+                                   "--profile-hz", str(PROFILE_HZ), "--lockdep",
+                                   "--flight-dir", str(flight_dir),
+                                   "--blackbox-dir", str(blackbox_dir),
+                                   "--blackbox-fsync-s", str(BLACKBOX_FSYNC_S),
+                                   "--capture-dir", str(capture_dir),
+                                   "--capture-p99-ms", str(CAPTURE_P99_MS)],
                                   cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT)
     observer.start()
     try:
@@ -1807,6 +1984,7 @@ def phase_plugin_pod(main_report: dict) -> dict:
         t_alloc = time.monotonic()
         cresp = stub.Allocate(areq, timeout=PLUGIN_WAIT_S).container_responses[0]
         line["allocate_ms"] = (time.monotonic() - t_alloc) * 1e3
+        allocate_ms = [line["allocate_ms"]]
         paths = [d.host_path for d in cresp.devices]
         line["device_specs"] = paths
         if cresp.envs.get(constants.NVIDIA_VISIBLE_DEVICES) != picked[0]:
@@ -1864,6 +2042,7 @@ def phase_plugin_pod(main_report: dict) -> dict:
             pod_lines.put(None)
 
         threading.Thread(target=read_pod, daemon=True).start()
+        profile_probe = ProfileProbe(observer.base)
         report, footprint = None, None
         t_steps = None
         while (item := pod_lines.get(timeout=600)) is not None:
@@ -1878,6 +2057,7 @@ def phase_plugin_pod(main_report: dict) -> dict:
                 # The timed steps start: each poll also reads nvidia-smi.
                 t_steps = [t_line, None]
                 observer.smi.set()
+                profile_probe.start()
                 # While the pod trains: the card's context holders (this
                 # script and the pod, not the daemon) and what each maps.
                 footprint = {"compute_apps": compute_apps(), "daemon": mapped(daemon.pid),
@@ -1923,6 +2103,7 @@ def phase_plugin_pod(main_report: dict) -> dict:
             fail(f"the daemon re-sent its device list while the pod ran: {lists.get()}")
         line["telemetry"] = pod_telemetry(observer, t_steps, picked[0], len(smi_uuids),
                                           daemon_fail)
+        line["profile"] = profile_probe.check(t_steps, daemon_fail)
 
         # The pod is gone: the kubelet drops its entry, the API server its
         # object, and the card comes back.
@@ -1958,6 +2139,24 @@ def phase_plugin_pod(main_report: dict) -> dict:
             daemon_fail(f"the card's series kept the pod's labels "
                         f"{line['delete_to_unlabelled_s']:.3f} s after its delete")
 
+        # The kubelet asks again for the pod's card, as on a container
+        # restart: the windowed Allocate p99 crosses --capture-p99-ms once.
+        for _ in range(REPEAT_ALLOCATES):
+            t0 = time.monotonic()
+            stub.Allocate(areq, timeout=PLUGIN_WAIT_S)
+            allocate_ms.append((time.monotonic() - t0) * 1e3)
+        line["allocate_ms_median"] = statistics.median(allocate_ms)
+        # The slowest is the Allocate whose crossing wrote the bundle.
+        line["allocate_ms_max"] = max(allocate_ms)
+        line["allocates"] = len(allocate_ms)
+        line["capture"] = capture_bundle(capture_dir, daemon_fail)
+        status, body = http_get(observer.base + "/debug/lockdep")
+        lockdep = json.loads(body) if status == 200 else {}
+        if lockdep.get("enabled") is not True or lockdep.get("cycles") != []:
+            daemon_fail(f"/debug/lockdep answered {status}: {body[:400]!r}")
+        line["lockdep"] = {"edges": len(lockdep["edges"]),
+                           "dropped_edges": lockdep["dropped_edges"]}
+
         # SIGHUP: the new generation registers, then publishes the node's
         # annotation anew. Only a node patch that carries the annotation
         # and landed after the registration counts.
@@ -1980,10 +2179,13 @@ def phase_plugin_pod(main_report: dict) -> dict:
         line["sighup_to_republish_s"] = t_pub - t0
         line["sighup_node_patches_before_register"] = patches_at_reg - published
         line["observability"] = observability(observer, t_start, len(smi_uuids), daemon_fail)
+        status, body = http_get(observer.base + "/debug/blackbox")
+        bb_live = json.loads(body) if status == 200 else {}
         t0 = time.monotonic()
         daemon.send_signal(signal.SIGTERM)
         rc = daemon.wait(timeout=PLUGIN_WAIT_S)
         line["sigterm_to_exit_s"] = time.monotonic() - t0
+        line["evidence"] = evidence(observer, bb_live, flight_dir, blackbox_dir, daemon_fail)
         socket_left = (work / constants.PLUGIN_SOCKET_NAME).exists()
         draining = "still draining" in log_path.read_text()
         line["daemon_rc"] = rc

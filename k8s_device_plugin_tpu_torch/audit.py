@@ -28,11 +28,13 @@ Findings are observations, never repairs: every plane has an owner with a
 reconcile loop, and an auditor that "fixed" state would be a second writer
 racing them.
 
-The invariants ported are the two shared ones (``thread_liveness``,
-``degraded_consistency``) and the five of :class:`NodeAudit`. The JAX
-``lock_order`` comes with lockdep, ``loop_inventory`` with the registry
-lint, the extender's set with the extender, and the flight-ring dump on a
-new critical finding with the recorder's dumps.
+A new critical finding dumps the flight ring to the flight dir
+(``audit_critical``), while the divergence's lead-up is still in it.
+
+The invariants ported are the three shared ones (``thread_liveness``,
+``lock_order``, ``degraded_consistency``) and the five of
+:class:`NodeAudit`. The JAX ``loop_inventory`` comes with the registry
+lint, the extender's set with the extender.
 """
 
 from __future__ import annotations
@@ -236,9 +238,12 @@ class AuditEngine:
             metrics.AUDIT_LAST_CLEAN.set(round(time.time(), 3))
         # Detection/clear transitions → flight recorder and ledger, once per
         # transition (a persisting finding is silent until it clears).
+        new_critical = False
         for key, f in current.items():
             if key in prev:
                 continue
+            if f.severity == CRITICAL:
+                new_critical = True
             RECORDER.record(
                 "audit_divergence", f.message, state="detected",
                 invariant=f.invariant, severity=f.severity,
@@ -257,6 +262,10 @@ class AuditEngine:
                     invariant=f.invariant, severity=f.severity,
                     pod=f.pod, gang=f.gang, node=f.node, chip=f.chip,
                 )
+        if new_critical:
+            # A new critical finding is a post-mortem moment: capture the
+            # event tail now, while the divergence's lead-up is in the ring.
+            RECORDER.dump_on("audit_critical")
 
     # -- snapshot ----------------------------------------------------------
 
@@ -342,6 +351,37 @@ def thread_liveness_invariant() -> Invariant:
     )
 
 
+def check_lock_order() -> List[Finding]:
+    """The runtime lockdep graph (``profiling.LockdepGraph``, fed by every
+    ``TimedLock`` acquire when ``--lockdep`` is on) must hold no inversion
+    cycle: two threads that ever take the same locks in opposite orders are
+    one interleaving from a deadlock. CRITICAL, since the fix is a code
+    change: the finding stands (witness stacks at /debug/lockdep) until a
+    restart. The cycle's id rides the ``chip`` slot."""
+    out: List[Finding] = []
+    for cyc in profiling.LOCKDEP.cycles():
+        out.append(Finding.make(
+            "lock_order", CRITICAL,
+            f"lock-order inversion {' -> '.join(cyc['nodes'])}: these locks have been "
+            f"acquired in opposite orders by different threads; witness stacks at "
+            f"/debug/lockdep",
+            chip=cyc["id"], nodes=" -> ".join(cyc["nodes"]),
+            witnesses=len(cyc["witnesses"]), first_seen_ts=cyc["ts"],
+        ))
+    return out
+
+
+def lock_order_invariant() -> Invariant:
+    return Invariant(
+        "lock_order",
+        ("threads", "locks"),
+        "the runtime lock-order graph must be acyclic: an inversion cycle (same "
+        "locks, opposite orders, different threads) is a deadlock one "
+        "interleaving away; critical, with witness stacks at /debug/lockdep",
+        check_lock_order,
+    )
+
+
 def check_degraded_consistency() -> List[Finding]:
     """No kube mutation may land while the circuit breaker is open. The
     resilience layer fails every call fast while it is, and the TRACKER
@@ -380,7 +420,8 @@ def degraded_consistency_invariant() -> Invariant:
 
 def shared_invariants() -> List[Invariant]:
     """The process-health invariants the port has."""
-    return [thread_liveness_invariant(), degraded_consistency_invariant()]
+    return [thread_liveness_invariant(), lock_order_invariant(),
+            degraded_consistency_invariant()]
 
 
 # ---------------------------------------------------------------------------

@@ -38,14 +38,28 @@ started once a process; ``--trace`` turns on spans and the flight recorder,
 ``--decisions`` the decision ledger, ``--log-json`` JSON-lines logs. Each
 plugin generation builds, last, the card telemetry sampler
 (``--telemetry-interval-s``, ``telemetry.py``) and the consistency auditor
-(``--audit-interval-s``, ``audit.py``), and its teardown stops both. The
-new flags are read from the command line only, with no environment alias.
+(``--audit-interval-s``, ``audit.py``), and its teardown stops both.
+
+The process-wide evidence, as in JAX: ``--flight-dir`` is where the flight
+ring is dumped (on shutdown, on the kube breaker's move to OPEN and on a
+new critical audit finding); ``--profile-hz`` runs the sampling profiler
+(``utils/stackprof.py``, ``/debug/profile``); ``--capture-dir`` with
+``--capture-p99-ms`` writes a capture bundle when the windowed ``Allocate``
+p99 crosses the threshold or a loop's heartbeat stalls; ``--lockdep``
+records the lock-order graph (``/debug/lockdep``, the ``lock_order``
+invariant); ``--blackbox-dir`` streams the flight, ledger and span planes
+and periodic heartbeat and metric snapshots to disk (``utils/blackbox.py``,
+``/debug/blackbox``). The GC monitor and the stall watchdog run whenever
+the daemon runs. ``__init__`` configures these planes and ``run()`` starts
+their threads, once a process: a SIGHUP rebuilds the plugin generation, not
+them, and ``run()``'s end stops them and puts the process-wide state back.
+The observability flags are read from the command line only, with no
+environment alias.
 
 The daemon reads NVML only. It never imports ``torch`` and never creates a
 CUDA context, which would cost device memory on every card of the node.
 
-The planes that are not ported yet bring their flags with them: DRA, the
-flight recorder's dumps, the black box, the profilers and lockdep.
+DRA is the plane not ported yet that brings its flags with it.
 """
 
 from __future__ import annotations
@@ -68,7 +82,8 @@ from ..server.plugin import GpuDevicePlugin, PluginConfig
 from ..topology.links import LinkTopology
 from ..topology.placement import GpuPlacementState
 from ..utils import logging as tpulog
-from ..utils import metrics, profiling, tracing
+from ..utils import metrics, profiling, stackprof, tracing
+from ..utils.blackbox import BLACKBOX
 from ..utils.decisions import LEDGER
 from ..utils.flightrecorder import RECORDER
 from ..utils.logging import get_logger
@@ -124,6 +139,22 @@ class DaemonConfig:
     # own thread at this cadence; 0 is no thread.
     telemetry_interval_s: float = 0.0
     audit_interval_s: float = 0.0
+    # Where the flight ring is dumped ("" keeps it in memory and HTTP).
+    flight_dir: str = ""
+    # The sampling profiler's rate (0: no sampler thread; /debug/profile
+    # still answers one-shot ?seconds= bursts), and the SLO capture: the
+    # bundle dir and the windowed Allocate p99 threshold in ms ("" or 0
+    # disable it).
+    profile_hz: float = 0.0
+    capture_dir: str = ""
+    capture_p99_ms: float = 0.0
+    # The runtime lock-order graph (utils/profiling.LOCKDEP).
+    lockdep: bool = False
+    # The crash-durable black box ("" is no recorder: no files, no thread);
+    # it implies the flight recorder. Its fsync cadence in seconds (the
+    # stream is flushed every drain regardless; 0 fsyncs every drain).
+    blackbox_dir: str = ""
+    blackbox_fsync_s: float = 2.0
 
 
 class Daemon:
@@ -138,9 +169,27 @@ class Daemon:
         self.cfg = cfg
         if cfg.trace:
             tracing.enable(service="plugin")
-            RECORDER.enable(service="plugin")
+            RECORDER.enable(service="plugin", dump_dir=cfg.flight_dir)
         if cfg.decisions or cfg.trace:
             LEDGER.enable(service="plugin")
+        # The runtime-performance plane is configured here; the sampler, the
+        # watchdog and the black box get their threads in run(), so a Daemon
+        # built in a test starts no thread.
+        profiling.set_service("plugin")
+        profiling.enable_gc_monitor()
+        # Lockdep is put back off at the end only by the daemon that turned
+        # it on: another owner (a test session) may have it on already.
+        self._lockdep_owned = cfg.lockdep and not profiling.LOCKDEP.enabled
+        if self._lockdep_owned:
+            profiling.LOCKDEP.enable()
+        self._profiler = None
+        if cfg.profile_hz > 0:
+            self._profiler = stackprof.SamplingProfiler(hz=cfg.profile_hz, service="plugin")
+            stackprof.install_profiler(self._profiler)
+        profiling.CAPTURE.configure(capture_dir=cfg.capture_dir, p99_ms=cfg.capture_p99_ms,
+                                    service="plugin")
+        self._watchdog = profiling.StallWatchdog(service="plugin",
+                                                 on_stall=profiling.CAPTURE.heartbeat_stall)
         self.backend = None
         self.events: "queue.Queue" = queue.Queue()
         self.plugin: Optional[GpuDevicePlugin] = None
@@ -350,12 +399,53 @@ class Daemon:
 
     # -- supervisor loop ---------------------------------------------------
 
+    def _start_process_planes(self) -> None:
+        """The profiler, the watchdog and the black box, once a process. One
+        that fails to start is logged as an error and the daemon serves its
+        cards without it; /debug/profile, the heartbeat table and
+        /debug/blackbox show which is missing."""
+        if self._profiler is not None:
+            try:
+                self._profiler.start()
+            except Exception:
+                log.exception("the sampling profiler failed to start")
+        try:
+            self._watchdog.start()
+        except Exception:
+            log.exception("the stall watchdog failed to start")
+        if self.cfg.blackbox_dir:
+            if not RECORDER.enabled:
+                RECORDER.enable(service="plugin", dump_dir=self.cfg.flight_dir)
+            try:
+                started = BLACKBOX.start(self.cfg.blackbox_dir, service="plugin",
+                                         fsync_interval_s=self.cfg.blackbox_fsync_s)
+            except Exception:
+                log.exception("the black box failed to start")
+            else:
+                if not started:
+                    log.error("the black box did not start: a recorder is already "
+                              "running in this process")
+
+    def _stop_process_planes(self) -> None:
+        """Stops what _start_process_planes started and puts back the
+        process-wide state __init__ set, in the JAX order: the watchdog, the
+        profiler, then (by the caller, last of all) the black box."""
+        self._watchdog.stop()
+        if self._profiler is not None:
+            self._profiler.stop()
+            stackprof.install_profiler(None)
+        profiling.CAPTURE.disable()
+        profiling.disable_gc_monitor()
+        if self._lockdep_owned:
+            profiling.LOCKDEP.disable()
+
     def run(self) -> int:
         """The restart loop, until SIGTERM or SIGINT (which return 0)."""
         fs = FsWatcher(self.cfg.device_plugin_dir, self.events)
         sigs = SignalWatcher(self.events)
         fs.start()
         sigs.start()
+        self._start_process_planes()
         # The supervisor loop's heartbeat: one beat per event-queue turn.
         hb = profiling.HEARTBEATS.register("supervisor", interval_s=1.0,
                                            max_silence_s=self.heartbeat_stale_s)
@@ -391,16 +481,23 @@ class Daemon:
                     log.info("signal %d; shutting down", payload)
                     return 0
         finally:
+            # The event ring on the way down is the last notable things this
+            # daemon did.
+            RECORDER.dump_on("shutdown")
             self.teardown()
             if self.backend is not None:
                 self.backend.close()
                 self.backend = None
             fs.stop()
             sigs.stop()
+            self._stop_process_planes()
             profiling.HEARTBEATS.unregister("supervisor")
             if self.metrics_server is not None:
                 self.metrics_server.stop()
                 self.metrics_server = None
+            # Last out: the black box drains everything recorded above,
+            # writes its clean-stop marker and fsyncs.
+            BLACKBOX.stop()
 
 
 def parse_args(argv) -> DaemonConfig:
@@ -474,6 +571,37 @@ def parse_args(argv) -> DaemonConfig:
                    "(checkpoint vs PodResources vs pod annotations vs the "
                    "attribution map vs the gauges; findings at /debug/audit "
                    "and tpu_audit_*); 0 disables it")
+    p.add_argument("--flight-dir", default="",
+                   help="directory of the flight-recorder dumps (on shutdown, on "
+                   "the kube breaker's move to OPEN, on a new critical audit "
+                   "finding); empty keeps the ring in memory and HTTP only")
+    p.add_argument("--profile-hz", type=float, default=0.0,
+                   help="run the sampling wall-clock profiler at this rate "
+                   "(utils/stackprof.py): folded stacks at /debug/profile and in "
+                   "the capture bundles; 0 runs no sampler thread")
+    p.add_argument("--capture-dir", default="",
+                   help="directory of the SLO capture bundles (profile window, "
+                   "flight ring, ledger tail, heartbeats and a metrics snapshot, "
+                   "atomic JSON); empty disables capture")
+    p.add_argument("--capture-p99-ms", type=float, default=0.0,
+                   help="windowed Allocate p99 threshold (ms) that writes a "
+                   "capture bundle; 0 disables the SLO trigger (heartbeat-stall "
+                   "captures still fire)")
+    p.add_argument("--lockdep", action="store_true",
+                   help="record the runtime lock-order graph "
+                   "(utils/profiling.LockdepGraph): an inversion cycle fires the "
+                   "CRITICAL lock_order audit invariant, witness stacks at "
+                   "/debug/lockdep")
+    p.add_argument("--blackbox-dir", default="",
+                   help="directory of the crash-durable black box "
+                   "(utils/blackbox.py): flight events, ledger decisions, spans "
+                   "and periodic heartbeat and metric snapshots in checksummed, "
+                   "rotated segment files that a kill -9 cannot destroy (read with "
+                   "python -m k8s_device_plugin_tpu_torch.utils.blackbox <dir>); "
+                   "implies the flight recorder; empty disables it")
+    p.add_argument("--blackbox-fsync-s", type=float, default=2.0,
+                   help="black-box fsync cadence in seconds; the stream is "
+                   "flushed every drain regardless; 0 fsyncs every drain")
     p.add_argument("-v", "--verbose", action="count", default=0)
     a = p.parse_args(argv)
     tpulog.setup(verbose=a.verbose, json=a.log_json, service="plugin")
@@ -499,6 +627,13 @@ def parse_args(argv) -> DaemonConfig:
         decisions=a.decisions,
         telemetry_interval_s=a.telemetry_interval_s,
         audit_interval_s=a.audit_interval_s,
+        flight_dir=a.flight_dir,
+        profile_hz=a.profile_hz,
+        capture_dir=a.capture_dir,
+        capture_p99_ms=a.capture_p99_ms,
+        lockdep=a.lockdep,
+        blackbox_dir=a.blackbox_dir,
+        blackbox_fsync_s=a.blackbox_fsync_s,
     )
 
 

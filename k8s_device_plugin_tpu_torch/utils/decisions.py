@@ -4,8 +4,9 @@ structured decisions (kind, machine-readable reason token, message, the
 pod/gang/node it concerns, the active trace), gated on :meth:`enable` so
 that recording costs one bool read when off, and ``retrace``, the pod
 controller's join of ``Allocate``'s records into the pod's trace, and the
-``snapshot`` that ``/debug/decisions`` serves. The black-box taps and
-``tag_gang`` come with their planes."""
+``snapshot`` that ``/debug/decisions`` serves, and the tap seam the black
+box subscribes through (``add_tap``). ``tag_gang`` comes with the gang
+admitter."""
 
 from __future__ import annotations
 
@@ -30,8 +31,23 @@ class DecisionLedger:
         # flight-recorded on the first drop and then once per
         # _OVERFLOW_EVERY, not per record.
         self._overflow_reported = 0
+        # Live subscribers (the black box), as on the flight recorder:
+        # called with every appended record outside the ledger lock, the
+        # tuple replaced on mutation so record() reads it lock-free.
+        self._taps: tuple = ()
 
     _OVERFLOW_EVERY = 1024
+
+    def add_tap(self, fn) -> None:
+        """Subscribe ``fn(record_dict)`` to every recorded decision. A tap
+        runs on the recording thread, so it must never block."""
+        with self._lock:
+            if fn not in self._taps:
+                self._taps = self._taps + (fn,)
+
+    def remove_tap(self, fn) -> None:
+        with self._lock:
+            self._taps = tuple(t for t in self._taps if t != fn)
 
     def enable(self, service: str = "plugin", capacity: Optional[int] = None) -> None:
         from . import metrics
@@ -84,6 +100,14 @@ class DecisionLedger:
             counter = self._counter
         if counter is not None:
             counter.inc(kind=kind, reason=reason)
+        # Each tap gets its own copy, attrs too: retrace() mutates the live
+        # record under the ledger lock, which must not race a tap consumer
+        # serialising its copy on another thread.
+        for tap in self._taps:
+            try:
+                tap({**rec, "attrs": dict(rec["attrs"])})
+            except Exception:  # noqa: BLE001 - a broken subscriber must
+                pass  # never take the recording path down with it
         if overflowed:
             from .flightrecorder import RECORDER
 

@@ -9,7 +9,8 @@ The per-card families keep the JAX ``tpu_chip_*`` names, so a dashboard
 reads either daemon: ``chip`` is the card's UUID, and the two
 ``tpu_chip_ici_link_*`` families carry the card's NVLinks, ``link`` being
 NVML's link index. The extender's registry and its surfaces come with the
-extender."""
+extender. ``/debug/profile`` is the one surface that may block: with
+``?seconds=N`` it waits for N seconds of samples (at most 60)."""
 
 from __future__ import annotations
 
@@ -289,10 +290,90 @@ DECISIONS = REGISTRY.counter(
     "Scheduling/health decisions recorded by this daemon's decision "
     "ledger (utils/decisions.py), by kind and machine-readable reason token",
 )
+# Black-box recorder families (utils/blackbox.py; --blackbox-dir).
+BLACKBOX_RECORDS = REGISTRY.counter(
+    "tpu_blackbox_records_total",
+    "Records persisted to the crash-durable black box, by kind "
+    "(flight/decision/span/heartbeats/metrics/meta/stop - "
+    "utils/blackbox.py; read with python -m "
+    "k8s_device_plugin_tpu_torch.utils.blackbox <dir>)",
+)
+BLACKBOX_DROPPED = REGISTRY.counter(
+    "tpu_blackbox_dropped_total",
+    "Black-box records dropped instead of blocking a hot path, by "
+    "reason (queue_full: the bounded queue was at capacity; "
+    "write_error: the segment file could not be written)",
+)
+BLACKBOX_BYTES = REGISTRY.counter(
+    "tpu_blackbox_bytes_total",
+    "Bytes appended to black-box segment files (statestore-framed; "
+    "bounded on disk by rotation and pruning)",
+)
+BLACKBOX_ROTATIONS = REGISTRY.counter(
+    "tpu_blackbox_segment_rotations_total",
+    "Black-box segment rotations (a segment reached segment_bytes "
+    "and a new one was opened; oldest segments pruned past the "
+    "directory byte budget)",
+)
+BLACKBOX_QUEUE = REGISTRY.gauge(
+    "tpu_blackbox_queue_depth",
+    "Black-box records waiting in the bounded producer queue at the "
+    "last writer drain (sustained depth near queue_max precedes "
+    "queue_full drops)",
+)
 LOOP_STALLS = REGISTRY.counter(
     "tpu_loop_stall_total",
-    "Loop stall transitions by loop and reason: died (the thread exited "
-    "on an unhandled exception; run_supervised counts it)",
+    "Loop stall transitions by loop and reason: stalled (heartbeat "
+    "silent past its threshold, counted once per excursion) or died "
+    "(the thread exited on an unhandled exception; run_supervised "
+    "counts it and trips the thread_liveness audit invariant)",
+)
+# The runtime-performance plane (utils/profiling.py, utils/stackprof.py):
+# heartbeat ages and stall counts from the watchdog, GC pauses from
+# gc.callbacks, the sampling profiler's samples and the SLO capture
+# bundles, and the lockdep graph. GC pause bucket bounds (seconds): tens of
+# microseconds up to 1 s stop-the-world tails.
+PAUSE_BUCKETS = (
+    0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025,
+    0.05, 0.1, 0.25, 0.5, 1.0,
+)
+HEARTBEAT_AGE = REGISTRY.gauge(
+    "tpu_thread_heartbeat_age_seconds",
+    "Seconds since each registered long-lived loop last beat its "
+    "heartbeat (utils/profiling.py; exported by the stall watchdog, "
+    "pruned when a loop stops cleanly): a frozen age is a wedged or "
+    "dead thread",
+)
+GC_PAUSE = REGISTRY.histogram(
+    "tpu_gc_pause_seconds",
+    "Stop-the-world duration of each Python GC pass, by generation "
+    "(gc.callbacks; utils/profiling.enable_gc_monitor)",
+    buckets=PAUSE_BUCKETS,
+)
+PROFILE_SAMPLES = REGISTRY.counter(
+    "tpu_profile_samples_total",
+    "Thread-stack samples captured by the sampling profiler "
+    "(utils/stackprof.py; --profile-hz, served at /debug/profile)",
+)
+PROFILE_CAPTURES = REGISTRY.counter(
+    "tpu_profile_captures_total",
+    "SLO-triggered capture bundles, by reason (slo_<op> / "
+    "stall_<loop>) and outcome (ok/budget/error), written by "
+    "utils/profiling.CaptureManager to --capture-dir",
+)
+LOCKDEP_EDGES = REGISTRY.gauge(
+    "tpu_lockdep_edges",
+    "Distinct lock-order edges (lock A held while acquiring lock B) "
+    "recorded by the runtime lockdep graph "
+    "(utils/profiling.LockdepGraph; --lockdep): a growing edge set is "
+    "normal, a cycle is not",
+)
+LOCKDEP_CYCLES = REGISTRY.counter(
+    "tpu_lockdep_cycles_total",
+    "Lock-order inversion cycles detected (two threads acquired the "
+    "same locks in opposite orders, a deadlock one interleaving "
+    "away); witness stacks are kept in the graph and the lock_order "
+    "audit invariant pages CRITICAL while any cycle stands",
 )
 EVICTIONS = REGISTRY.counter(
     "tpu_plugin_evictions_total",
@@ -502,6 +583,24 @@ DEBUG_ENDPOINTS: Dict[str, str] = {
         "consistency-audit snapshot: invariant registry, open "
         "findings, sweep stats (audit.py; --audit-interval-s)"
     ),
+    "/debug/profile": (
+        "sampling-profiler export (utils/stackprof.py): speedscope "
+        "JSON by default, ?format=collapsed for folded stacks, "
+        "?seconds=N for the trailing window (or a one-shot burst "
+        "when --profile-hz is 0); a bare GET answers at once with "
+        "the profiler's table (or enabled: false)"
+    ),
+    "/debug/lockdep": (
+        "runtime lock-order graph (utils/profiling.LockdepGraph; "
+        "--lockdep): recorded edges and any inversion cycles with "
+        "their witness stacks; enabled: false when the flag is off"
+    ),
+    "/debug/blackbox": (
+        "crash-durable black-box recorder status (utils/blackbox.py; "
+        "--blackbox-dir): config, queue depth, drop counts and "
+        "on-disk segment metadata, never record bodies; enabled: "
+        "false when no --blackbox-dir is configured"
+    ),
     "/debug/resilience": (
         "resilience-layer snapshot (utils/resilience.py TRACKER): "
         "per-verb kube-call outcome counts, breaker open/close "
@@ -544,11 +643,23 @@ def debug_payload(path: str) -> Optional[bytes]:
             from .resilience import TRACKER
 
             return TRACKER.snapshot()
+        if parsed.path == "/debug/profile":
+            from . import stackprof
+
+            return stackprof.debug_profile(parsed.query)
+        if parsed.path == "/debug/lockdep":
+            from . import profiling
+
+            return profiling.LOCKDEP.snapshot()
+        if parsed.path == "/debug/blackbox":
+            from .blackbox import BLACKBOX
+
+            return BLACKBOX.snapshot()
         if parsed.path == "/debug/traces":
             trace_id = dict(_up.parse_qsl(parsed.query)).get("trace_id", "")
             return tracing.COLLECTOR.otlp_json(trace_id=trace_id)
         if parsed.path == "/debug/events":
-            return RECORDER.export()
+            return RECORDER.snapshot()
         if parsed.path == "/debug/decisions":
             q = dict(_up.parse_qsl(parsed.query))
             try:

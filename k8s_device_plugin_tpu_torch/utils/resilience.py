@@ -608,8 +608,8 @@ class Resilience:
 
     def _on_circuit_change(self, state: int) -> None:
         """Gauge update plus flight-recorder and ledger records of the
-        transition (the ring's disk dump on a trip comes with the flight
-        recorder's dumps)."""
+        transition, and on a move to OPEN the ring's dump to the flight
+        dir (``circuit-break``)."""
         self.metrics.circuit_state.set(state)
         TRACKER.record_circuit(state)
         from .flightrecorder import RECORDER
@@ -628,6 +628,14 @@ class Resilience:
             )
         if self.degraded is not None:
             self.degraded.on_circuit_state(state)
+        if state == OPEN and RECORDER.enabled and RECORDER.dump_dir:
+            # This callback runs under the breaker's lock, which every kube
+            # call takes: the disk write goes to its own thread, or a slow
+            # volume would stall every kube-calling thread while the API
+            # server is already down. A one-shot write, not a loop, so it is
+            # not supervised.
+            threading.Thread(target=RECORDER.dump_on, args=("circuit-break",),
+                             name="flight-dump", daemon=True).start()
 
     def _outcome(self, verb: str, outcome: str) -> None:
         TRACKER.record_outcome(verb, outcome)

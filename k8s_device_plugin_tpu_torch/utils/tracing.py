@@ -46,12 +46,33 @@ class SpanCollector:
         self._spans: "collections.deque" = collections.deque(maxlen=capacity)
         self._lock = threading.Lock()
         self.dropped = 0
+        # Live subscribers (the black box), as on the flight recorder:
+        # called with every finished span outside the collector lock.
+        self._taps: tuple = ()
+
+    def add_tap(self, fn) -> None:
+        """Subscribe ``fn(span_dict)`` to every collected span. A tap runs
+        on the finishing thread, so it must never block."""
+        with self._lock:
+            if fn not in self._taps:
+                self._taps = self._taps + (fn,)
+
+    def remove_tap(self, fn) -> None:
+        with self._lock:
+            self._taps = tuple(t for t in self._taps if t != fn)
 
     def add(self, span: dict) -> None:
         with self._lock:
             if len(self._spans) == self._spans.maxlen:
                 self.dropped += 1
             self._spans.append(span)
+        # Each tap gets its own copy, attrs too: reparent() mutates the live
+        # span under the collector lock.
+        for tap in self._taps:
+            try:
+                tap({**span, "attrs": dict(span.get("attrs") or {})})
+            except Exception:  # noqa: BLE001 - a broken subscriber must
+                pass  # never take the finishing path down with it
 
     def spans(self) -> List[dict]:
         with self._lock:

@@ -7,8 +7,9 @@ v5p host and the port's over four H100s of the fake NVML, each with its own
 controller, fake API server and fake PodResources. Each corruption fires
 exactly its invariant on both planes, with the same labels, and clears
 after the repair. Then the port's daemon: the flag and the auditor's
-lifecycle, ``degraded_consistency`` over the tracker, and SIGHUP leaving
-the tracker one degraded mode per live generation.
+lifecycle, ``degraded_consistency`` over the tracker, ``lock_order`` on a
+seeded lockdep cycle, the flight dump of a new critical finding, and SIGHUP
+leaving the tracker one degraded mode per live generation.
 """
 
 import json
@@ -24,12 +25,14 @@ from k8s_device_plugin_tpu import audit as jax_audit
 from k8s_device_plugin_tpu.utils import decisions as jax_decisions
 from k8s_device_plugin_tpu.utils import flightrecorder as jax_flight
 from k8s_device_plugin_tpu.utils import metrics as jax_metrics
+from k8s_device_plugin_tpu.utils import profiling as jax_profiling
 from k8s_device_plugin_tpu.utils import resilience as jax_resilience
 from k8s_device_plugin_tpu_torch import audit
 from k8s_device_plugin_tpu_torch.server.plugin import GpuDevicePlugin, PluginConfig
 from k8s_device_plugin_tpu_torch.supervisor import main
 from k8s_device_plugin_tpu_torch.topology.links import LinkTopology
-from k8s_device_plugin_tpu_torch.utils import decisions, flightrecorder, metrics, resilience
+from k8s_device_plugin_tpu_torch.utils import (decisions, flightrecorder, metrics, profiling,
+                                               resilience)
 from tests import torch_fake_nvml as fk
 from tests import torch_kube_planes as planes
 from tests.fake_apiserver import FakeApiServer
@@ -48,7 +51,7 @@ PLANES = {
 }
 NODE_INVARIANTS = {"checkpoint_vs_podresources", "annotation_vs_kubelet",
                    "attribution_vs_kubelet", "gauge_vs_state", "orphaned_chip",
-                   "thread_liveness", "degraded_consistency"}
+                   "thread_liveness", "lock_order", "degraded_consistency"}
 
 
 @pytest.fixture(scope="module")
@@ -141,10 +144,7 @@ def test_engine_metrics_flight_ledger_lockstep(plane):
 @pytest.mark.parametrize("plane", ["jax", "torch"])
 def test_severity_escalation_is_a_new_detection(plane, tmp_path):
     p = PLANES[plane]
-    if plane == "jax":
-        p.recorder.enable(service="plugin", dump_dir=str(tmp_path))
-    else:
-        p.recorder.enable(service="plugin")
+    p.recorder.enable(service="plugin", dump_dir=str(tmp_path))
     p.ledger.enable(service="plugin")
     sev = {"v": p.audit.WARNING}
     engine = p.audit.AuditEngine("plugin", [p.audit.Invariant(
@@ -156,6 +156,72 @@ def test_severity_escalation_is_a_new_detection(plane, tmp_path):
     engine.sweep_once()
     assert flight_states(p) == [("detected", "warning"), ("detected", "critical"),
                                 ("cleared", "warning")]
+    assert [f for f in os.listdir(tmp_path) if "audit_critical" in f]
+
+
+@pytest.mark.parametrize("plane", ["jax", "torch"])
+def test_new_critical_finding_dumps_the_ring_once(plane, tmp_path):
+    """A critical finding's first detection dumps the flight ring to the
+    flight dir (``audit_critical``); while it persists no sweep dumps
+    again, and a warning never dumps."""
+    p = PLANES[plane]
+    p.recorder.enable(service="plugin", dump_dir=str(tmp_path))
+    p.ledger.enable(service="plugin")
+    found = {"v": []}
+    engine = p.audit.AuditEngine("plugin", [p.audit.Invariant(
+        "orphaned_chip", ("a", "b"), "test", lambda: list(found["v"]))], interval_s=60)
+    p.recorder.record("allocate", "lead-up", chips="c0")
+    found["v"] = [p.audit.Finding.make("orphaned_chip", p.audit.WARNING, "w", node=NODE)]
+    engine.sweep_once()
+    assert not os.listdir(tmp_path)
+    found["v"] = [p.audit.Finding.make("orphaned_chip", p.audit.CRITICAL, "leak", pod="ml/x",
+                                       node=NODE)]
+    for _ in range(3):
+        engine.sweep_once()
+    (dump,) = [f for f in os.listdir(tmp_path) if "audit_critical" in f]
+    doc = json.load(open(tmp_path / dump))
+    assert doc["reason"] == "audit_critical" and doc["service"] == "plugin"
+    kinds = [e["kind"] for e in doc["events"]]
+    assert kinds[0] == "allocate" and "audit_divergence" in kinds
+
+
+def _nest(a, b):
+    with a:
+        with b:
+            pass
+
+
+@pytest.mark.parametrize("plane", ["jax", "torch"])
+def test_lock_order_goes_critical_on_a_seeded_cycle(plane, monkeypatch, tmp_path):
+    """Two TimedLocks nested in opposite orders on a private graph: the
+    lock_order invariant reports one CRITICAL finding naming both locks,
+    and the engine's sweep dumps the ring for it."""
+    p = PLANES[plane]
+    prof = jax_profiling if plane == "jax" else profiling
+    g = prof.LockdepGraph().enable()
+    a = prof.TimedLock("lock_a", lockdep=g)
+    b = prof.TimedLock("lock_b", lockdep=g)
+    for pair in ((a, b), (b, a)):
+        t = threading.Thread(target=_nest, args=pair)
+        t.start()
+        t.join()
+    monkeypatch.setattr(prof, "LOCKDEP", g)
+    (f,) = p.audit.check_lock_order()
+    assert (f.invariant, f.severity) == ("lock_order", p.audit.CRITICAL)
+    assert "lock_a@" in f.message and "lock_b@" in f.message
+    assert int(dict(f.details)["witnesses"]) == 2
+    p.recorder.enable(service="plugin", dump_dir=str(tmp_path))
+    engine = p.audit.AuditEngine("plugin", [p.audit.lock_order_invariant()], interval_s=60)
+    assert [x.invariant for x in engine.sweep_once()] == ["lock_order"]
+    assert [x for x in os.listdir(tmp_path) if "audit_critical" in x]
+    assert p.metrics.AUDIT_FINDINGS.get(invariant="lock_order", severity="critical") == 1
+
+
+@pytest.mark.parametrize("plane", ["jax", "torch"])
+def test_lock_order_clean_without_cycles(plane, monkeypatch):
+    prof = jax_profiling if plane == "jax" else profiling
+    monkeypatch.setattr(prof, "LOCKDEP", prof.LockdepGraph().enable())
+    assert PLANES[plane].audit.check_lock_order() == []
 
 
 @pytest.mark.parametrize("plane", ["jax", "torch"])
@@ -244,9 +310,9 @@ def test_e2e_clean_cluster_zero_findings_across_two_sweeps(node_stack):
     snap = s.engine.snapshot()
     assert snap["errors"] == {}
     invariants = {i["name"] for i in snap["invariants"]}
-    # The JAX set adds lock_order and loop_inventory, not ported yet.
+    # The JAX set adds loop_inventory, not ported yet.
     assert invariants == (NODE_INVARIANTS if s.name == "torch"
-                          else NODE_INVARIANTS | {"lock_order", "loop_inventory"})
+                          else NODE_INVARIANTS | {"loop_inventory"})
 
 
 def test_e2e_stale_annotation_fires_and_clears(node_stack):

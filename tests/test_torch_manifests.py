@@ -62,7 +62,8 @@ def test_daemonset_mounts_the_kubelet_dirs_and_targets_nvidia_nodes():
     assert str(Path(constants.POD_RESOURCES_SOCKET).parent) in mounts
     host = {v["name"]: v["hostPath"]["path"] for v in spec["volumes"] if "hostPath" in v}
     for m in container()["volumeMounts"]:
-        assert host[m["name"]] == m["mountPath"]
+        if m["name"] != "captures":  # the one emptyDir, held below
+            assert host[m["name"]] == m["mountPath"]
     assert any(t["key"] == constants.RESOURCE_NAME for t in spec["tolerations"])
     assert all(k.startswith(constants.RESOURCE_NAME) for k in spec["nodeSelector"])
     account = ds["ServiceAccount"]["metadata"]
@@ -71,6 +72,29 @@ def test_daemonset_mounts_the_kubelet_dirs_and_targets_nvidia_nodes():
     assert binding["roleRef"]["name"] == ds["ClusterRole"]["metadata"]["name"]
     assert binding["subjects"] == [{"kind": "ServiceAccount", "name": account["name"],
                                     "namespace": account["namespace"]}]
+
+
+def test_daemonset_keeps_its_evidence_on_the_captures_volume():
+    """The profiler, the SLO capture and the black box as the JAX
+    DaemonSet runs them, the capture bundles and the black box's segments
+    on an emptyDir that outlives a container restart."""
+    c = container()
+    cfg = main.parse_args(c["args"])
+    assert (cfg.profile_hz, cfg.capture_dir, cfg.capture_p99_ms, cfg.blackbox_dir) == (
+        19.0, "/var/lib/tpu-plugin/captures", 250.0, "/var/lib/tpu-plugin/blackbox")
+    jax = yaml.safe_load_all((ROOT / "deploy" / "tpu-device-plugin.yml").read_text())
+    (jax_c,) = [d for d in jax if d and d["kind"] == "DaemonSet"][0][
+        "spec"]["template"]["spec"]["containers"]
+    for flag in ("--profile-hz=19", "--capture-dir=/var/lib/tpu-plugin/captures",
+                 "--capture-p99-ms=250", "--blackbox-dir=/var/lib/tpu-plugin/blackbox"):
+        assert flag in c["args"] and flag in jax_c["args"], flag
+    (mount,) = [m for m in c["volumeMounts"] if m["name"] == "captures"]
+    assert mount["mountPath"] == "/var/lib/tpu-plugin"
+    for d in (cfg.capture_dir, cfg.blackbox_dir):
+        assert Path(d).parent == Path(mount["mountPath"])
+    spec = docs(DAEMONSET)["DaemonSet"]["spec"]["template"]["spec"]
+    (vol,) = [v for v in spec["volumes"] if v["name"] == "captures"]
+    assert vol == {"name": "captures", "emptyDir": {"sizeLimit": "256Mi"}}
 
 
 def test_smoke_pod_requests_the_resource_and_runs_the_port_smoke():

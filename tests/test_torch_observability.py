@@ -46,10 +46,10 @@ from tests.torch_kube_planes import stop_in_background
 
 ROOT = Path(__file__).resolve().parents[1]
 WAIT_S = 15
-# The surfaces the port serves; the extender's and the profilers' come with
-# their planes.
+# The surfaces the port serves; the extender's come with the extender.
 PORT_DEBUG = {"/debug/traces", "/debug/events", "/debug/decisions", "/debug/telemetry",
-              "/debug/audit", "/debug/resilience"}
+              "/debug/audit", "/debug/resilience", "/debug/profile", "/debug/lockdep",
+              "/debug/blackbox"}
 
 
 @pytest.fixture(scope="module")
@@ -181,7 +181,7 @@ def test_debug_index_lists_the_port_surfaces_and_404s_others():
             r = requests.get(f"{url}{path}", timeout=5)
             assert r.status_code == 200 and r.headers["Content-Type"] == "application/json"
             assert isinstance(r.json(), dict), path
-        for path in ("/debug/profile", "/debug/lockdep", "/debug/blackbox", "/debug/nope"):
+        for path in ("/debug/nope",):
             assert requests.get(f"{url}{path}", timeout=5).status_code == 404, path
     finally:
         srv.stop()
@@ -337,7 +337,8 @@ def test_cli_daemon_serves_the_observability_plane(tmp_path):
         assert audit["enabled"] and audit["findings"] == [] and audit["errors"] == {}
         assert {i["name"] for i in audit["invariants"]} == {
             "checkpoint_vs_podresources", "annotation_vs_kubelet", "attribution_vs_kubelet",
-            "gauge_vs_state", "orphaned_chip", "thread_liveness", "degraded_consistency"}
+            "gauge_vs_state", "orphaned_chip", "thread_liveness", "lock_order",
+            "degraded_consistency"}
         assert len(tel["chips"]) == 2 and tel["node"]["free"] == 2
         assert set(get("/debug").json()["endpoints"]) == PORT_DEBUG
         resilience = get("/debug/resilience").json()

@@ -393,8 +393,38 @@ def test_parse_args_takes_the_kube_planes_flags(monkeypatch):
         "n1", "/kc", False, 2.5, "", False, 7.0)
 
 
-@pytest.mark.parametrize("flag", ["--profile-hz=10", "--blackbox-dir=/bb", "--lockdep",
-                                  "--libtpu-path=", "--accelerator-type=v5e", "--dra",
+EVIDENCE_FIELDS = ("flight_dir", "profile_hz", "capture_dir", "capture_p99_ms", "lockdep",
+                   "blackbox_dir", "blackbox_fsync_s")
+EVIDENCE_ENV = ("TPU_FLIGHT_DIR", "TPU_PROFILE_HZ", "TPU_CAPTURE_DIR", "TPU_CAPTURE_P99_MS",
+                "TPU_LOCKDEP", "TPU_BLACKBOX_DIR", "TPU_BLACKBOX_FSYNC_S")
+
+
+@pytest.mark.parametrize("plane", ["jax", "torch"])
+def test_parse_args_takes_the_evidence_planes_flags(plane, monkeypatch):
+    """The seven flags of the profiler, the capture, lockdep, the flight
+    dumps and the black box parse to the JAX defaults and values on both
+    planes; the port's read no environment alias."""
+    for name in EVIDENCE_ENV:
+        monkeypatch.delenv(name, raising=False)
+    parse = jax_main.parse_args if plane == "jax" else main.parse_args
+    jax = jax_main.parse_args([])
+    cfg = parse([])
+    assert [getattr(cfg, f) for f in EVIDENCE_FIELDS] == [getattr(jax, f) for f in EVIDENCE_FIELDS]
+    assert [getattr(cfg, f) for f in EVIDENCE_FIELDS] == ["", 0.0, "", 0.0, False, "", 2.0]
+    argv = ["--flight-dir", "/fl", "--profile-hz", "19", "--capture-dir", "/cap",
+            "--capture-p99-ms", "250", "--lockdep", "--blackbox-dir", "/bb",
+            "--blackbox-fsync-s", "0.5"]
+    cfg = parse(argv)
+    assert [getattr(cfg, f) for f in EVIDENCE_FIELDS] == [
+        "/fl", 19.0, "/cap", 250.0, True, "/bb", 0.5]
+    if plane == "torch":
+        for name, value in zip(EVIDENCE_ENV, ("/e", "7", "/e", "9", "1", "/e", "3")):
+            monkeypatch.setenv(name, value)
+        cfg = parse([])
+        assert [getattr(cfg, f) for f in EVIDENCE_FIELDS] == ["", 0.0, "", 0.0, False, "", 2.0]
+
+
+@pytest.mark.parametrize("flag", ["--libtpu-path=", "--accelerator-type=v5e", "--dra",
                                   "--registration-mode=bogus"])
 def test_parse_args_refuses_flags_of_planes_not_ported(flag):
     """A flag of a plane this daemon does not have is refused, never
