@@ -225,11 +225,50 @@ caught while the run goes on:
    black box's records, bytes and rotations; and the card's name and power
    limit.
 
+17. DRA claim → pod: a second daemon, ``python -m k8s_device_plugin_tpu_torch
+   --dra`` with phase 16's evidence flags (``--profile-hz 19 --lockdep
+   --flight-dir --blackbox-dir --blackbox-fsync-s 0.5 --capture-dir
+   --capture-p99-ms 0.05``), ``--kubeconfig`` naming a new
+   ``FakeApiServer``, ``--podresources-socket ""``, and its device-plugin,
+   ``--plugins-dir``, ``--plugins-registry-dir`` and ``--cdi-dir`` dirs
+   under one short temporary dir in /tmp (a unix socket path holds 107
+   bytes), beside a stand-in kubelet's Registration service. A stand-in
+   plugin watcher dials ``gpu.nvidia.com-reg.sock``: ``GetInfo`` must
+   answer type ``DRAPlugin``, the driver's name, its ``dra.sock`` and both
+   service names, and it sends ``NotifyRegistrationStatus``. The node's
+   ResourceSlice must list one device a card nvidia-smi lists, named
+   ``gpu-<index>``, with nvidia-smi's UUID as ``chipId`` and ``hbm`` within
+   1% of its memory.total. Then a ResourceClaim allocated to this card (its
+   UUID from torch, its index from nvidia-smi) and ``NodePrepareResources``
+   on the GA method path: the response names the device and the claim's CDI
+   id, and the CDI spec names this card: every device node's host path
+   exists, ``NVIDIA_VISIBLE_DEVICES`` is its UUID and
+   ``TPU_PLUGIN_ALLOCATED_CHIPS`` 1. While the claim is prepared the
+   classic plane's ``GetPreferredAllocation`` offers nothing and
+   ``Allocate`` of the card answers RESOURCE_EXHAUSTED, and
+   ``tpu_plugin_dra_prepared_claims`` reads 1. The pod is
+   ``workload.smoke --bench --steps 5`` with the spec's env and
+   ``CUDA_VISIBLE_DEVICES`` from ``NVIDIA_VISIBLE_DEVICES``, in its own
+   process: ok, on one expected device, the UUID it reports equal to the
+   claim's card, each flash kernel and delta launched ``n_layers`` times a
+   step it ran (its own counts) and the RMSNorm kernel not at all.
+   ``NodeUnprepareResources`` must remove the spec, the gauge must read 0,
+   and a classic ``Allocate`` of the card must then succeed;
+   ``/metrics`` must export the heartbeat age of ``dra_slice_publisher``.
+   SIGTERM must end the daemon with code 0 and its DRA sockets removed,
+   and its black box must read clean, end in ``stop`` and hold the
+   publisher's heartbeat. One line with the times from the start to
+   ``Register`` and to the first ResourceSlice, of the two DRA RPCs, from
+   the prepare to the pod's ``devices_up``, first step and report, the
+   pod's step beside phase 5's, SIGTERM's, and the card's name and power
+   limit.
+
 Then one ``{"kernels": [...]}`` line (each kernel's launches from the path
 that runs it: K1-K3 from phase 5, K4 from phase 6; every path's counts
 under ``launches_by_path``, phase 10's as ``sharded``, phase 11's as
 ``moe`` and ``ring``, phase 12's as ``resume``, phase 14's as
-``kv_sweep``, phase 16's, from the pod's report, as ``plugin_pod``) and,
+``kv_sweep``, phase 16's, from the pod's report, as ``plugin_pod``,
+phase 17's, from its pod's report, as ``dra_pod``) and,
 last, the device line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when CUDA is not available or the port's package is not beside
@@ -2208,6 +2247,278 @@ def phase_plugin_pod(main_report: dict) -> dict:
     return launches
 
 
+DRA_POD_ARGS = ("-m", "k8s_device_plugin_tpu_torch.workload.smoke", "--bench", "--steps", "5")
+DRA_DRIVER = "gpu.nvidia.com"
+DRA_NODE = "dra-node"
+DRA_CLAIM_UID = "dra-claim-uid"
+# The slice's memory capacity against nvidia-smi's memory.total (MiB).
+DRA_HBM_RTOL = 0.01
+
+
+def phase_dra_pod(main_report: dict) -> dict:
+    """A ResourceClaim's pod: the DRA plane stages this card through a CDI
+    spec, the classic plane refuses the card while the claim holds it, and
+    the pod trains on the card the claim names."""
+    import grpc
+
+    from k8s_device_plugin_tpu_torch.api import constants
+    from k8s_device_plugin_tpu_torch.api import deviceplugin_pb2 as pb
+    from k8s_device_plugin_tpu_torch.api import dra_pb2 as drapb
+    from k8s_device_plugin_tpu_torch.api import pluginregistration_pb2 as regpb
+    from k8s_device_plugin_tpu_torch.api.grpc_defs import (
+        DRA_PLUGIN_SERVICE_V1, DRA_PLUGIN_SERVICES, DevicePluginStub, DraPluginStub,
+        WatcherRegistrationStub)
+    from k8s_device_plugin_tpu_torch.utils.blackbox import read_dir
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
+    from tests.fake_apiserver import FakeApiServer
+
+    torch.cuda.empty_cache()
+    smi = {}
+    for row in subprocess.run(
+            ["nvidia-smi", "--query-gpu=index,uuid,memory.total", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, timeout=60, check=True).stdout.splitlines():
+        index, uuid, mib = (v.strip() for v in row.split(","))
+        smi[uuid] = (int(index), int(mib))
+    uuid = f"GPU-{torch.cuda.get_device_properties(torch.cuda.current_device()).uuid}"
+    if uuid not in smi:
+        fail(f"the run's card {uuid} is not among nvidia-smi's {sorted(smi)}")
+    device = f"gpu-{smi[uuid][0]}"
+    # Every socket under one short dir: a unix socket path holds 107 bytes.
+    work = Path(tempfile.mkdtemp(prefix="dra", dir="/tmp"))
+    dp_dir, plugins, registry, cdi_dir = (work / n for n in ("dp", "plugins", "registry", "cdi"))
+    dp_dir.mkdir()
+    flight_dir, blackbox_dir, capture_dir = work / "flight", work / "blackbox", work / "captures"
+    api = FakeApiServer()
+    kubelet = Kubelet(str(dp_dir))
+    api_url = api.start()
+    api.add_node(DRA_NODE)
+    kubeconfig = work / "kubeconfig.json"
+    kubeconfig.write_text(json.dumps({
+        "apiVersion": "v1", "kind": "Config", "current-context": "smoke",
+        "contexts": [{"name": "smoke", "context": {"cluster": "fake", "user": "smoke"}}],
+        "clusters": [{"name": "fake", "cluster": {"server": api_url}}],
+        "users": [{"name": "smoke", "user": {"token": "smoke"}}],
+    }))
+    slice_name = re.sub(r"[^a-z0-9.-]", "-", f"{DRA_NODE}-{DRA_DRIVER}")
+    log_path = work / "daemon.log"
+    line: dict = {"nvidia_smi": nvidia_smi(), "card": uuid, "device": device}
+    channels = []
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    with open(log_path, "w") as log_file:
+        t_start = time.monotonic()
+        daemon = subprocess.Popen([sys.executable, "-m", "k8s_device_plugin_tpu_torch", "--dra",
+                                   "--device-plugin-dir", str(dp_dir), "--node-name", DRA_NODE,
+                                   "--kubeconfig", str(kubeconfig), "--podresources-socket", "",
+                                   "--plugins-dir", str(plugins),
+                                   "--plugins-registry-dir", str(registry),
+                                   "--cdi-dir", str(cdi_dir), "--metrics-port", str(port),
+                                   "--profile-hz", str(PROFILE_HZ), "--lockdep",
+                                   "--flight-dir", str(flight_dir),
+                                   "--blackbox-dir", str(blackbox_dir),
+                                   "--blackbox-fsync-s", str(BLACKBOX_FSYNC_S),
+                                   "--capture-dir", str(capture_dir),
+                                   "--capture-p99-ms", str(CAPTURE_P99_MS)],
+                                  cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT)
+    try:
+        def daemon_fail(msg: str) -> None:
+            print(log_path.read_text()[-4000:], file=sys.stderr, flush=True)
+            fail(msg)
+
+        def until(pred, what: str):
+            """Poll ``pred`` every 2 ms until it gives a value: (time, value)."""
+            deadline = time.monotonic() + PLUGIN_WAIT_S
+            while not (value := pred()):
+                if time.monotonic() > deadline:
+                    daemon_fail(f"not seen within {PLUGIN_WAIT_S} s: {what}")
+                time.sleep(0.002)
+            return time.monotonic(), value
+
+        def channel(path: Path):
+            ch = grpc.insecure_channel(f"unix:{path}")
+            channels.append(ch)
+            grpc.channel_ready_future(ch).result(timeout=PLUGIN_WAIT_S)
+            return ch
+
+        def metric(name: str, **labels):
+            status, body = http_get(base + "/metrics")
+            return sample_value(parse_metrics(body.decode()), name, **labels) if status == 200 \
+                else None
+
+        # 1. The classic plane registers with the kubelet; the DRA plane
+        # is dialled by a stand-in plugin watcher on its registry socket.
+        t_reg, req, _ = kubelet.next_registration()
+        line["start_to_register_s"] = t_reg - t_start
+        reg_sock = registry / f"{DRA_DRIVER}-reg.sock"
+        dra_sock = plugins / DRA_DRIVER / "dra.sock"
+        until(reg_sock.exists, str(reg_sock))
+        watcher = WatcherRegistrationStub(channel(reg_sock))
+        info = watcher.GetInfo(regpb.InfoRequest(), timeout=PLUGIN_WAIT_S)
+        if (info.type, info.name, info.endpoint, list(info.supported_versions)) != (
+                "DRAPlugin", DRA_DRIVER, str(dra_sock), list(DRA_PLUGIN_SERVICES)):
+            daemon_fail(f"the registry socket's PluginInfo: {info}")
+        watcher.NotifyRegistrationStatus(regpb.RegistrationStatus(plugin_registered=True),
+                                         timeout=PLUGIN_WAIT_S)
+        classic = DevicePluginStub(channel(dp_dir / req.endpoint))
+
+        # 2. The node's ResourceSlice: every card nvidia-smi lists.
+        t_slice, obj = until(lambda: api.resourceslices.get(slice_name), "the ResourceSlice")
+        line["start_to_slice_s"] = t_slice - t_start
+        devices = {d["name"]: d for d in obj["spec"]["devices"]}
+        published = {d["attributes"]["chipId"]["string"]: (
+            name, int(d["capacity"]["hbm"]["value"])) for name, d in devices.items()}
+        line["slice"] = {"api_version": obj["apiVersion"], "devices": sorted(devices),
+                         "generation": obj["spec"]["pool"]["generation"]}
+        if sorted(published) != sorted(smi) or any(
+                published[u][0] != f"gpu-{i}"
+                or abs(published[u][1] / 2 ** 20 - mib) > DRA_HBM_RTOL * mib
+                for u, (i, mib) in smi.items()):
+            daemon_fail(f"the slice's devices {published}; nvidia-smi: {smi}")
+
+        # 3. The scheduler's allocation of this card to a claim, and the
+        # kubelet's prepare (on the GA method path).
+        api.add_resource_claim({
+            "apiVersion": "resource.k8s.io/v1", "kind": "ResourceClaim",
+            "metadata": {"name": "smoke-claim", "namespace": "default", "uid": DRA_CLAIM_UID},
+            "status": {"allocation": {"devices": {"results": [
+                {"request": "gpu", "driver": DRA_DRIVER, "pool": DRA_NODE, "device": device}]}}},
+        })
+        dra = DraPluginStub(channel(dra_sock), service=DRA_PLUGIN_SERVICE_V1)
+        preq = drapb.NodePrepareResourcesRequest()
+        preq.claims.add(namespace="default", name="smoke-claim", uid=DRA_CLAIM_UID)
+        t_prepare = time.monotonic()
+        result = dra.NodePrepareResources(preq, timeout=PLUGIN_WAIT_S).claims[DRA_CLAIM_UID]
+        line["prepare_ms"] = (time.monotonic() - t_prepare) * 1e3
+        cdi_id = f"nvidia.com/gpu=claim-{DRA_CLAIM_UID}"
+        if result.error or [(d.device_name, list(d.cdi_device_ids)) for d in result.devices] != [
+                (device, [cdi_id])]:
+            daemon_fail(f"NodePrepareResources answered {result}")
+
+        # 4. The claim's CDI spec names this card; the classic plane refuses it.
+        spec_path = cdi_dir / f"nvidia.com-gpu-claim-{DRA_CLAIM_UID}.json"
+        spec = json.loads(spec_path.read_text())
+        (cdi_dev,) = spec["devices"]
+        edits = cdi_dev["containerEdits"]
+        env = dict(e.split("=", 1) for e in edits["env"])
+        nodes = [n["hostPath"] for n in edits["deviceNodes"]]
+        line["cdi"] = {"kind": spec["kind"], "device": cdi_dev["name"], "device_nodes": nodes,
+                       "env": env}
+        if (spec["kind"] != "nvidia.com/gpu" or cdi_dev["name"] != f"claim-{DRA_CLAIM_UID}"
+                or not nodes or not all(os.path.exists(n) for n in nodes)
+                or env != {constants.NVIDIA_VISIBLE_DEVICES: uuid,
+                           "TPU_PLUGIN_ALLOCATED_CHIPS": "1"}):
+            daemon_fail(f"the claim's CDI spec {spec}")
+        pref = pb.PreferredAllocationRequest()
+        pref.container_requests.add(available_deviceIDs=[uuid], allocation_size=1)
+        offered = list(classic.GetPreferredAllocation(pref, timeout=PLUGIN_WAIT_S)
+                       .container_responses[0].deviceIDs)
+        areq = pb.AllocateRequest()
+        areq.container_requests.add(devicesIDs=[uuid])
+        try:
+            classic.Allocate(areq, timeout=PLUGIN_WAIT_S)
+            code = grpc.StatusCode.OK
+        except grpc.RpcError as e:
+            code = e.code()
+        line["classic_while_prepared"] = {"preferred": offered, "allocate": code.name}
+        if offered or code != grpc.StatusCode.RESOURCE_EXHAUSTED:
+            daemon_fail(f"the classic plane offered {offered} and answered {code} for the "
+                        f"claim's card")
+        if metric("tpu_plugin_dra_prepared_claims") != 1:
+            daemon_fail("tpu_plugin_dra_prepared_claims does not read 1 with the claim prepared")
+
+        # 5. The pod, with the spec's env; CUDA_VISIBLE_DEVICES stands in
+        # for what the NVIDIA container runtime makes of
+        # NVIDIA_VISIBLE_DEVICES.
+        pod_env = dict(os.environ, **env)
+        pod_env["CUDA_VISIBLE_DEVICES"] = env[constants.NVIDIA_VISIBLE_DEVICES]
+        pod = subprocess.Popen([sys.executable, *DRA_POD_ARGS], cwd=ROOT, env=pod_env,
+                               text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        report = None
+        for raw in pod.stdout:  # stderr is read after it exits, as in phase 16
+            if not raw.startswith("{"):
+                continue
+            snap = json.loads(raw)
+            if "partial" in snap:
+                line.setdefault("prepare_to_stage_s", {}).setdefault(
+                    snap["partial"], time.monotonic() - t_prepare)
+            else:
+                report = snap
+                line["prepare_to_report_s"] = time.monotonic() - t_prepare
+        rc = pod.wait(timeout=60)
+        err = pod.stderr.read()
+        pod.stderr.close()
+        if rc != 0 or report is None:
+            print(err[-4000:], file=sys.stderr, flush=True)
+            fail(f"the claim's pod exited {rc} with report {report}")
+        n_layers = ModelConfig.bench().n_layers
+        launches = report["kernel_launches"]
+        line["pod"] = {k: report.get(k) for k in (
+            "ok", "device_kind", "device_uuid", "expected_devices", "devices_match", "steps_run",
+            "time_to_devices_s", "time_to_first_step_s", "step_time_s", "mfu", "first_loss",
+            "kernel_launches")}
+        line["main_path_step_time_s"] = main_report.get("step_time_s")
+        if not (report["ok"] and report["expected_devices"] == 1 and report["devices_match"]):
+            fail(f"the claim's pod is not ok: {line['pod']}")
+        if report.get("device_uuid") != uuid:
+            fail(f"the claim's pod ran on {report.get('device_uuid')}, not the claim's {uuid}")
+        want = {name: n_layers * report["steps_run"] for name in FLASH}
+        want["rmsnorm"] = 0
+        if launches != want:
+            fail(f"the claim's pod launched {launches}, expected {want}")
+
+        # 6. Unprepare: the spec goes, the gauge reads 0, the classic plane
+        # hands the card out again.
+        ureq = drapb.NodeUnprepareResourcesRequest()
+        ureq.claims.add(namespace="default", name="smoke-claim", uid=DRA_CLAIM_UID)
+        t0 = time.monotonic()
+        uresult = dra.NodeUnprepareResources(ureq, timeout=PLUGIN_WAIT_S).claims[DRA_CLAIM_UID]
+        line["unprepare_ms"] = (time.monotonic() - t0) * 1e3
+        if uresult.error or spec_path.exists():
+            daemon_fail(f"NodeUnprepareResources answered {uresult}; spec left: "
+                        f"{spec_path.exists()}")
+        if metric("tpu_plugin_dra_prepared_claims") != 0:
+            daemon_fail("tpu_plugin_dra_prepared_claims does not read 0 after the unprepare")
+        cresp = classic.Allocate(areq, timeout=PLUGIN_WAIT_S).container_responses[0]
+        if cresp.envs.get(constants.NVIDIA_VISIBLE_DEVICES) != uuid:
+            daemon_fail(f"the classic Allocate after the unprepare: {dict(cresp.envs)}")
+        # The stall watchdog exports every loop's heartbeat age on its tick.
+        _, (line["publisher_heartbeat_age_s"],) = until(
+            lambda: (age := metric("tpu_thread_heartbeat_age_seconds",
+                                   loop="dra_slice_publisher")) is not None and (age,),
+            "dra_slice_publisher's heartbeat age on /metrics")
+
+        # 7. SIGTERM: exit 0; the black box ends in stop and holds the
+        # publisher's heartbeat.
+        t0 = time.monotonic()
+        daemon.send_signal(signal.SIGTERM)
+        rc = daemon.wait(timeout=PLUGIN_WAIT_S)
+        line["sigterm_to_exit_s"] = time.monotonic() - t0
+        line["daemon_rc"] = rc
+        records, meta = read_dir(str(blackbox_dir))
+        beats = {b["name"] for r in records if r["kind"] == "heartbeats"
+                 for b in r["data"]["beats"]}
+        line["blackbox"] = {"records": len(records), "segments": len(meta["segments"]),
+                            "heartbeat_loops": sorted(beats)}
+        emit({"dra_pod": line})
+        if rc != 0 or dra_sock.exists() or reg_sock.exists():
+            daemon_fail(f"SIGTERM: the daemon exited {rc}; DRA sockets left: "
+                        f"{dra_sock.exists()}, {reg_sock.exists()}")
+        if ({seg["status"] for seg in meta["segments"]} != {"clean"} or not records
+                or records[-1]["kind"] != "stop" or "dra_slice_publisher" not in beats):
+            daemon_fail(f"the black box: segments {meta['segments']}, heartbeat loops "
+                        f"{sorted(beats)}, last record {records[-1:] and records[-1]['kind']}")
+    finally:
+        if daemon.poll() is None:
+            daemon.kill()
+            daemon.wait()
+        for ch in channels:
+            ch.close()
+        kubelet.server.stop(grace=0)
+        api.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA "
@@ -2238,6 +2549,7 @@ def main() -> int:
     sweep_launches = phase_kv_sweep(entries)
     phase_bench_leg()
     pod_launches = phase_plugin_pod(main_report)
+    dra_launches = phase_dra_pod(main_report)
     dist.destroy_process_group()
     path_launches = {name: (launches[name], steps) for name in FLASH}
     path_launches["rmsnorm"] = (norm_launches["rmsnorm"], norm_steps)
@@ -2245,7 +2557,7 @@ def main() -> int:
                "generate_dense": dense_gen, "generate_flash": flash_gen,
                "sharded": sharded_launches, "moe": moe_launches, "ring": ring_launches,
                "resume": resume_launches, "kv_sweep": sweep_launches,
-               "plugin_pod": pod_launches}
+               "plugin_pod": pod_launches, "dra_pod": dra_launches}
     emit({"kernels": [
         dict(entries[name], launches=n, launches_per_step=n / per,
              launches_by_path={path: counts[name] for path, counts in by_path.items()})

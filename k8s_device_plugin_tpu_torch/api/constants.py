@@ -1,7 +1,7 @@
 """Device-plugin protocol constants: the names of the JAX package's
 ``api/constants.py`` that the port's node daemon reads, with NVIDIA values
-where the two differ. The DRA and the extender-only names come with their
-planes."""
+where the two differ. The extender-only names come with its plane; the DRA
+plane's live in ``dra/``."""
 
 # Protocol version spoken over the Registration/DevicePlugin services.
 VERSION = "v1beta1"

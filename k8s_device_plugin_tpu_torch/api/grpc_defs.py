@@ -1,14 +1,13 @@
 """Hand-written gRPC service wiring for the device-plugin v1beta1 API: the
-part of the JAX package's ``api/grpc_defs.py`` that the device-plugin
-server and the pod controller use (the DevicePlugin, Registration,
-plugin-watcher and kubelet PodResources services and their client stubs).
-The DRA service comes with its plane.
+counterpart of the JAX package's ``api/grpc_defs.py`` (the DevicePlugin,
+Registration, plugin-watcher, kubelet PodResources and DRAPlugin services
+and their client stubs).
 
 grpcio ships the runtime but not protoc's gRPC code generator, so the
 service descriptors that ``protoc --grpc_python_out`` would emit are
 written here against grpc's generic-handler and multicallable APIs. The
-message classes come from ``deviceplugin_pb2``, ``pluginregistration_pb2``
-and ``podresources_pb2``.
+message classes come from ``deviceplugin_pb2``, ``pluginregistration_pb2``,
+``podresources_pb2`` and ``dra_pb2``.
 
 Wire-compatible with the kubelet: the method paths are
 "/v1beta1.Registration/Register" and "/v1beta1.DevicePlugin/<Method>", as
@@ -20,6 +19,7 @@ from __future__ import annotations
 import grpc
 
 from . import deviceplugin_pb2 as pb
+from . import dra_pb2 as drapb
 from . import pluginregistration_pb2 as regpb
 from . import podresources_pb2 as prpb
 
@@ -177,6 +177,59 @@ class WatcherRegistrationStub:
 
 
 # ---------------------------------------------------------------------------
+# DRA plugin service: the plugin serves it on a socket under
+# <plugins dir>/<driver>/ and announces it through the plugins_registry
+# watcher with type "DRAPlugin". The kubelet picks the method path by FULL
+# gRPC service name ("v1.DRAPlugin" from Kubernetes 1.33, GA;
+# "v1beta1.DRAPlugin" before), and the NodePrepare/Unprepare messages are
+# the same on the wire under both, so one set of handlers serves both
+# paths. The pb2 package is "dra", which keeps its messages apart from the
+# device-plugin v1beta1 ones in the process-wide protobuf pool.
+# ---------------------------------------------------------------------------
+
+DRA_PLUGIN_SERVICE_V1 = "v1.DRAPlugin"
+DRA_PLUGIN_SERVICE = "v1beta1.DRAPlugin"
+# Newest first: the kubelet's registration handler takes the first entry it
+# supports from PluginInfo.supported_versions.
+DRA_PLUGIN_SERVICES = (DRA_PLUGIN_SERVICE_V1, DRA_PLUGIN_SERVICE)
+
+
+class DraPluginServicer:
+    """Base class for the plugin-side DRAPlugin service."""
+
+    def NodePrepareResources(
+        self, request: drapb.NodePrepareResourcesRequest, context
+    ) -> drapb.NodePrepareResourcesResponse:
+        raise NotImplementedError
+
+    def NodeUnprepareResources(
+        self, request: drapb.NodeUnprepareResourcesRequest, context
+    ) -> drapb.NodeUnprepareResourcesResponse:
+        raise NotImplementedError
+
+
+def add_dra_plugin_servicer(servicer: DraPluginServicer, server: grpc.Server) -> None:
+    """Register the DRAPlugin handlers under both service names, so one
+    server answers the GA and the beta kubelet's method paths."""
+    handlers = {
+        "NodePrepareResources": grpc.unary_unary_rpc_method_handler(
+            servicer.NodePrepareResources,
+            request_deserializer=drapb.NodePrepareResourcesRequest.FromString,
+            response_serializer=drapb.NodePrepareResourcesResponse.SerializeToString,
+        ),
+        "NodeUnprepareResources": grpc.unary_unary_rpc_method_handler(
+            servicer.NodeUnprepareResources,
+            request_deserializer=drapb.NodeUnprepareResourcesRequest.FromString,
+            response_serializer=drapb.NodeUnprepareResourcesResponse.SerializeToString,
+        ),
+    }
+    server.add_generic_rpc_handlers(
+        tuple(grpc.method_handlers_generic_handler(service, handlers)
+              for service in DRA_PLUGIN_SERVICES)
+    )
+
+
+# ---------------------------------------------------------------------------
 # Client side
 # ---------------------------------------------------------------------------
 
@@ -287,4 +340,22 @@ class PodResourcesListerStub:
             f"/{POD_RESOURCES_SERVICE}/Get",
             request_serializer=prpb.GetPodResourcesRequest.SerializeToString,
             response_deserializer=prpb.GetPodResourcesResponse.FromString,
+        )
+
+
+class DraPluginStub:
+    """Client for the plugin's DRAPlugin service (kubelet or tests →
+    plugin). ``service`` picks the method path: a GA kubelet dials
+    DRA_PLUGIN_SERVICE_V1, a beta one DRA_PLUGIN_SERVICE."""
+
+    def __init__(self, channel: grpc.Channel, service: str = DRA_PLUGIN_SERVICE):
+        self.NodePrepareResources = channel.unary_unary(
+            f"/{service}/NodePrepareResources",
+            request_serializer=drapb.NodePrepareResourcesRequest.SerializeToString,
+            response_deserializer=drapb.NodePrepareResourcesResponse.FromString,
+        )
+        self.NodeUnprepareResources = channel.unary_unary(
+            f"/{service}/NodeUnprepareResources",
+            request_serializer=drapb.NodeUnprepareResourcesRequest.SerializeToString,
+            response_deserializer=drapb.NodeUnprepareResourcesResponse.FromString,
         )

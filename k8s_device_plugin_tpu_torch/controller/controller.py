@@ -113,10 +113,10 @@ class Controller:
         self.max_retries = max_retries
         self.resync_interval_s = resync_interval_s
         self.evict_on_unhealthy = evict_on_unhealthy
-        # Hook for the DRA plane, None until it is ported: chips →
-        # [(ns, name)] of prepared ResourceClaims holding them. DRA pods
-        # carry no devices annotation and no checkpoint entry, so eviction
-        # finds them through their claim references instead.
+        # Hook for the DRA plane (set by the daemon under --dra): chips →
+        # {(ns, name): chips} of the prepared ResourceClaims holding them.
+        # DRA pods carry no devices annotation and no checkpoint entry, so
+        # eviction finds them through their claim references instead.
         self.dra_claims_lookup = None
         self._queue: "queue.Queue" = queue.Queue()
         self._stop = threading.Event()

@@ -310,6 +310,18 @@ class KubeClient:
             mutating=True,
         )
 
+    def replace(self, path: str, body: dict) -> dict:
+        """PUT over an existing object path (a ResourceSlice). The body
+        carries the object's current resourceVersion, so a PUT that landed
+        and is retried answers 409, which makes the retry safe."""
+        return self._request_json(
+            "PUT",
+            path,
+            data=json.dumps(body),
+            headers={"Content-Type": "application/json"},
+            mutating=True,
+        )
+
     def delete(self, path: str) -> dict:
         # Idempotent: a landed-then-retried DELETE answers 404, which
         # every call site already treats as already-gone.

@@ -25,6 +25,11 @@ Where the GPU plugin differs from the TPU one is the container response:
   pod-devices annotation; and CDI names ``<cdi_kind>=<uuid>`` when
   ``cdi_kind`` is set.
 
+The env (``_gpu_env``) and the device nodes (``device_paths``) are shared
+with the DRA plane (``dra/driver.py``), which writes them into a claim's
+CDI spec, so both planes hand a container the same edits for the same
+cards.
+
 As in JAX, two hooks tell the kube plane (``controller/wiring.py``):
 ``on_availability_change`` on every allocation, free and health
 transition (the node annotation's republish), and
@@ -733,15 +738,23 @@ class GpuDevicePlugin(DevicePluginServicer):
                 host_path=path,
                 permissions=DEVICE_PERMISSIONS,
             )
-        resp.envs[constants.NVIDIA_VISIBLE_DEVICES] = ",".join(ids)
-        # The plugin's own count (not read by CUDA): the smoke pod checks
-        # that it sees exactly the allocation.
-        resp.envs["TPU_PLUGIN_ALLOCATED_CHIPS"] = str(len(chips))
+        resp.envs.update(self._gpu_env(chips))
         resp.annotations[constants.POD_DEVICES_ANNOTATION] = ",".join(ids)
         if self.config.cdi_kind:
             for i in ids:
                 resp.cdi_devices.add(name=f"{self.config.cdi_kind}={i}")
         return resp
+
+    def _gpu_env(self, chips: Sequence[GpuChip]) -> Dict[str, str]:
+        """The env of a container holding ``chips``, one source for both
+        planes (Allocate's response and a DRA claim's CDI spec): the UUIDs
+        in ``NVIDIA_VISIBLE_DEVICES``, in order, and the plugin's own
+        count, which CUDA does not read and the smoke pod checks against
+        the cards it sees."""
+        return {
+            constants.NVIDIA_VISIBLE_DEVICES: ",".join(c.device_id_str for c in chips),
+            "TPU_PLUGIN_ALLOCATED_CHIPS": str(len(chips)),
+        }
 
     def device_paths(self, chips: Sequence[GpuChip]) -> List[str]:
         """Host device nodes a container holding ``chips`` needs: each

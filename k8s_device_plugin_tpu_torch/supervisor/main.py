@@ -56,10 +56,17 @@ them, and ``run()``'s end stops them and puts the process-wide state back.
 The observability flags are read from the command line only, with no
 environment alias.
 
+With ``--dra`` each generation also serves the DRA plane
+(``dra/driver.py``) beside the device-plugin one, over the same cards and
+placement state: the node's ResourceSlice, the per-claim CDI specs in
+``--cdi-dir`` and the kubelet's DRAPlugin service under ``--plugins-dir``.
+It needs an API client: under ``--no-controller`` it builds one from the
+kube config, and a node without one logs an error and serves on without
+the plane. Its prepared claims live in their CDI specs, so a SIGHUP's
+generation takes them back from disk.
+
 The daemon reads NVML only. It never imports ``torch`` and never creates a
 CUDA context, which would cost device memory on every card of the node.
-
-DRA is the plane not ported yet that brings its flags with it.
 """
 
 from __future__ import annotations
@@ -155,6 +162,14 @@ class DaemonConfig:
     # stream is flushed every drain regardless; 0 fsyncs every drain).
     blackbox_dir: str = ""
     blackbox_fsync_s: float = 2.0
+    # The DRA (resource.k8s.io) plane: the kubelet's DRAPlugin service under
+    # <plugins_dir>/<driver name>/dra.sock, the node's ResourceSlice, and a
+    # CDI spec a prepared claim in cdi_dir. The default driver name is that
+    # of NVIDIA's public DRA driver.
+    enable_dra: bool = False
+    dra_driver_name: str = "gpu.nvidia.com"
+    plugins_dir: str = "/var/lib/kubelet/plugins"
+    cdi_dir: str = "/var/run/cdi"
 
 
 class Daemon:
@@ -195,6 +210,7 @@ class Daemon:
         self.plugin: Optional[GpuDevicePlugin] = None
         self.health: Optional[HealthWatcher] = None
         self.controller = None  # set by the kube wiring when enabled
+        self.dra = None  # set by _start_dra when enabled
         self._kube_client = None  # built before serving (build_and_serve)
         self.telemetry_sampler = None  # set by _start_telemetry when on
         self.auditor = None  # set by _start_audit when on
@@ -233,10 +249,11 @@ class Daemon:
         return chips
 
     def build_and_serve(self) -> None:
-        # The kube client before serving, as in JAX; it soft-fails (no
-        # reachable kube config) and the cards are served all the same.
+        # The kube client before serving, for either kube-facing plane (the
+        # controller or DRA), as in JAX; it soft-fails (no reachable kube
+        # config) and the cards are served all the same.
         self._kube_client = None
-        if self.cfg.enable_controller:
+        if self.cfg.enable_controller or self.cfg.enable_dra:
             try:
                 from ..kube.client import KubeClient
                 from ..utils import metrics
@@ -292,6 +309,8 @@ class Daemon:
         if self.health is not None:
             self.health.start()
         self._start_kube_integration()
+        if self.cfg.enable_dra:
+            self._start_dra()
         self._start_telemetry()
         self._start_audit()
 
@@ -345,7 +364,7 @@ class Daemon:
         """Node-annotation publishing and the pod controller, on the client
         built before serving; soft-fails when no API server is reachable
         (a node without a kube config has already logged why)."""
-        if self._kube_client is None:
+        if not self.cfg.enable_controller or self._kube_client is None:
             return
         try:
             from ..controller.wiring import start_kube_integration
@@ -355,6 +374,43 @@ class Daemon:
         except Exception as e:
             log.warning("kube integration disabled: %s", e)
             self.controller = None
+
+    def _start_dra(self) -> None:
+        """The DRA plane over this generation's plugin: its cards, placement
+        state and env, so the two planes cannot hand one card to two
+        containers."""
+        client = self._kube_client
+        if client is None:
+            # --no-controller, or a kube config that did not load: without
+            # a client the plane publishes no ResourceSlice and every
+            # prepare fails, so it does not register at all.
+            try:
+                from ..kube.client import KubeClient
+
+                client = KubeClient.from_env(self.cfg.kubeconfig)
+            except Exception as e:
+                log.error("DRA plane disabled: no API server client (%s)", e)
+                return
+        try:
+            from ..dra.driver import DraDriver
+
+            self.dra = DraDriver(
+                self.plugin,
+                kube_client=client,
+                driver_name=self.cfg.dra_driver_name,
+                node_name=self.cfg.node_name or os.uname().nodename,
+                plugins_dir=self.cfg.plugins_dir,
+                plugins_registry_dir=self.cfg.plugins_registry_dir,
+                cdi_dir=self.cfg.cdi_dir,
+            )
+            self.dra.start()  # the publisher thread makes the ResourceSlice
+            if self.controller is not None:
+                # Eviction finds a DRA pod (no devices annotation) through
+                # its prepared claim.
+                self.controller.dra_claims_lookup = self.dra.claims_on_chips
+        except Exception as e:
+            log.warning("DRA plane disabled: %s", e)
+            self.dra = None
 
     def teardown(self) -> None:
         if self.auditor is not None:
@@ -375,6 +431,13 @@ class Daemon:
                 log.exception("telemetry sampler stop failed")
             telemetry.install_sampler(None)
             self.telemetry_sampler = None
+        if self.dra is not None:
+            # Before the plugin: the driver's prepare takes the plugin's lock.
+            try:
+                self.dra.stop()
+            except Exception:
+                log.exception("DRA driver stop failed")
+            self.dra = None
         if self.controller is not None:
             try:
                 self.controller.stop()
@@ -602,6 +665,13 @@ def parse_args(argv) -> DaemonConfig:
     p.add_argument("--blackbox-fsync-s", type=float, default=2.0,
                    help="black-box fsync cadence in seconds; the stream is "
                    "flushed every drain regardless; 0 fsyncs every drain")
+    p.add_argument("--dra", action="store_true",
+                   help="also serve the DRA plane (resource.k8s.io): the kubelet's "
+                   "DRAPlugin service, the node's ResourceSlice and per-claim CDI specs")
+    p.add_argument("--dra-driver-name", default="gpu.nvidia.com")
+    p.add_argument("--plugins-dir", default="/var/lib/kubelet/plugins",
+                   help="kubelet plugins dir for the DRA socket")
+    p.add_argument("--cdi-dir", default="/var/run/cdi")
     p.add_argument("-v", "--verbose", action="count", default=0)
     a = p.parse_args(argv)
     tpulog.setup(verbose=a.verbose, json=a.log_json, service="plugin")
@@ -634,6 +704,10 @@ def parse_args(argv) -> DaemonConfig:
         lockdep=a.lockdep,
         blackbox_dir=a.blackbox_dir,
         blackbox_fsync_s=a.blackbox_fsync_s,
+        enable_dra=a.dra,
+        dra_driver_name=a.dra_driver_name,
+        plugins_dir=a.plugins_dir,
+        cdi_dir=a.cdi_dir,
     )
 
 

@@ -1,2 +1,3 @@
-"""Tools over the port's kernels: the ring-depth sweep (``kv_sweep.py``)
-and the kernel leg of the bench (``bench_kernels.py``)."""
+"""Tools over the port: the ring-depth sweep (``kv_sweep.py``), the kernel
+leg of the bench (``bench_kernels.py``) and the node's card tree with its
+prepared DRA claims (``topo.py``)."""

@@ -24,7 +24,8 @@ import os
 import platform
 from typing import List, Optional
 
-from .links import LinkTopology
+from ..discovery.chips import GpuChip
+from .links import PCIE_CLASSES, LinkTopology
 
 SCHEMA_VERSION = 1
 
@@ -132,6 +133,37 @@ class NodeTopology:
                 for a, b in itertools.combinations(chips, 2)
             ],
         )
+
+    def to_topology(self) -> LinkTopology:
+        """The published cards and pair classes as a ``LinkTopology``, the
+        twin of the JAX ``to_mesh``: what a consumer of the annotation
+        (``tools/topo.py --from-json``) places and scores on. Each pair
+        reads back the class and score the daemon published."""
+        chips = [GpuChip(index=c.index, uuid=c.id, name=c.name, dev_path=c.dev_path,
+                         pci_addr=c.pci_addr, numa_node=c.numa_node,
+                         chip_type=self.chip_type, hbm_bytes=c.hbm_bytes)
+                 for c in self.chips]
+        return LinkTopology(chips, _PublishedLinks(self))
+
+
+class _PublishedLinks:
+    """``pair_link`` over an annotation's pair classes: ``NV<n>`` is n
+    NVLinks, a PCIe label its ``nvmlGpuTopologyLevel_t``, anything else
+    unknown."""
+
+    def __init__(self, topo: NodeTopology):
+        index = {c.id: c.index for c in topo.chips}
+        levels = {label: level for level, (label, _) in PCIE_CLASSES.items()}
+        self._links = {}
+        for p in topo.pairs:
+            if p.link.startswith("NV") and p.link[2:].isdigit():
+                link = (int(p.link[2:]), None)
+            else:
+                link = (0, levels.get(p.link))
+            self._links[frozenset((index[p.a], index[p.b]))] = link
+
+    def pair_link(self, a: int, b: int):
+        return self._links.get(frozenset((a, b)), (0, None))
 
 
 def _known(cls, d: dict) -> dict:

@@ -380,6 +380,16 @@ EVICTIONS = REGISTRY.counter(
     "Pods evicted because a chip they hold went Unhealthy, by outcome "
     "(evicted/failed)",
 )
+# The DRA plane (dra/driver.py).
+DRA_CLAIMS = REGISTRY.counter(
+    "tpu_plugin_dra_claims_total",
+    "DRA claim operations served, by op (prepare/unprepare) and outcome "
+    "(ok/error)",
+)
+DRA_PREPARED = REGISTRY.gauge(
+    "tpu_plugin_dra_prepared_claims",
+    "DRA claims currently prepared (holding chips) on this node",
+)
 # The kube client's resilience layer (utils/resilience.py).
 KUBE_RETRIES = REGISTRY.counter(
     "tpu_plugin_kube_retries_total",

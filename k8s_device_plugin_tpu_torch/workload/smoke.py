@@ -119,8 +119,11 @@ def run_smoke(
         torch.cuda.init()
         torch.empty(1, device=dev)  # the context is up
         kind = torch.cuda.get_device_name(dev)
+        # The card's NVML UUID, as nvidia-smi and the device plugin name it:
+        # a caller checks that the pod runs on the card it was given.
+        uuid = f"GPU-{torch.cuda.get_device_properties(dev).uuid}"
     else:
-        kind = "cpu"
+        kind, uuid = "cpu", None
     t_devices = time.monotonic() - t0
     distributed.initialize(dev)
     world = dist.get_world_size()
@@ -141,6 +144,7 @@ def run_smoke(
             "devices": world,
             "devices_used": world,
             "device_kind": kind,
+            "device_uuid": uuid,
             "expected_devices": expected,
             "devices_match": expected is None or expected == local_world,
             "mesh": axis_sizes(mesh),

@@ -165,7 +165,7 @@ def test_all_client_calls_flow_through_resilience(plane, api):
     called = {"get_node", "patch_node_annotations", "patch_node_labels",
               "patch_node_condition", "list_pods", "get_pod", "patch_pod_annotations",
               "create_event", "evict_pod", "create", "get", "delete", "watch_pods",
-              "patch"}
+              "patch", "replace"}
     client.get_node(NODE)
     client.patch_node_annotations(NODE, {"k": "v"})
     client.patch_node_labels(NODE, {"l": "v"})
@@ -180,13 +180,13 @@ def test_all_client_calls_flow_through_resilience(plane, api):
         {"metadata": {"name": "l", "namespace": "ns"}, "spec": {}},
     )
     lease = client.get("/apis/coordination.k8s.io/v1/namespaces/ns/leases/l")
+    client.replace("/apis/coordination.k8s.io/v1/namespaces/ns/leases/l", lease)
     if plane.name == "jax":
         # The extender's calls, which only the JAX client has.
         server.pods[("default", "p2")]["spec"]["schedulingGates"] = [{"name": "g"}]
         client.list_nodes()
         client.list_nodes(label_selector="a=b")
         client.remove_pod_scheduling_gate("default", "p2", "g", [{"name": "g"}])
-        client.replace("/apis/coordination.k8s.io/v1/namespaces/ns/leases/l", lease)
     else:
         client.delete_pod("default", "p2")
         called.add("delete_pod")

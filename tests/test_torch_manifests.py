@@ -1,13 +1,17 @@
 """The port's manifests (deploy/nvidia-device-plugin-torch.yml,
-deploy/pod-torch-smoke.yml), parsed with PyYAML and held to the code: the
-DaemonSet's args to the port's ``parse_args``, its liveness probe to the
-metrics port, the smoke pod to the port's resource and smoke module, and
-the ClusterRole to exactly the (verb, resource) pairs the port's kube
-client was seen to send a fake API server, through the CLI daemon's end
-to end run (tests/test_torch_e2e.py) and one call of each client method.
+deploy/pod-torch-smoke.yml, deploy/dra-example-torch.yml), parsed with
+PyYAML and held to the code: the DaemonSet's args to the port's
+``parse_args``, its liveness probe to the metrics port, its mounts to the
+daemon's default dirs, the smoke pod to the port's resource and smoke
+module, the DRA example to the DRA driver's names, and the ClusterRole to
+exactly the (API group, verb, resource) triples the port's kube client was
+seen to send a fake API server, through the CLI daemon's end to end run
+(tests/test_torch_e2e.py), one call of each client method and the DRA
+plane's calls.
 """
 
 import importlib.util
+import re
 import urllib.parse
 from pathlib import Path
 
@@ -15,8 +19,13 @@ import pytest
 import yaml
 
 from k8s_device_plugin_tpu_torch.api import constants
+from k8s_device_plugin_tpu_torch.discovery.chips import GpuChip
+from k8s_device_plugin_tpu_torch.dra import slices
+from k8s_device_plugin_tpu_torch.dra.driver import DraDriver
 from k8s_device_plugin_tpu_torch.kube.client import KubeClient
+from k8s_device_plugin_tpu_torch.server.plugin import GpuDevicePlugin
 from k8s_device_plugin_tpu_torch.supervisor import main
+from k8s_device_plugin_tpu_torch.topology.links import LinkTopology
 from tests.fake_apiserver import FakeApiServer
 from tests.test_torch_e2e import system  # noqa: F401 - the e2e run's fixture
 from tests.test_torch_e2e import test_full_lifecycle as full_lifecycle
@@ -25,6 +34,7 @@ from tests.torch_kube_planes import stop_in_background
 ROOT = Path(__file__).resolve().parents[1]
 DAEMONSET = ROOT / "deploy" / "nvidia-device-plugin-torch.yml"
 SMOKE_POD = ROOT / "deploy" / "pod-torch-smoke.yml"
+DRA_EXAMPLE = ROOT / "deploy" / "dra-example-torch.yml"
 
 
 def docs(path):
@@ -60,6 +70,10 @@ def test_daemonset_mounts_the_kubelet_dirs_and_targets_nvidia_nodes():
     mounts = {m["mountPath"] for m in container()["volumeMounts"]}
     assert constants.DEVICE_PLUGIN_PATH.rstrip("/") in mounts
     assert str(Path(constants.POD_RESOURCES_SOCKET).parent) in mounts
+    # The DRA plane's dirs (--dra) and the watcher registration's.
+    cfg = main.parse_args([])
+    for d in (cfg.plugins_dir, cfg.plugins_registry_dir, cfg.cdi_dir):
+        assert d.rstrip("/") in mounts, d
     host = {v["name"]: v["hostPath"]["path"] for v in spec["volumes"] if "hostPath" in v}
     for m in container()["volumeMounts"]:
         if m["name"] != "captures":  # the one emptyDir, held below
@@ -105,10 +119,18 @@ def test_smoke_pod_requests_the_resource_and_runs_the_port_smoke():
     assert importlib.util.find_spec(c["command"][2]) is not None
 
 
-def kube_pair(method: str, raw_path: str) -> tuple:
-    """(verb, resource) of one recorded request, as RBAC names them."""
+def kube_call(method: str, raw_path: str):
+    """(API group, verb, resource) of one recorded request, as RBAC names
+    them; None for an API group's discovery document, which every
+    authenticated user may read."""
     parsed = urllib.parse.urlparse(raw_path)
-    parts = parsed.path.strip("/").split("/")[2:]  # past "api/v1"
+    parts = parsed.path.strip("/").split("/")
+    if parts[0] == "api":
+        group, parts = "", parts[2:]  # past "api/v1"
+    elif len(parts) < 4:
+        return None  # /apis/<group>[/<version>]: discovery
+    else:
+        group, parts = parts[1], parts[3:]  # past "apis/<group>/<version>"
     if parts[0] == "namespaces" and len(parts) > 2:
         parts = parts[2:]
     resource, rest = parts[0], parts[1:]
@@ -121,12 +143,28 @@ def kube_pair(method: str, raw_path: str) -> tuple:
             verb = "watch" if "watch=true" in parsed.query else "list"
     else:
         verb = {"POST": "create", "PATCH": "patch", "PUT": "update", "DELETE": "delete"}[method]
-    return verb, resource
+    return group, verb, resource
+
+
+def kube_calls(requests) -> set:
+    return {c for c in (kube_call(m, p) for m, p in requests) if c is not None}
 
 
 def every_client_call(url: str) -> None:
-    """One call of each of the port client's API methods."""
+    """One call of each of the port client's API methods, and the DRA
+    plane's calls: its ResourceSlice made, read, replaced and deleted, a
+    claim read and the claims listed (the legacy references' lookup)."""
     api_client = KubeClient(url)
+    card = GpuChip(index=0, uuid="GPU-0", name="card", dev_path="/dev/nvidia0", pci_addr="",
+                   numa_node=-1, chip_type="H100", hbm_bytes=1)
+    dra = DraDriver(GpuDevicePlugin(LinkTopology([card], None)), kube_client=api_client,
+                    node_name="n")
+    dra.publish()
+    dra.publish()
+    assert dra._slice_exists()
+    dra._resolve_missing_refs(["uid"])
+    assert slices.get_resource_claim(api_client, "default", "c") is None
+    dra.stop(unpublish=True)
     api_client.get_node("n")
     api_client.patch_node_annotations("n", {"a": "1"})
     api_client.patch_node_labels("n", {"l": "1"})
@@ -144,7 +182,7 @@ def every_client_call(url: str) -> None:
 
 def test_cluster_role_grants_exactly_what_the_client_sends(system):  # noqa: F811
     full_lifecycle(system)
-    e2e = {kube_pair(m, p) for m, p in system["api"].requests}
+    e2e = kube_calls(system["api"].requests)
     api = FakeApiServer()
     url = api.start()
     try:
@@ -153,22 +191,54 @@ def test_cluster_role_grants_exactly_what_the_client_sends(system):  # noqa: F81
             api.add_pod({"metadata": {"name": name, "namespace": "default", "uid": name},
                          "spec": {"nodeName": "n", "containers": []}, "status": {}})
         every_client_call(url)
-        calls = {kube_pair(m, p) for m, p in api.requests}
+        calls = kube_calls(api.requests)
     finally:
         stop_in_background(api)
     role = docs(DAEMONSET)["ClusterRole"]
     granted = set()
     for rule in role["rules"]:
-        assert rule["apiGroups"] == [""]
-        granted |= {(v, r) for v in rule["verbs"] for r in rule["resources"]}
+        granted |= {(g, v, r) for g in rule["apiGroups"] for v in rule["verbs"]
+                    for r in rule["resources"]}
     assert e2e <= granted, sorted(e2e - granted)
     assert granted == e2e | calls, (sorted(granted - e2e - calls), sorted(e2e | calls - granted))
     # The run exercises the controller's path: reconcile, evict, publish.
-    assert {("patch", "pods"), ("create", "pods/eviction"), ("patch", "nodes"),
-            ("patch", "nodes/status"), ("watch", "pods"), ("create", "events")} <= e2e
+    assert {("", "patch", "pods"), ("", "create", "pods/eviction"), ("", "patch", "nodes"),
+            ("", "patch", "nodes/status"), ("", "watch", "pods"), ("", "create", "events")} <= e2e
+    # ... and the DRA plane's: its slice and claims in resource.k8s.io.
+    assert {("resource.k8s.io", v, "resourceslices") for v in (
+        "get", "create", "update", "delete")} | {("resource.k8s.io", v, "resourceclaims")
+                                                 for v in ("get", "list")} <= calls
 
 
-@pytest.mark.parametrize("path", [DAEMONSET, SMOKE_POD], ids=lambda p: p.name)
+@pytest.mark.parametrize("path", [DAEMONSET, SMOKE_POD, DRA_EXAMPLE], ids=lambda p: p.name)
 def test_manifests_name_no_tpu_resource(path):
     text = path.read_text()
     assert "google.com/tpu" not in text and "libtpu" not in text
+
+
+def test_dra_example_names_the_drivers_devices():
+    """The example's DeviceClass is the driver the daemon serves by default,
+    its claim template asks that class for one card, its CEL names only
+    attributes the ResourceSlice publishes, and its pod runs the port's
+    smoke on the claim."""
+    d = docs(DRA_EXAMPLE)
+    name = d["DeviceClass"]["metadata"]["name"]
+    assert name == slices.DEFAULT_DRIVER == main.parse_args([]).dra_driver_name
+    (sel,) = d["DeviceClass"]["spec"]["selectors"]
+    assert sel["cel"]["expression"] == f'device.driver == "{name}"'
+    template = d["ResourceClaimTemplate"]
+    (req,) = template["spec"]["spec"]["devices"]["requests"]
+    assert req["exactly"] == {"deviceClassName": name, "count": 1}
+    pod = d["Pod"]["spec"]
+    (c,) = pod["containers"]
+    assert c["command"] == ["python", "-m", "k8s_device_plugin_tpu_torch.workload.smoke"]
+    (ref,) = pod["resourceClaims"]
+    assert ref["resourceClaimTemplateName"] == template["metadata"]["name"]
+    assert c["resources"]["claims"] == [{"name": ref["name"]}]
+    card = GpuChip(index=0, uuid="GPU-0", name="card", dev_path="/dev/nvidia0", pci_addr="",
+                   numa_node=0, chip_type="H100", hbm_bytes=1)
+    attrs = slices.build_resource_slice(LinkTopology([card], None), "n")["spec"]["devices"][0][
+        "attributes"]
+    named = re.findall(rf'device\.attributes\["{re.escape(name)}"\]\.(\w+)',
+                       DRA_EXAMPLE.read_text())
+    assert named and set(named) <= set(attrs), named

@@ -150,9 +150,9 @@ import chip_smoke
 bad = [m for m in sys.modules
        if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax")
        or re.match(r"{JAX_PACKAGE.pattern}", m)]
-new = [m for m in names if m.split(".")[1] in ("api", "controller", "discovery", "health",
-                                                "kube", "server", "supervisor", "tools",
-                                                "topology")]
+new = [m for m in names if m.split(".")[1] in ("api", "controller", "discovery", "dra",
+                                                "health", "kube", "server", "supervisor",
+                                                "tools", "topology")]
 print(len(names), len(new), bad)
 """
     env = {k: v for k, v in os.environ.items() if not k.startswith("PYTHON")}
@@ -160,8 +160,8 @@ print(len(names), len(new), bad)
         [sys.executable, "-c", code], capture_output=True, text=True,
         timeout=120, cwd=ROOT, env=env, check=True,
     ).stdout.split()
-    # every module of the port was imported, the node daemon's and tools' 31 among them
-    assert int(out[0]) >= 69 and int(out[1]) == 31
+    # every module of the port was imported, the node daemon's and tools' 37 among them
+    assert int(out[0]) >= 69 and int(out[1]) == 37
     assert out[2:] == ["[]"]
 
 

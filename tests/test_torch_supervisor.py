@@ -424,8 +424,23 @@ def test_parse_args_takes_the_evidence_planes_flags(plane, monkeypatch):
         assert [getattr(cfg, f) for f in EVIDENCE_FIELDS] == ["", 0.0, "", 0.0, False, "", 2.0]
 
 
-@pytest.mark.parametrize("flag", ["--libtpu-path=", "--accelerator-type=v5e", "--dra",
-                                  "--registration-mode=bogus"])
+def test_parse_args_takes_the_dra_flags():
+    """--dra and its dirs parse into DaemonConfig under the JAX names; the
+    driver name defaults to NVIDIA's public DRA driver's."""
+    cfg = main.parse_args([])
+    jax = jax_main.parse_args([])
+    assert (cfg.enable_dra, cfg.plugins_dir, cfg.cdi_dir) == (
+        jax.enable_dra, jax.plugins_dir, jax.cdi_dir) == (
+        False, "/var/lib/kubelet/plugins", "/var/run/cdi")
+    assert (cfg.dra_driver_name, jax.dra_driver_name) == ("gpu.nvidia.com", "tpu.google.com")
+    cfg = main.parse_args(["--dra", "--dra-driver-name", "x.example.com", "--plugins-dir",
+                           "/p", "--cdi-dir", "/c", "--plugins-registry-dir", "/r"])
+    assert (cfg.enable_dra, cfg.dra_driver_name, cfg.plugins_dir, cfg.cdi_dir,
+            cfg.plugins_registry_dir) == (True, "x.example.com", "/p", "/c", "/r")
+
+
+@pytest.mark.parametrize("flag", ["--libtpu-path=", "--accelerator-type=v5e",
+                                  "--vfio-dense-reindex", "--registration-mode=bogus"])
 def test_parse_args_refuses_flags_of_planes_not_ported(flag):
     """A flag of a plane this daemon does not have is refused, never
     accepted and then ignored."""
