@@ -263,6 +263,38 @@ caught while the run goes on:
    pod's step beside phase 5's, SIGTERM's, and the card's name and power
    limit.
 
+18. The scheduler extender over this card's annotation (it runs no kernel):
+   a daemon over the real NVML as in phase 17 (the same short dir,
+   ``--metrics-port 0``, no evidence flags, and phase 16's stand-in
+   PodResources) publishes ``nvidia.com/gpu-topology`` to a new
+   ``FakeApiServer``; then ``python -m k8s_device_plugin_tpu_torch.extender
+   --node-cache --kubeconfig <it> --port <free>`` in its own process, timed
+   from its start to ``/readyz`` 200. Object mode: ``/filter`` and
+   ``/prioritize`` for a pod asking 1 ``nvidia.com/gpu`` pass the card's node
+   with score 2 on a one-card node (the packing bonus; 0 on a node of more
+   cards), and a pod asking count + 1 is rejected on it
+   (``no_slice_peers``'s message on one card, ``not_chip_multiple``'s on
+   more). Name-only mode (``NodeNames``) must give the same verdicts,
+   messages and scores; 50 calls of each verb in each mode give the median
+   and p99. Then the stand-in kubelet's ``Allocate`` of one card (and the
+   pod bound to the node): the time from its response until the name-only
+   ``/filter`` rejects a pod asking every card with ``<count-1> chips
+   available, <count> needed`` ("0 chips available, 1 needed" on one card),
+   polled every 10 ms within 10 s; then the pod's delete, and the time
+   until that pod passes again. Then 999 synthetic 8-card HGX nodes (every
+   pair NV18, score 9, availability drawn from a seed) join the API server;
+   once the extender's index holds all 1,000 nodes (``/debug/telemetry``'s
+   cluster panel), the name-only ``/filter`` and ``/prioritize`` median and
+   p99 over the 1,000 candidates for a 1-card pod (50 calls each, the
+   vectorized filter) and a 4-card pod (50 calls each), and the object
+   mode's over the 1,000 node objects (20 calls each); every name-only call
+   must count its candidates in ``tpu_extender_parse_avoided_total{reason=
+   "indexed_rpc"}``, and the name-only answers must equal the object
+   answers. ``/metrics`` must parse and count every ``/filter`` and
+   ``/prioritize`` this phase sent, and SIGTERM must end both processes with
+   code 0. One line with every time, beside the card's name and power
+   limit; the 1,000-node times are the host CPU's.
+
 Then one ``{"kernels": [...]}`` line (each kernel's launches from the path
 that runs it: K1-K3 from phase 5, K4 from phase 6; every path's counts
 under ``launches_by_path``, phase 10's as ``sharded``, phase 11's as
@@ -2519,6 +2551,310 @@ def phase_dra_pod(main_report: dict) -> dict:
     return launches
 
 
+# Phase 18: the extender's candidates at scale, the calls timed per verb
+# and mode, the poll of the Allocate and free times, and the bound on them.
+EXT_NODES = 1000
+EXT_CALLS = 50
+EXT_OBJECT_CALLS_AT_SCALE = 20
+EXT_POLL_S = 0.01
+EXT_SETTLE_S = 10.0
+EXT_SEED = 18
+EXT_NODE = "ext-node"
+
+
+def hgx_annotation(name: str, index: int, available_idx) -> str:
+    """A synthetic 8-card HGX node's nvidia.com/gpu-topology: every pair NV18
+    through NVSwitches (score 9), the layout NVML reads on an HGX H100 board."""
+    from k8s_device_plugin_tpu_torch.topology.links import score_for
+    from k8s_device_plugin_tpu_torch.topology.schema import (
+        SCHEMA_VERSION, CardInfo, NodeTopology, PairInfo)
+
+    cards = [CardInfo(id=f"GPU-{index:08x}-0000-4000-8000-{i:012x}",
+                      index=i, minor=i, dev_path=f"/dev/nvidia{i}", pci_addr="",
+                      numa_node=i // 4, hbm_bytes=81559 * 2 ** 20,
+                      name="NVIDIA H100 80GB HBM3") for i in range(8)]
+    return NodeTopology(
+        version=SCHEMA_VERSION, hostname=name, chip_type="H100",
+        product="NVIDIA H100 80GB HBM3", chip_count=8, numa_nodes=2, chips=cards,
+        pairs=[PairInfo(a=a.id, b=b.id, link="NV18", score=score_for(18, None))
+               for i, a in enumerate(cards) for b in cards[i + 1:]],
+        available=sorted(cards[i].id for i in available_idx)).to_json()
+
+
+def phase_extender() -> None:
+    """The scheduler extender filters and scores pods onto this card's node
+    from the annotation a daemon over the real NVML publishes, follows the
+    card taken and freed through its node watch, and answers over 1,000
+    nodes."""
+    import random
+
+    import grpc
+
+    from k8s_device_plugin_tpu_torch.api import constants
+    from k8s_device_plugin_tpu_torch.api import deviceplugin_pb2 as pb
+    from k8s_device_plugin_tpu_torch.api.grpc_defs import DevicePluginStub
+    from tests.fake_apiserver import FakeApiServer
+
+    work = Path(tempfile.mkdtemp(prefix="ext", dir="/tmp"))
+    dp_dir = work / "dp"
+    dp_dir.mkdir()
+    api = FakeApiServer()
+    kubelet = Kubelet(str(dp_dir))
+    podres = PodResources(str(work / "pod-resources" / "kubelet.sock"))
+    api_url = api.start()
+    api.add_node(EXT_NODE)
+    kubeconfig = work / "kubeconfig.json"
+    kubeconfig.write_text(json.dumps({
+        "apiVersion": "v1", "kind": "Config", "current-context": "smoke",
+        "contexts": [{"name": "smoke", "context": {"cluster": "fake", "user": "smoke"}}],
+        "clusters": [{"name": "fake", "cluster": {"server": api_url}}],
+        "users": [{"name": "smoke", "user": {"token": "smoke"}}],
+    }))
+    daemon_log, ext_log = work / "daemon.log", work / "extender.log"
+    line: dict = {"nvidia_smi": nvidia_smi()}
+    channel = None
+    extender = None
+    port = free_port()
+    base = f"http://127.0.0.1:{port}"
+    with open(daemon_log, "w") as log_file:
+        daemon = subprocess.Popen([sys.executable, "-m", "k8s_device_plugin_tpu_torch",
+                                   "--device-plugin-dir", str(dp_dir), "--node-name", EXT_NODE,
+                                   "--kubeconfig", str(kubeconfig),
+                                   "--podresources-socket", podres.socket_path,
+                                   "--metrics-port", "0"],
+                                  cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT)
+    try:
+        def ext_fail(msg: str) -> None:
+            for path in (daemon_log, ext_log):
+                if path.exists():
+                    print(f"{path.name}:", path.read_text()[-3000:], file=sys.stderr, flush=True)
+            fail(msg)
+
+        def until(pred, what: str, bound_s: float = PLUGIN_WAIT_S, every_s: float = 0.002):
+            """Poll ``pred`` until it gives a value: (time, value)."""
+            deadline = time.monotonic() + bound_s
+            while not (value := pred()):
+                if time.monotonic() > deadline:
+                    ext_fail(f"not seen within {bound_s} s: {what}")
+                time.sleep(every_s)
+            return time.monotonic(), value
+
+        def post(path: str, body: dict) -> dict:
+            req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                return json.loads(resp.read())
+
+        sent = {"filter": 0, "prioritize": 0}
+
+        def call(verb: str, body: dict) -> tuple[float, dict]:
+            t0 = time.perf_counter()
+            out = post("/" + verb, body)
+            sent[verb] += 1
+            return (time.perf_counter() - t0) * 1e3, out
+
+        def timed(verb: str, body: dict, n: int) -> tuple[dict, dict]:
+            """The median and p99 (ms) of n calls, and the last answer."""
+            ms = []
+            for _ in range(n):
+                t, out = call(verb, body)
+                ms.append(t)
+            ms.sort()
+            return {"median_ms": statistics.median(ms),
+                    "p99_ms": ms[min(len(ms) - 1, math.ceil(0.99 * len(ms)) - 1)],
+                    "calls": n}, out
+
+        def gpu_pod(n: int, name: str = "ext-pod") -> dict:
+            return {"metadata": {"name": name, "namespace": "default", "uid": f"{name}-uid"},
+                    "spec": {"containers": [{"name": "main", "resources": {
+                        "requests": {constants.RESOURCE_NAME: str(n)}}}]}}
+
+        def annotation():
+            return api.nodes[EXT_NODE]["metadata"].get("annotations", {}).get(
+                constants.TOPOLOGY_ANNOTATION)
+
+        def scrape() -> list:
+            status, body = http_get(base + "/metrics")
+            if status != 200:
+                ext_fail(f"/metrics answered {status}")
+            try:
+                return parse_metrics(body.decode())
+            except ValueError as e:
+                ext_fail(str(e))
+
+        # 1. The daemon publishes the card's annotation.
+        _, req, _ = kubelet.next_registration()
+        _, raw = until(annotation, "the node's nvidia.com/gpu-topology annotation")
+        topo = json.loads(raw)
+        count = topo["chip_count"]
+        line["node"] = {"cards": count, "available": len(topo["available"]),
+                        "product": topo["product"]}
+        if count < 1 or len(topo["available"]) != count:
+            ext_fail(f"the node's annotation before any allocation: {topo}")
+
+        # 2. The extender, timed from its start to /readyz 200.
+        with open(ext_log, "w") as log_file:
+            t_start = time.monotonic()
+            extender = subprocess.Popen(
+                [sys.executable, "-m", "k8s_device_plugin_tpu_torch.extender", "--node-cache",
+                 "--kubeconfig", str(kubeconfig), "--host", "127.0.0.1", "--port", str(port)],
+                cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT)
+        t_ready, _ = until(lambda: http_get(base + "/readyz")[0] == 200, "/readyz 200")
+        line["start_to_readyz_s"] = t_ready - t_start
+
+        # 3 and 4. One node, object and name-only mode.
+        node_obj = json.loads(json.dumps(api.nodes[EXT_NODE]))
+        one, over = gpu_pod(1), gpu_pod(count + 1, "ext-over")
+        modes = {"object": {"nodes": {"items": [node_obj]}}, "names": {"nodenames": [EXT_NODE]}}
+        answers = {}
+        for mode, cands in modes.items():
+            f = call("filter", {"pod": one, **cands})[1]
+            passed = [n["metadata"]["name"] for n in (f["nodes"] or {}).get("items", [])] \
+                if mode == "object" else f["nodenames"]
+            scores = call("prioritize", {"pod": one, **cands})[1]
+            rej = call("filter", {"pod": over, **cands})[1]
+            answers[mode] = (passed, f["failedNodes"], scores, rej["failedNodes"])
+        passed, failed, scores, rejected = answers["object"]
+        want_score = 2 if count == 1 else 0
+        want_word = "no multi-node NVLink domain" if count == 1 else "not a multiple"
+        line["one_node"] = {"passed": passed, "scores": scores, "rejected": rejected}
+        if passed != [EXT_NODE] or failed or scores != [{"host": EXT_NODE,
+                                                          "score": want_score}]:
+            ext_fail(f"a 1-card pod on the card's node: passed {passed}, failed {failed}, "
+                     f"scores {scores} (score {want_score} expected)")
+        if want_word not in rejected.get(EXT_NODE, ""):
+            ext_fail(f"a {count + 1}-card pod on the node: {rejected}")
+        if answers["names"] != answers["object"]:
+            ext_fail(f"name-only mode answered {answers['names']}, object mode "
+                     f"{answers['object']}")
+        line["one_node_ms"] = {}
+        for mode, cands in modes.items():
+            for verb in ("filter", "prioritize"):
+                line["one_node_ms"][f"{mode}_{verb}"] = timed(verb, {"pod": one, **cands},
+                                                              EXT_CALLS)[0]
+
+        # 5. Allocate of one card, then the pod's delete: the extender
+        # follows both through its node watch, which its relist loop opens
+        # after its first interval.
+        until(lambda: any(m == "GET" and p.startswith("/api/v1/nodes?") and "watch=true" in p
+                          for m, p in list(api.requests)), "the extender's node watch")
+        channel = grpc.insecure_channel(f"unix:{dp_dir / req.endpoint}")
+        stub = DevicePluginStub(channel)
+        all_cards = gpu_pod(count, "ext-all")
+        names = {"nodenames": [EXT_NODE]}
+        areq = pb.AllocateRequest()
+        areq.container_requests.add(devicesIDs=[topo["available"][0]])
+        stub.Allocate(areq, timeout=PLUGIN_WAIT_S)
+        t_alloc = time.monotonic()
+        api.add_pod({
+            "metadata": {"name": POD_NAME, "namespace": "default", "uid": "ext-pod-uid",
+                         "annotations": {}},
+            "spec": {"nodeName": EXT_NODE, "containers": [{"name": "main", "resources": {
+                "requests": {constants.RESOURCE_NAME: "1"}}}]},
+            "status": {"phase": "Running"},
+        })
+        podres.set("default", POD_NAME, [topo["available"][0]])
+        want = f"{count - 1} chips available, {count} needed"
+        t_rej, _ = until(lambda: call("filter", {"pod": all_cards, **names})[1][
+            "failedNodes"].get(EXT_NODE) == want, f"/filter rejecting with '{want}'",
+            EXT_SETTLE_S, EXT_POLL_S)
+        line["allocate_to_reject_s"] = t_rej - t_alloc
+        podres.drop("default", POD_NAME)
+        t_free = time.monotonic()
+        api.delete_pod("default", POD_NAME)
+        t_pass, _ = until(lambda: call("filter", {"pod": all_cards, **names})[1][
+            "nodenames"] == [EXT_NODE], "/filter passing the node again", EXT_SETTLE_S,
+            EXT_POLL_S)
+        line["free_to_pass_s"] = t_pass - t_free
+
+        # 6. 999 synthetic HGX nodes join: the index holds 1,000 nodes.
+        rng = random.Random(EXT_SEED)
+        synthetic = [f"hgx-{i:03d}" for i in range(EXT_NODES - 1)]
+        t_add = time.monotonic()
+        for i, name in enumerate(synthetic):
+            free = sorted(rng.sample(range(8), rng.randint(0, 8)))
+            api.add_node(name, {"metadata": {"name": name, "labels": {}, "annotations": {
+                constants.TOPOLOGY_ANNOTATION: hgx_annotation(name, i, free)}}})
+
+        def indexed():
+            status, body = http_get(base + "/debug/telemetry")
+            cluster = (json.loads(body).get("cluster") or {}) if status == 200 else {}
+            return cluster.get("nodes_with_topology") == EXT_NODES and cluster
+        t_idx, cluster = until(indexed, f"the index holding {EXT_NODES} nodes", 300, 0.1)
+        line["join_to_indexed_s"] = t_idx - t_add
+        line["placeable_nodes"] = cluster["placeable_nodes"]
+        every = [EXT_NODE] + synthetic
+        objects = {"nodes": {"items": [json.loads(json.dumps(api.nodes[n])) for n in every]}}
+
+        def avoided() -> float:
+            return sample_value(scrape(), "tpu_extender_parse_avoided_total",
+                                reason="indexed_rpc") or 0.0
+
+        line["scale_ms"] = {}
+        for n in (1, 4):
+            p = gpu_pod(n, f"ext-scale-{n}")
+            # First calls (the score memo's misses), then the timed ones.
+            first = {}
+            for verb in ("filter", "prioritize"):
+                first[verb] = call(verb, {"pod": p, "nodenames": every})
+            before = avoided()
+            f_stats, f_names = timed("filter", {"pod": p, "nodenames": every}, EXT_CALLS)
+            p_stats, p_names = timed("prioritize", {"pod": p, "nodenames": every}, EXT_CALLS)
+            grown = avoided() - before
+            if grown < 2 * EXT_CALLS * EXT_NODES:
+                ext_fail(f"indexed_rpc grew {grown} over {2 * EXT_CALLS} name-only calls of "
+                         f"{EXT_NODES} candidates")
+            fo_stats, f_obj = timed("filter", {"pod": p, **objects}, EXT_OBJECT_CALLS_AT_SCALE)
+            po_stats, p_obj = timed("prioritize", {"pod": p, **objects},
+                                    EXT_OBJECT_CALLS_AT_SCALE)
+            obj_passed = [x["metadata"]["name"] for x in f_obj["nodes"]["items"]]
+            if (f_names["nodenames"], f_names["failedNodes"]) != (obj_passed,
+                                                                   f_obj["failedNodes"]) \
+                    or p_names != p_obj:
+                ext_fail(f"at {EXT_NODES} nodes the name-only and object answers differ for "
+                         f"a {n}-card pod")
+            line["scale_ms"][f"{n}_card"] = {
+                "first_filter_ms": first["filter"][0], "first_prioritize_ms": first["prioritize"][0],
+                "names_filter": f_stats, "names_prioritize": p_stats,
+                "object_filter": fo_stats, "object_prioritize": po_stats,
+                "passed": len(f_names["nodenames"]),
+                "top_score": max(s["score"] for s in p_names)}
+
+        # 7. /metrics counts every request (the handler counts one after it
+        # has answered it); SIGTERM ends both with code 0.
+        want_counts = {verb: float(n) for verb, n in sent.items()}
+
+        def counted():
+            samples = scrape()
+            got = {verb: sample_value(samples, "tpu_extender_requests_total", verb=verb,
+                                      outcome="ok") for verb in sent}
+            line["requests"] = {"sent": dict(sent), "counted": got}
+            return got == want_counts
+
+        until(counted, f"tpu_extender_requests_total counting {dict(sent)}", 5.0, 0.01)
+        t0 = time.monotonic()
+        extender.send_signal(signal.SIGTERM)
+        ext_rc = extender.wait(timeout=PLUGIN_WAIT_S)
+        line["extender_sigterm_to_exit_s"] = time.monotonic() - t0
+        daemon.send_signal(signal.SIGTERM)
+        rc = daemon.wait(timeout=PLUGIN_WAIT_S)
+        line["rc"] = {"extender": ext_rc, "daemon": rc}
+        emit({"extender": line})
+        if ext_rc != 0 or rc != 0:
+            ext_fail(f"SIGTERM: the extender exited {ext_rc}, the daemon {rc}")
+    finally:
+        for proc in (extender, daemon):
+            if proc is not None and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if channel is not None:
+            channel.close()
+        kubelet.server.stop(grace=0)
+        podres.server.stop(grace=0)
+        api.stop()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA "
@@ -2550,6 +2886,7 @@ def main() -> int:
     phase_bench_leg()
     pod_launches = phase_plugin_pod(main_report)
     dra_launches = phase_dra_pod(main_report)
+    phase_extender()
     dist.destroy_process_group()
     path_launches = {name: (launches[name], steps) for name in FLASH}
     path_launches["rmsnorm"] = (norm_launches["rmsnorm"], norm_steps)

@@ -1,15 +1,17 @@
 """Minimal Kubernetes REST client: the JAX package's ``kube/client.py``, as
-far as the node daemon's kube plane calls it.
+far as the node daemon's kube plane and the scheduler extender's filter/score
+plane call it.
 
 It replaces the reference's vendored client-go (controller.go:29-52) with
-the surface the daemon needs: in-cluster or kubeconfig auth, node get and
-annotation, label and condition patches, pod list/watch/get/annotation
-patch, Events, and eviction. Built on ``requests`` over the plain
+the surface they need: in-cluster or kubeconfig auth, node get, list and
+watch, node annotation, label and condition patches, pod list/watch/get/
+annotation patch, Events, and eviction. Built on ``requests`` over the plain
 Kubernetes REST API; kubeconfigs are read with PyYAML (so a JSON one
 reads too). Watches read with urllib3's ``HTTPResponse.read1``, which
 urllib3 has from 2.0: the package's ``requirements.txt`` pins
-``urllib3>=2`` and importing this module refuses an older one. The leases, priority classes, scheduling gates, taints and
-node watches that only the scheduler extender calls come with it.
+``urllib3>=2`` and importing this module refuses an older one. The leases,
+priority classes, scheduling gates and taints that only the extender's gang
+admission, preemption and rescue planes call come with those planes.
 
 Every call is routed through a shared resilience pipeline
 (utils/resilience.py): jittered exponential backoff, per-call
@@ -332,6 +334,10 @@ class KubeClient:
     def get_node(self, name: str) -> dict:
         return self.get(f"/api/v1/nodes/{name}")
 
+    def list_nodes(self, label_selector: str = "") -> dict:
+        params = {"labelSelector": label_selector} if label_selector else None
+        return self.get("/api/v1/nodes", params=params, verb="LIST")
+
     def patch_node_annotations(
         self, name: str, annotations: Dict[str, Optional[str]]
     ) -> dict:
@@ -395,6 +401,24 @@ class KubeClient:
         if resource_version:
             params["resourceVersion"] = resource_version
         return self._watch_stream("/api/v1/pods", params, timeout_seconds)
+
+    def watch_nodes(
+        self,
+        resource_version: str = "",
+        timeout_seconds: int = 60,
+    ) -> Generator[Tuple[str, dict], None, None]:
+        """Yields (event_type, node) from a single watch window: the
+        scheduler extender's topology index consumes it to rebuild exactly
+        the node whose annotation changed. Same contract as watch_pods
+        (410 means relist)."""
+        params: Dict[str, str] = {
+            "watch": "true",
+            "timeoutSeconds": str(timeout_seconds),
+            "allowWatchBookmarks": "true",
+        }
+        if resource_version:
+            params["resourceVersion"] = resource_version
+        return self._watch_stream("/api/v1/nodes", params, timeout_seconds)
 
     def _watch_stream(
         self, path: str, params: Dict[str, str], timeout_seconds: int

@@ -76,6 +76,10 @@ HBM_PRESSURE_RATIO = 0.95
 SAMPLER: Optional["TelemetrySampler"] = None
 # The last capacity stats update_node_gauges wrote.
 NODE_STATS: Optional[dict] = None
+# () -> dict: the scheduler extender's cluster capacity aggregate (its
+# topology index's ``placeable_snapshot``), served under "cluster" by
+# /debug/telemetry; the latest-constructed index installs it.
+CLUSTER_PROVIDER: Optional[Callable[[], dict]] = None
 # The placement state whose capacity changed since the gauges were last
 # computed, or None; the lock keeps two readers from computing at once.
 _CHANGED = None
@@ -124,12 +128,20 @@ def update_node_gauges(state, free_ids) -> dict:
 
 def debug_snapshot() -> dict:
     """The /debug/telemetry payload: sampler state and the last per-card
-    readings with attribution, and the node's capacity stats."""
+    readings with attribution, the node's capacity stats, and the
+    extender's cluster aggregate when this process keeps one."""
     out: dict = {"enabled": SAMPLER is not None}
     sampler = SAMPLER
     if sampler is not None:
         out.update(sampler.snapshot())
     out["node"] = refresh_node_gauges()
+    provider = CLUSTER_PROVIDER
+    if provider is not None:
+        try:
+            out["cluster"] = provider()
+        except Exception:  # noqa: BLE001 - a debug surface must not 500
+            log.exception("cluster telemetry provider failed")
+            out["cluster"] = None
     return out
 
 

@@ -28,7 +28,7 @@ import functools
 import itertools
 import math
 import threading
-from typing import Iterable, List, Optional, Sequence, Set
+from typing import Iterable, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -37,6 +37,23 @@ from .links import LinkTopology
 # The most candidate sets the exhaustive search scores in one call: every
 # n of a 16-card node fits (C(16, 8) = 12870).
 EXHAUSTIVE_MAX = 20000
+
+# Set by force_scalar: consumers that batch over nodes with numpy (the
+# scheduler extender's column plane) then take their per-node path.
+_FORCE_SCALAR = False
+
+
+def force_scalar(on: bool) -> None:
+    """Force the per-node (scalar) paths process-wide, as the JAX
+    ``force_scalar`` does: the parity oracles and an operator's rollback."""
+    global _FORCE_SCALAR
+    _FORCE_SCALAR = bool(on)
+
+
+def numpy_or_none():
+    """numpy, or None while ``force_scalar`` is on: the one gate of the
+    consumers that batch over nodes (the extender's index column plane)."""
+    return None if _FORCE_SCALAR else np
 
 
 @functools.lru_cache(maxsize=64)
@@ -245,3 +262,13 @@ def capacity_stats(state: GpuPlacementState, free_ids: Iterable[str]) -> dict:
                        for n, ids in picks.items() if n >= 2 and ids},
     }
 
+
+def placeable_sizes(topology: LinkTopology, free_ids: Iterable[str]) -> Tuple[int, ...]:
+    """The sorted request sizes ``select`` places now over the free cards
+    ``free_ids``, for every size from 1 to the card count (``capacity_stats``'
+    ``placeable``): the twin of the JAX ``placeable_sizes``, the per-node term
+    the extender's topology index stores on every entry and persists in its
+    snapshot. The one entry point, so no consumer derives the tuple another
+    way."""
+    stats = capacity_stats(GpuPlacementState(topology), free_ids)
+    return tuple(n for n, ok in sorted(stats["placeable"].items()) if ok)

@@ -137,13 +137,23 @@ class NodeTopology:
     def to_topology(self) -> LinkTopology:
         """The published cards and pair classes as a ``LinkTopology``, the
         twin of the JAX ``to_mesh``: what a consumer of the annotation
-        (``tools/topo.py --from-json``) places and scores on. Each pair
-        reads back the class and score the daemon published."""
+        (``tools/topo.py --from-json``, the scheduler extender) places and
+        scores on. Each pair reads back the class and score the daemon
+        published.
+
+        Memoized per instance, as ``to_mesh`` is: the topology depends only
+        on the cards and pairs, which no consumer mutates after parsing (the
+        one mutable field is ``available``, which it does not read)."""
+        cached = self.__dict__.get("_topology")
+        if cached is not None:
+            return cached
         chips = [GpuChip(index=c.index, uuid=c.id, name=c.name, dev_path=c.dev_path,
                          pci_addr=c.pci_addr, numa_node=c.numa_node,
                          chip_type=self.chip_type, hbm_bytes=c.hbm_bytes)
                  for c in self.chips]
-        return LinkTopology(chips, _PublishedLinks(self))
+        topology = LinkTopology(chips, _PublishedLinks(self))
+        self.__dict__["_topology"] = topology  # a plain attr: asdict/to_json skip it
+        return topology
 
 
 class _PublishedLinks:
@@ -185,21 +195,26 @@ def minor_of(dev_path: str) -> int:
 
 @functools.lru_cache(maxsize=8192)
 def _parse_template(raw: str) -> NodeTopology:
-    """Parse once per distinct annotation string. Any failure is a
+    """Parse and build the link topology once per distinct annotation
+    string. Any failure (JSON, schema, a pair naming an unknown card) is a
     ValueError, so a consumer skips a malformed annotation with one except
     clause; lru_cache does not cache exceptions."""
     try:
-        return NodeTopology.from_json(raw)
+        tmpl = NodeTopology.from_json(raw)
+        tmpl.to_topology()  # memoize the topology on the template
     except Exception as e:  # noqa: BLE001 — untrusted input, normalized
         raise ValueError(f"bad topology annotation: {e!r}") from e
+    return tmpl
 
 
 def parse_topology_cached(raw: str) -> NodeTopology:
     """Parse a topology annotation through a process-wide LRU cache: a
     consumer re-reads the same string for every candidate node, and a
     republish is a new string, so caching on it is exact. Returns a clone
-    whose ``available`` list is private (callers mutate it) while the cards
-    and pairs are shared read-only. Raises ValueError on a malformed
-    annotation."""
+    whose ``available`` list is private (callers mutate it) while the cards,
+    the pairs and the memoized ``LinkTopology`` are shared read-only. Raises
+    ValueError on a malformed annotation."""
     tmpl = _parse_template(raw)
-    return dataclasses.replace(tmpl, available=list(tmpl.available))
+    clone = dataclasses.replace(tmpl, available=list(tmpl.available))
+    clone.__dict__["_topology"] = tmpl.__dict__.get("_topology")
+    return clone

@@ -204,7 +204,7 @@ class BlackBoxRecorder:
 
     def _drop(self, reason: str) -> None:
         self.drops[reason] = self.drops.get(reason, 0) + 1
-        metrics.BLACKBOX_DROPPED.inc(reason=reason)
+        metrics.family("BLACKBOX_DROPPED", self.service).inc(reason=reason)
 
     # -- writer thread -------------------------------------------------------
 
@@ -275,7 +275,7 @@ class BlackBoxRecorder:
             except IndexError:
                 break
             self._write_record(kind, data, ts=ts)
-        metrics.BLACKBOX_QUEUE.set(float(len(q)))
+        metrics.family("BLACKBOX_QUEUE", self.service).set(float(len(q)))
 
     def _write_record(
         self, kind: str, data: dict, ts: Optional[float] = None
@@ -304,8 +304,8 @@ class BlackBoxRecorder:
         self._segment_size += len(buf)
         self.bytes_written += len(buf)
         self.records_written += 1
-        metrics.BLACKBOX_RECORDS.inc(kind=kind)
-        metrics.BLACKBOX_BYTES.inc(len(buf))
+        metrics.family("BLACKBOX_RECORDS", self.service).inc(kind=kind)
+        metrics.family("BLACKBOX_BYTES", self.service).inc(len(buf))
         if self._segment_size >= self.segment_bytes and kind != "meta":
             self._rotate()
 
@@ -313,7 +313,7 @@ class BlackBoxRecorder:
         self._flush(force=True)
         self._close_segment()
         self.rotations += 1
-        metrics.BLACKBOX_ROTATIONS.inc()
+        metrics.family("BLACKBOX_ROTATIONS", self.service).inc()
         self._open_segment()
         self._prune()
 
@@ -366,7 +366,7 @@ class BlackBoxRecorder:
             "heartbeats", {"beats": profiling.HEARTBEATS.snapshot()}
         )
         self._write_record(
-            "metrics", {"families": _family_totals(metrics.REGISTRY)}
+            "metrics", {"families": _family_totals(metrics.registry_for(self.service))}
         )
 
     def _report_degraded(self) -> None:

@@ -56,7 +56,7 @@ class DecisionLedger:
             self.service = service
             if capacity is not None:
                 self.capacity = capacity
-            self._counter = metrics.DECISIONS
+            self._counter = metrics.family("DECISIONS", service)
             self.enabled = True
 
     def disable(self) -> None:

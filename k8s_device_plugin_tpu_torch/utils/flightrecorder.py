@@ -60,7 +60,7 @@ class FlightRecorder:
             self.dump_dir = dump_dir
             if capacity is not None:
                 self.capacity = capacity
-            self._counter = metrics.FLIGHT_EVENTS
+            self._counter = metrics.family("FLIGHT_EVENTS", service)
             self.enabled = True
 
     def disable(self) -> None:

@@ -8,8 +8,10 @@ liveness check, and the ``/debug/*`` surfaces of the planes the port has.
 The per-card families keep the JAX ``tpu_chip_*`` names, so a dashboard
 reads either daemon: ``chip`` is the card's UUID, and the two
 ``tpu_chip_ici_link_*`` families carry the card's NVLinks, ``link`` being
-NVML's link index. The extender's registry and its surfaces come with the
-extender. ``/debug/profile`` is the one surface that may block: with
+NVML's link index. The scheduler extender's process serves its own registry
+(``EXTENDER_REGISTRY``): the filter/score plane's families under the JAX
+names, and the evidence planes' twins, which ``family(name, service)``
+picks. ``/debug/profile`` is the one surface that may block: with
 ``?seconds=N`` it waits for N seconds of samples (at most 60)."""
 
 from __future__ import annotations
@@ -541,6 +543,234 @@ BUILD_INFO = REGISTRY.gauge(
     "answered this scrape",
 )
 
+# The scheduler extender's process exposes its own registry: sharing the
+# daemon's would publish every tpu_plugin_* family as constant zeros from
+# the extender's Service. The families of the filter/score plane keep the
+# JAX names; the evidence planes' twins (same family names as the
+# daemon's) are picked by ``family(name, service)``.
+EXTENDER_REGISTRY = Registry(uptime_name="tpu_extender_uptime_seconds")
+EXTENDER_REQUESTS = EXTENDER_REGISTRY.counter(
+    "tpu_extender_requests_total",
+    "Scheduler-extender HTTP requests served, by verb (filter/"
+    "prioritize) and outcome (ok/error/not_ready/degraded_paused)",
+)
+EXT_REQUEST_LATENCY = EXTENDER_REGISTRY.histogram(
+    "tpu_extender_request_latency_seconds",
+    "Scheduler-extender HTTP serving latency by verb (filter/prioritize)",
+)
+GANG_RESERVED = EXTENDER_REGISTRY.gauge(
+    "tpu_gang_reservations",
+    "Released-but-unscheduled gangs currently holding a card reservation",
+)
+GANG_RESERVED_CHIPS = EXTENDER_REGISTRY.gauge(
+    "tpu_gang_reserved_chips",
+    "Cards fenced off for released-but-unscheduled gangs",
+)
+GANG_RESERVATIONS_LAPSED = EXTENDER_REGISTRY.counter(
+    "tpu_gang_reservations_lapsed_total",
+    "Gang reservations that hit the hard age cap with pods still "
+    "unscheduled (their cards are no longer fenced)",
+)
+NODE_CACHE_NODES = EXTENDER_REGISTRY.gauge(
+    "tpu_extender_node_cache_nodes",
+    "Nodes in the annotation cache by state (with_topology/"
+    "without_topology); constant 0 when --node-cache is off",
+)
+NODE_CACHE_SYNCED = EXTENDER_REGISTRY.gauge(
+    "tpu_extender_node_cache_synced",
+    "1 once a node relist has succeeded; 0 means no successful relist "
+    "yet (name-only requests answer no-topology for unknown nodes) or "
+    "--node-cache is off",
+)
+NODE_CACHE_RELIST_ERRORS = EXTENDER_REGISTRY.counter(
+    "tpu_extender_node_cache_relist_errors_total",
+    "Node relists that failed (the cache serves stale entries meanwhile)",
+)
+INDEX_REBUILDS = EXTENDER_REGISTRY.counter(
+    "tpu_extender_index_rebuilds_total",
+    "Per-node index entry rebuilds (parse + derived-state refresh); "
+    "steady state is ~0: a node costs a rebuild only when its "
+    "annotation string changes",
+)
+INDEX_EVENTS = EXTENDER_REGISTRY.counter(
+    "tpu_extender_index_events_total",
+    "Node observations applied to the topology index, by source "
+    "(relist/watch/fetch) and kind (add/update/clear/delete/noop/"
+    "restore/coalesced)",
+)
+INDEX_SLICES = EXTENDER_REGISTRY.gauge(
+    "tpu_extender_index_slices",
+    "Multi-host slices tracked by the topology index (always 0 on GPU "
+    "nodes, which form no multi-host slice)",
+)
+PARSE_AVOIDED = EXTENDER_REGISTRY.counter(
+    "tpu_extender_parse_avoided_total",
+    "Annotation parses/derivations avoided, by reason: indexed_rpc "
+    "(candidates served by /filter and /prioritize from the topology "
+    "index), unchanged_annotation (watch event whose annotation string "
+    "was unchanged), derived_memo (entry rebuild served from the "
+    "content-addressed derived-state memo), snapshot_restore (entry "
+    "installed from the persisted index snapshot with its parse "
+    "deferred)",
+)
+INDEX_SNAPSHOT_LOADS = EXTENDER_REGISTRY.counter(
+    "tpu_extender_index_snapshot_loads_total",
+    "Persisted topology-index snapshot loads at startup, by outcome "
+    "(ok/empty/corrupt/version_mismatch/error)",
+)
+INDEX_SNAPSHOT_ENTRIES = EXTENDER_REGISTRY.counter(
+    "tpu_extender_index_snapshot_entries_total",
+    "Per-node snapshot records reconciled against the first relist, by "
+    "source (restored/stale/vanished)",
+)
+INDEX_SNAPSHOT_WRITES = EXTENDER_REGISTRY.counter(
+    "tpu_extender_index_snapshot_writes_total",
+    "Topology-index snapshot persists (post-relist and graceful stop), "
+    "by outcome (ok/error)",
+)
+INDEX_WARM_SECONDS = EXTENDER_REGISTRY.gauge(
+    "tpu_extender_index_warm_seconds",
+    "Duration of the last cold-start index warm (snapshot-restored "
+    "entries parsed by the background worker pool)",
+)
+TIME_TO_READY = EXTENDER_REGISTRY.gauge(
+    "tpu_extender_time_to_ready_seconds",
+    "Startup to /readyz 200 for this incarnation",
+)
+EXT_PLACEABLE_NODES = EXTENDER_REGISTRY.gauge(
+    "tpu_extender_placeable_nodes",
+    "Nodes whose published availability places a request of {size} "
+    "cards now, for every size from 1 to the node's card count (from "
+    "the incremental topology index; absent when --node-cache is off)",
+)
+EXT_KUBE_RETRIES = EXTENDER_REGISTRY.counter(
+    "tpu_extender_kube_retries_total",
+    "Kube API attempts retried after a transport-level failure, by verb",
+)
+EXT_KUBE_CIRCUIT_STATE = EXTENDER_REGISTRY.gauge(
+    "tpu_extender_kube_circuit_state",
+    "Kube API circuit breaker: 0 closed, 1 open (failing fast), "
+    "2 half-open (probing)",
+)
+EXT_KUBE_REQUEST_LATENCY = EXTENDER_REGISTRY.histogram(
+    "tpu_extender_kube_request_latency_seconds",
+    "Wall latency of individual kube API request attempts, by verb and "
+    "outcome",
+)
+EXT_KUBE_CALL_OUTCOMES = EXTENDER_REGISTRY.counter(
+    "tpu_extender_kube_call_outcomes_total",
+    "Kube API call outcomes by verb and outcome (ok / retry / "
+    "retry_after / semantic / unavailable / circuit_open)",
+)
+EXT_KUBE_DEGRADED_MODE = EXTENDER_REGISTRY.gauge(
+    "tpu_extender_kube_degraded_mode",
+    "1 while the extender serves in explicit degraded mode (circuit "
+    "breaker open: /filter and /prioritize answer from the "
+    "last-known-good index)",
+)
+EXT_KUBE_DEGRADED_STALENESS = EXTENDER_REGISTRY.gauge(
+    "tpu_extender_kube_degraded_staleness_seconds",
+    "Age of the last successful cluster-state sync behind degraded "
+    "serving; past --staleness-cap-s /filter answers 503",
+)
+EXT_KUBE_WATCH_STREAMS = EXTENDER_REGISTRY.counter(
+    "tpu_extender_kube_watch_streams_total",
+    "Node watch stream recoveries by outcome: resumed (from the "
+    "bookmarked resourceVersion after a drop) or relist (410 Gone)",
+)
+EXT_FLIGHT_EVENTS = EXTENDER_REGISTRY.counter(
+    "tpu_extender_flight_events_total",
+    "Flight-recorder events captured, by kind (utils/flightrecorder.py; "
+    "served at /debug/events)",
+)
+EXT_DECISIONS = EXTENDER_REGISTRY.counter(
+    "tpu_extender_decisions_total",
+    "Scheduling decisions recorded by the extender's decision ledger "
+    "(utils/decisions.py; served at /debug/decisions), by kind and "
+    "machine-readable reason token",
+)
+EXT_BLACKBOX_RECORDS = EXTENDER_REGISTRY.counter(
+    "tpu_blackbox_records_total",
+    "Records persisted to the crash-durable black box, by kind",
+)
+EXT_BLACKBOX_DROPPED = EXTENDER_REGISTRY.counter(
+    "tpu_blackbox_dropped_total",
+    "Black-box records dropped instead of blocking a hot path, by "
+    "reason (queue_full / write_error)",
+)
+EXT_BLACKBOX_BYTES = EXTENDER_REGISTRY.counter(
+    "tpu_blackbox_bytes_total",
+    "Bytes appended to black-box segment files (statestore-framed)",
+)
+EXT_BLACKBOX_ROTATIONS = EXTENDER_REGISTRY.counter(
+    "tpu_blackbox_segment_rotations_total",
+    "Black-box segment rotations (oldest segments pruned past the "
+    "directory byte budget)",
+)
+EXT_BLACKBOX_QUEUE = EXTENDER_REGISTRY.gauge(
+    "tpu_blackbox_queue_depth",
+    "Black-box records waiting in the bounded producer queue at the "
+    "last writer drain",
+)
+EXT_BUILD_INFO = EXTENDER_REGISTRY.gauge(
+    "tpu_build_info",
+    "Always 1; labels version/python/component identify the build "
+    "answering this scrape",
+)
+EXT_HEARTBEAT_AGE = EXTENDER_REGISTRY.gauge(
+    "tpu_thread_heartbeat_age_seconds",
+    "Seconds since each registered long-lived loop last beat its "
+    "heartbeat (utils/profiling.py; pruned on clean stop)",
+)
+EXT_LOOP_STALLS = EXTENDER_REGISTRY.counter(
+    "tpu_loop_stall_total",
+    "Loop stall transitions by loop and reason (stalled/died)",
+)
+EXT_GC_PAUSE = EXTENDER_REGISTRY.histogram(
+    "tpu_gc_pause_seconds",
+    "Stop-the-world duration of each Python GC pass, by generation",
+    buckets=PAUSE_BUCKETS,
+)
+EXT_LOCK_WAIT = EXTENDER_REGISTRY.histogram(
+    "tpu_lock_wait_seconds",
+    "Wall time spent waiting for a contended hot-path lock, by lock "
+    "(topology_index, reservations: utils/profiling.TimedLock); an "
+    "uncontended acquire records nothing",
+    buckets=PAUSE_BUCKETS,
+)
+EXT_PROFILE_SAMPLES = EXTENDER_REGISTRY.counter(
+    "tpu_profile_samples_total",
+    "Thread-stack samples captured by the sampling profiler "
+    "(utils/stackprof.py; --profile-hz, served at /debug/profile)",
+)
+EXT_PROFILE_CAPTURES = EXTENDER_REGISTRY.counter(
+    "tpu_profile_captures_total",
+    "SLO-triggered capture bundles, by reason and outcome "
+    "(ok/budget/error), written to --capture-dir",
+)
+EXT_LOCKDEP_EDGES = EXTENDER_REGISTRY.gauge(
+    "tpu_lockdep_edges",
+    "Distinct lock-order edges recorded by the runtime lockdep graph "
+    "(utils/profiling.LockdepGraph; --lockdep)",
+)
+EXT_LOCKDEP_CYCLES = EXTENDER_REGISTRY.counter(
+    "tpu_lockdep_cycles_total",
+    "Lock-order inversion cycles detected; the lock_order audit "
+    "invariant pages CRITICAL while any cycle stands",
+)
+
+
+def family(name: str, service: str):
+    """The family ``name`` (a module attribute of the daemon's registry,
+    e.g. ``"HEARTBEAT_AGE"``) as ``service`` exports it: its ``EXT_`` twin
+    in the extender's process, itself in the node daemon's."""
+    return globals()[f"EXT_{name}" if service == "extender" else name]
+
+
+def registry_for(service: str) -> Registry:
+    """The registry ``service``'s process serves at /metrics."""
+    return EXTENDER_REGISTRY if service == "extender" else REGISTRY
+
 
 def build_info() -> dict:
     """The build's identity (the /debug/audit payload carries it)."""
@@ -554,7 +784,7 @@ def build_info() -> dict:
 def set_build_info(component: str) -> None:
     """Publish the build-identity info gauge for this process (value 1,
     identity in the labels). Called once by the entry point."""
-    BUILD_INFO.set(1, component=component, **build_info())
+    family("BUILD_INFO", component).set(1, component=component, **build_info())
 
 
 OPENMETRICS_CONTENT_TYPE = (
@@ -619,7 +849,17 @@ DEBUG_ENDPOINTS: Dict[str, str] = {
         "mutation-while-open evidence the degraded_consistency audit "
         "invariant checks"
     ),
+    "/debug/readyz": (
+        "readiness phase and index warm progress (extender: "
+        "replaying|warming|ready with warm parsed/total, always 200; "
+        "the probe's 503 lives at /readyz; node daemon: not configured)"
+    ),
 }
+
+# () -> dict readiness snapshot (extender/server.py ReadyStatus), installed
+# by the extender's entry point. /debug/readyz, unlike /readyz, always
+# answers 200, so a not-ready extender still shows its phase.
+READYZ_PROVIDER = None
 
 
 def debug_payload(path: str) -> Optional[bytes]:
@@ -653,10 +893,18 @@ def debug_payload(path: str) -> Optional[bytes]:
             from .resilience import TRACKER
 
             return TRACKER.snapshot()
+        if parsed.path == "/debug/readyz":
+            if READYZ_PROVIDER is None:
+                return {
+                    "configured": False,
+                    "note": "no readiness status wired in this process (the "
+                    "extender's entry point installs one)",
+                }
+            return READYZ_PROVIDER()
         if parsed.path == "/debug/profile":
-            from . import stackprof
+            from . import profiling, stackprof
 
-            return stackprof.debug_profile(parsed.query)
+            return stackprof.debug_profile(parsed.query, service=profiling._SERVICE)
         if parsed.path == "/debug/lockdep":
             from . import profiling
 

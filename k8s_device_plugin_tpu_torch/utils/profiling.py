@@ -205,7 +205,7 @@ def run_supervised(name: str, fn: Callable[[], None]) -> None:
             from . import metrics
             from .flightrecorder import RECORDER
 
-            metrics.LOOP_STALLS.inc(loop=name, reason="died")
+            metrics.family("LOOP_STALLS", _SERVICE).inc(loop=name, reason="died")
             RECORDER.record(
                 "loop_stall",
                 f"background loop {name} died from an unhandled "
@@ -289,7 +289,7 @@ class StallWatchdog:
         stalled_now: List[str] = []
         for hb in snap:
             name = hb["name"]
-            metrics.HEARTBEAT_AGE.set(hb["age_s"], loop=name)
+            metrics.family("HEARTBEAT_AGE", self.service).set(hb["age_s"], loop=name)
             over = hb["dead"] or hb["age_s"] > hb["max_silence_s"]
             if over:
                 stalled_now.append(name)
@@ -298,7 +298,7 @@ class StallWatchdog:
                 reason = "died" if hb["dead"] else "stalled"
                 if not hb["dead"]:
                     # A death was counted once already, by run_supervised.
-                    metrics.LOOP_STALLS.inc(loop=name, reason="stalled")
+                    metrics.family("LOOP_STALLS", self.service).inc(loop=name, reason="stalled")
                 RECORDER.record(
                     "loop_stall",
                     f"loop {name} heartbeat silent for {hb['age_s']:.1f}s "
@@ -319,7 +319,7 @@ class StallWatchdog:
         for gone in self._exported - names:
             # A cleanly stopped loop's series must not scrape forever at
             # its last age.
-            metrics.HEARTBEAT_AGE.remove(loop=gone)
+            metrics.family("HEARTBEAT_AGE", self.service).remove(loop=gone)
             self._stalled.discard(gone)
         self._exported = names
         return stalled_now
@@ -361,7 +361,7 @@ def flush_gc_pauses() -> int:
                 gen, dt = _gc_pending.popleft()
             except IndexError:
                 break
-            metrics.GC_PAUSE.observe(dt, generation=str(gen))
+            metrics.family("GC_PAUSE", _SERVICE).observe(dt, generation=str(gen))
             n += 1
     except Exception:  # noqa: BLE001 - a metrics hiccup never propagates
         pass
@@ -536,7 +536,7 @@ class LockdepGraph:
             return
         self._cycle_keys.add(edge_pairs)
         path = " -> ".join(nodes)
-        metrics.LOCKDEP_CYCLES.inc()
+        metrics.family("LOCKDEP_CYCLES", _SERVICE).inc()
         if len(self._cycles) >= self.MAX_CYCLES:
             # Witness retention is bounded; the signal is not.
             self._dropped_cycles += 1
@@ -566,7 +566,7 @@ class LockdepGraph:
     def _export_edges(self) -> None:
         from . import metrics
 
-        metrics.LOCKDEP_EDGES.set(len(self._edges))
+        metrics.family("LOCKDEP_EDGES", _SERVICE).set(len(self._edges))
 
     def cycles(self) -> List[dict]:
         with self._glock:
@@ -794,7 +794,7 @@ class CaptureManager:
             while self._captures and now - self._captures[0] > self.budget_window_s:
                 self._captures.popleft()
             if len(self._captures) >= self.budget:
-                metrics.PROFILE_CAPTURES.inc(reason=reason, outcome="budget")
+                metrics.family("PROFILE_CAPTURES", self.service).inc(reason=reason, outcome="budget")
                 log.warning("capture %s suppressed: budget of %d per %.0fs spent",
                             reason, self.budget, self.budget_window_s)
                 return None
@@ -823,7 +823,7 @@ class CaptureManager:
                 "decisions": LEDGER.snapshot(limit=256),
                 "heartbeats": HEARTBEATS.snapshot(),
                 "windows": windows,
-                "metrics": metrics.REGISTRY.render(),
+                "metrics": metrics.registry_for(self.service).render(),
             }
             with self._lock:
                 self._seq += 1
@@ -843,12 +843,12 @@ class CaptureManager:
                             reason=reason, path=path, **attrs)
             LEDGER.record("profile_capture", reason, message or f"capture bundle written to {path}",
                           **{k: str(v) for k, v in attrs.items()})
-            metrics.PROFILE_CAPTURES.inc(reason=reason, outcome="ok")
+            metrics.family("PROFILE_CAPTURES", self.service).inc(reason=reason, outcome="ok")
             log.warning("capture bundle written: %s (%s)", path, reason)
             return path
         except Exception:  # noqa: BLE001 - a capture never makes the incident worse
             log.exception("capture bundle for %s failed", reason)
-            metrics.PROFILE_CAPTURES.inc(reason=reason, outcome="error")
+            metrics.family("PROFILE_CAPTURES", self.service).inc(reason=reason, outcome="error")
             return None
 
     def _prune_old_bundles(self) -> int:

@@ -548,6 +548,21 @@ def plugin_metrics() -> ResilienceMetrics:
     )
 
 
+def extender_metrics() -> ResilienceMetrics:
+    """The scheduler extender's set, on its own registry."""
+    from . import metrics
+
+    return ResilienceMetrics(
+        retries=metrics.EXT_KUBE_RETRIES,
+        circuit_state=metrics.EXT_KUBE_CIRCUIT_STATE,
+        latency=metrics.EXT_KUBE_REQUEST_LATENCY,
+        outcomes=metrics.EXT_KUBE_CALL_OUTCOMES,
+        degraded=metrics.EXT_KUBE_DEGRADED_MODE,
+        staleness=metrics.EXT_KUBE_DEGRADED_STALENESS,
+        watch_streams=metrics.EXT_KUBE_WATCH_STREAMS,
+    )
+
+
 # Thread-local marker proving a frame is executing inside Resilience.call
 # — tests/test_chaos.py wraps the HTTP session with it to assert that NO
 # kube/client.py request site bypasses the resilience layer.

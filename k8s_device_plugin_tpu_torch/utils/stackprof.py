@@ -170,7 +170,7 @@ class SamplingProfiler:
             folded.append(fold_frame(frame, names.get(tid, str(tid))))
         self._record(folded, time.time())
         if folded:
-            metrics.PROFILE_SAMPLES.inc(len(folded))
+            metrics.family("PROFILE_SAMPLES", self.service).inc(len(folded))
         return len(folded)
 
     def _record(self, folded: List[str], ts: float) -> None:

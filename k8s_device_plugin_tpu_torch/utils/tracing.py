@@ -5,9 +5,11 @@ ledger, flight recorder and latency histograms need it: ``enabled``/
 names the innermost open span), a bounded in-memory collector of finished
 spans, reading the trace carrier off a pod (``extract``) and adopting the
 provisional ``Allocate`` span into the pod's trace (``adopt``), and the
-collector's OTLP/JSON export that ``/debug/traces`` serves. The daemon's
-``--trace`` turns tracing on. Writing carriers comes with the scheduler
-extender, the one writer.
+collector's OTLP/JSON export that ``/debug/traces`` serves, and ``RECENT``,
+through which the scheduler extender's /prioritize joins the trace its
+/filter opened for the same pod. The daemon's and the extender's
+``--trace`` turn tracing on. Writing carriers comes with the extender's gang
+admission, the one writer.
 
 **Exact no-op when disabled** (the default): every entry point checks one
 module-level bool first, and ``span()`` then returns a shared no-op that
@@ -314,6 +316,50 @@ def extract(pod: Optional[dict]) -> Optional[SpanContext]:
         ann = meta.get("annotations") or {}
     raw = ann.get(constants.TRACE_ANNOTATION) if isinstance(ann, dict) else None
     return parse_traceparent(raw) if raw else None
+
+
+class _RecentTraces:
+    """Bounded, TTL'd pod key -> SpanContext memo: /filter and /prioritize
+    see the same pod in one scheduling cycle, but a pod that never went
+    through gang admission carries no carrier annotation, so the extender
+    remembers the trace /filter opened here and /prioritize joins it
+    instead of opening a second root. The TTL bounds a trace to about one
+    scheduling cycle: a Pending pod the scheduler retries every 10-30 s
+    opens a fresh root each cycle."""
+
+    def __init__(self, max_items: int = 1024, ttl_s: float = 5.0):
+        self.max_items = max_items
+        self.ttl_s = ttl_s
+        self._lock = threading.Lock()
+        # key -> (ctx, monotonic stamp)
+        self._items: "collections.OrderedDict" = collections.OrderedDict()
+
+    def remember(self, key: str, ctx: SpanContext) -> None:
+        if not key:
+            return
+        with self._lock:
+            self._items.pop(key, None)
+            self._items[key] = (ctx, time.monotonic())
+            while len(self._items) > self.max_items:
+                self._items.popitem(last=False)
+
+    def recall(self, key: str) -> Optional[SpanContext]:
+        with self._lock:
+            entry = self._items.get(key)
+            if entry is None:
+                return None
+            ctx, stamp = entry
+            if time.monotonic() - stamp > self.ttl_s:
+                del self._items[key]
+                return None
+            return ctx
+
+    def clear(self) -> None:
+        with self._lock:
+            self._items.clear()
+
+
+RECENT = _RecentTraces()
 
 
 def pod_key(pod: dict) -> str:

@@ -181,15 +181,18 @@ def test_all_client_calls_flow_through_resilience(plane, api):
     )
     lease = client.get("/apis/coordination.k8s.io/v1/namespaces/ns/leases/l")
     client.replace("/apis/coordination.k8s.io/v1/namespaces/ns/leases/l", lease)
+    # The extender's node calls, which both clients have.
+    client.list_nodes()
+    client.list_nodes(label_selector="a=b")
+    for _ in client.watch_nodes(timeout_seconds=1):
+        break
     if plane.name == "jax":
-        # The extender's calls, which only the JAX client has.
+        # The extender's admission calls, which only the JAX client has.
         server.pods[("default", "p2")]["spec"]["schedulingGates"] = [{"name": "g"}]
-        client.list_nodes()
-        client.list_nodes(label_selector="a=b")
         client.remove_pod_scheduling_gate("default", "p2", "g", [{"name": "g"}])
     else:
         client.delete_pod("default", "p2")
-        called.add("delete_pod")
+        called |= {"delete_pod", "list_nodes", "watch_nodes"}
         public = {n for n in dir(client) if not n.startswith("_") and callable(getattr(client, n))}
         assert public - called == {"from_env", "from_kubeconfig", "in_cluster",
                                    "interrupt_watches"}

@@ -1,27 +1,38 @@
 """The port's manifests (deploy/nvidia-device-plugin-torch.yml,
-deploy/pod-torch-smoke.yml, deploy/dra-example-torch.yml), parsed with
-PyYAML and held to the code: the DaemonSet's args to the port's
-``parse_args``, its liveness probe to the metrics port, its mounts to the
-daemon's default dirs, the smoke pod to the port's resource and smoke
-module, the DRA example to the DRA driver's names, and the ClusterRole to
-exactly the (API group, verb, resource) triples the port's kube client was
-seen to send a fake API server, through the CLI daemon's end to end run
-(tests/test_torch_e2e.py), one call of each client method and the DRA
-plane's calls.
+deploy/pod-torch-smoke.yml, deploy/dra-example-torch.yml,
+deploy/nvidia-extender-torch.yml), parsed with PyYAML and held to the code:
+the DaemonSet's args to the port's ``parse_args``, its liveness probe to the
+metrics port, its mounts to the daemon's default dirs, the smoke pod to the
+port's resource and smoke module, the DRA example to the DRA driver's names,
+and the ClusterRole to exactly the (API group, verb, resource) triples the
+port's kube client was seen to send a fake API server, through the CLI
+daemon's end to end run (tests/test_torch_e2e.py), one call of each client
+method and the DRA plane's calls. The extender's manifest is held the same
+way, after the JAX ``test_shipped_manifest_matches_served_protocol``: its
+args to the extender's ``parse_args``, its probes, Service and scheduler
+stanza to the paths the server routes, and its ClusterRole to the calls the
+extender's process was seen to send.
 """
 
 import importlib.util
+import json
 import re
+import socket
+import subprocess
+import sys
+import time
 import urllib.parse
 from pathlib import Path
 
 import pytest
+import requests
 import yaml
 
 from k8s_device_plugin_tpu_torch.api import constants
 from k8s_device_plugin_tpu_torch.discovery.chips import GpuChip
 from k8s_device_plugin_tpu_torch.dra import slices
 from k8s_device_plugin_tpu_torch.dra.driver import DraDriver
+from k8s_device_plugin_tpu_torch.extender import __main__ as ext_main
 from k8s_device_plugin_tpu_torch.kube.client import KubeClient
 from k8s_device_plugin_tpu_torch.server.plugin import GpuDevicePlugin
 from k8s_device_plugin_tpu_torch.supervisor import main
@@ -35,6 +46,7 @@ ROOT = Path(__file__).resolve().parents[1]
 DAEMONSET = ROOT / "deploy" / "nvidia-device-plugin-torch.yml"
 SMOKE_POD = ROOT / "deploy" / "pod-torch-smoke.yml"
 DRA_EXAMPLE = ROOT / "deploy" / "dra-example-torch.yml"
+EXTENDER = ROOT / "deploy" / "nvidia-extender-torch.yml"
 
 
 def docs(path):
@@ -210,7 +222,8 @@ def test_cluster_role_grants_exactly_what_the_client_sends(system):  # noqa: F81
                                                  for v in ("get", "list")} <= calls
 
 
-@pytest.mark.parametrize("path", [DAEMONSET, SMOKE_POD, DRA_EXAMPLE], ids=lambda p: p.name)
+@pytest.mark.parametrize("path", [DAEMONSET, SMOKE_POD, DRA_EXAMPLE, EXTENDER],
+                         ids=lambda p: p.name)
 def test_manifests_name_no_tpu_resource(path):
     text = path.read_text()
     assert "google.com/tpu" not in text and "libtpu" not in text
@@ -242,3 +255,126 @@ def test_dra_example_names_the_drivers_devices():
     named = re.findall(rf'device\.attributes\["{re.escape(name)}"\]\.(\w+)',
                        DRA_EXAMPLE.read_text())
     assert named and set(named) <= set(attrs), named
+
+
+# ---------------------------------------------------------------------------
+# the scheduler extender's manifest
+# ---------------------------------------------------------------------------
+
+
+def extender_container():
+    (c,) = docs(EXTENDER)["Deployment"]["spec"]["template"]["spec"]["containers"]
+    return c
+
+
+def test_extender_manifest_matches_the_served_protocol():
+    d = docs(EXTENDER)
+    assert set(d) == {"Deployment", "Service", "ConfigMap", "ServiceAccount", "ClusterRole",
+                      "ClusterRoleBinding"}
+    c = extender_container()
+    assert c["command"] == ["python", "-m", "k8s_device_plugin_tpu_torch.extender"]
+    a = ext_main.parse_args(c["args"])  # a flag it does not take exits
+    port = c["ports"][0]["containerPort"]
+    assert a.port == port == d["Service"]["spec"]["ports"][0]["port"]
+    assert d["Service"]["spec"]["ports"][0]["targetPort"] == port
+    assert a.node_cache and a.index_snapshot_dir == "/var/lib/nvidia-extender"
+    assert c["livenessProbe"]["httpGet"] == {"path": "/healthz", "port": port}
+    assert c["readinessProbe"]["httpGet"] == {"path": "/readyz", "port": port}
+    mounts = {m["mountPath"] for m in c["volumeMounts"]}
+    for path in (a.index_snapshot_dir, a.capture_dir, a.blackbox_dir):
+        assert any(path == m or path.startswith(m + "/") for m in mounts), path
+    spec = d["Deployment"]["spec"]["template"]["spec"]
+    assert spec["serviceAccountName"] == d["ServiceAccount"]["metadata"]["name"]
+    binding = d["ClusterRoleBinding"]
+    assert binding["roleRef"]["name"] == d["ClusterRole"]["metadata"]["name"]
+    assert binding["subjects"][0]["name"] == spec["serviceAccountName"]
+    sched = yaml.safe_load(d["ConfigMap"]["data"]["config.yaml"])
+    (ext,) = sched["extenders"]
+    assert ext["urlPrefix"] == (f"http://{d['Service']['metadata']['name']}."
+                                f"{d['Service']['metadata']['namespace']}:{port}")
+    # The verbs are path segments under urlPrefix: the paths the server routes.
+    assert (ext["filterVerb"], ext["prioritizeVerb"]) == ("filter", "prioritize")
+    assert "preemptVerb" not in ext  # no preemption plane in this slice
+    assert ext["managedResources"] == [{"name": constants.RESOURCE_NAME,
+                                        "ignoredByScheduler": False}]
+    assert ext["nodeCacheCapable"] is True and a.node_cache
+
+
+def test_extender_manifest_paths_are_served(tmp_path):
+    """The probe and verb paths the manifest names answer on a live server."""
+    from k8s_device_plugin_tpu_torch.extender.server import ExtenderHTTPServer
+
+    srv = ExtenderHTTPServer(host="127.0.0.1")
+    url = srv.start()
+    try:
+        c = extender_container()
+        for probe in ("livenessProbe", "readinessProbe"):
+            path = c[probe]["httpGet"]["path"]
+            assert requests.get(f"{url}{path}", timeout=5).status_code == 200
+        sched = yaml.safe_load(docs(EXTENDER)["ConfigMap"]["data"]["config.yaml"])
+        for verb in (sched["extenders"][0]["filterVerb"],
+                     sched["extenders"][0]["prioritizeVerb"]):
+            r = requests.post(f"{url}/{verb}", json={"pod": {}, "nodes": {"items": []}},
+                              timeout=5)
+            assert r.status_code == 200, verb
+    finally:
+        srv.stop()
+
+
+def test_extender_cluster_role_grants_exactly_what_the_plane_calls(tmp_path):
+    """The extender's process run as the manifest runs it, over a fake API
+    server: its relist, its watch and the fetch of a node that joined after
+    the relist are every call it sends, and all the role grants."""
+    api = FakeApiServer()
+    url = api.start()
+    proc = None
+    try:
+        api.add_node("n1")
+        kc = tmp_path / "kc.json"
+        kc.write_text(json.dumps({
+            "apiVersion": "v1", "kind": "Config",
+            "clusters": [{"name": "c", "cluster": {"server": url}}],
+            "users": [{"name": "u", "user": {}}],
+            "contexts": [{"name": "x", "context": {"cluster": "c", "user": "u"}}],
+            "current-context": "x"}))
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        args = [a for a in extender_container()["args"]]
+        args[args.index("--port") + 1] = str(port)
+        for flag in ("--index-snapshot-dir", "--capture-dir", "--blackbox-dir"):
+            args[args.index(flag) + 1] = str(tmp_path / flag.strip("-"))
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "k8s_device_plugin_tpu_torch.extender", "--host", "127.0.0.1",
+             "--kubeconfig", str(kc), *args], cwd=ROOT,
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        base = f"http://127.0.0.1:{port}"
+        deadline = time.time() + 30
+        while True:
+            try:
+                if requests.get(f"{base}/readyz", timeout=2).status_code == 200:
+                    break
+            except requests.ConnectionError:
+                pass
+            assert time.time() < deadline and proc.poll() is None
+            time.sleep(0.1)
+        api.add_node("late")  # joins between relists: one fetch by name
+        pod = {"metadata": {"name": "p"}, "spec": {"containers": [{"name": "c", "resources": {
+            "requests": {constants.RESOURCE_NAME: "1"}}}]}}
+        r = requests.post(f"{base}/filter", json={"pod": pod, "nodenames": ["n1", "late"]},
+                          timeout=10)
+        assert r.status_code == 200
+        deadline = time.time() + 10
+        while time.time() < deadline and ("", "watch", "nodes") not in kube_calls(api.requests):
+            time.sleep(0.1)
+    finally:
+        if proc is not None:
+            proc.terminate()
+            assert proc.wait(timeout=20) == 0
+        stop_in_background(api)
+    calls = kube_calls(api.requests)
+    role = docs(EXTENDER)["ClusterRole"]
+    granted = {(g, v, r) for rule in role["rules"] for g in rule["apiGroups"]
+               for v in rule["verbs"] for r in rule["resources"]}
+    assert calls == granted == {("", "get", "nodes"), ("", "list", "nodes"),
+                                ("", "watch", "nodes")}
