@@ -349,6 +349,50 @@ caught while the run goes on:
    --journal-dir`` holds the journal's metadata (clean). One line
    with every time beside the card's name and power limit; the times are
    the host CPU's except the pod's step, which stands beside phase 5's.
+20. Sharded gang admission (host code; a taken-over gang's member runs the
+   kernels): phase 19's stand-ins (a short dir ``/tmp/shard*``, a new
+   ``FakeApiServer``, a daemon over the real NVML publishing this card's
+   node under the machine's own name, the stand-in kubelet and
+   PodResources) and two replicas of ``python -m
+   k8s_device_plugin_tpu_torch.extender --node-cache --gang-admission
+   --shards 2 --journal-dir <dir> --audit-interval-s 1 --decisions
+   --lease-seconds 6 --gang-resync-s 1 --kubeconfig <it> --port <free>``
+   with HOSTNAME ``nvidia-scheduler-extender-0`` and ``-1`` (shard 0's with
+   ``--shard-index 0``, shard 1's from the ordinal). X is the shard the ring
+   gives this node, Y the other; SX is a synthetic HGX node on X of as many
+   cards, none free, SY one on Y of 8, all free, and the gangs' names are
+   picked onto their shards. In order: (1) each replica's start to
+   ``tpu_extender_shard_owned{shard}`` 1 and to ``/readyz`` 200 owning its
+   home; a third replica of home X and another HOSTNAME exits nonzero and
+   X's holder stays. (2) G_Y (2 pods of 2 cards) released by Y onto SY:
+   replica X's name-only ``/filter`` then refuses an 8-card pod on SY with
+   the hold's note (the overlay alone: SY's annotation has 8 free) and its
+   ``tpu_extender_shard_peer_held_chips`` reads 4. G_Y is submitted just
+   after one of X's scans, so the time from the release to that refusal is
+   near its worst case, one scan; it must stay within a scan plus 0.5 s,
+   and the hold must reach Y's lease within 0.5 s of the release. (3) G_X (member 0 of this node's card count,
+   member 1 of SX's) waits until SX's cards come free, then X releases it
+   and journals it under ``shard-X/``; Y's ``/filter`` refuses a 1-card
+   competitor on this node. (4) SIGKILL of X before any member binds; G_Y2
+   (2 pods of 2 cards) is released by Y while Y owns only Y, and the dead
+   shard's overlay still refuses the competitor. (5) Y takes shard X over
+   (within 2 x 6 s plus a scan): ``tpu_extender_shard_takeovers_total
+   {shard=X}`` 1, ``owned`` [X, Y], ``tpu_gang_reserved_chips`` at G_X's
+   demand, G_X's hold replayed with its original age, the competitor
+   refused on this node. (6) Member 0 through the stand-in kubelet's
+   ``Allocate`` and bound; its pod ``workload.smoke --bench --steps 5`` in
+   its own process as in phase 19: ok, on the allocated card, each flash
+   kernel and delta ``n_layers`` times a step, RMSNorm not at all. (7) X
+   restarted (same HOSTNAME and journal dir) parks its standby lease, Y
+   hands shard X back, X owns it with G_X's hold at its original age; member
+   1 bound on SX drops the hold (``tpu_gang_reservations`` 0) and the
+   competitor passes there. (8) Two clean audit sweeps or more on each
+   replica, ``reservation_shard_ownership`` among the invariants. (9)
+   ``python -m k8s_device_plugin_tpu_torch.extender.sharding
+   --shard-self-test`` exits 0. (10) SIGTERM ends both replicas and the
+   daemon with code 0, every shard and standby lease released. One line
+   with every time beside the card's name and power limit; the times are
+   the host CPU's except the pod's step, which stands beside phase 5's.
 
 Then one ``{"tools": ...}`` line: the card's name and power limit, and
 each tool run of phases 16 and 19 with its phase, exit code and wall time.
@@ -358,7 +402,8 @@ under ``launches_by_path``, phase 10's as ``sharded``, phase 11's as
 ``moe`` and ``ring``, phase 12's as ``resume``, phase 14's as
 ``kv_sweep``, phase 16's, from the pod's report, as ``plugin_pod``,
 phase 17's, from its pod's report, as ``dra_pod``, phase 19's, from
-member 0's pod's report, as ``gang_pod``) and,
+member 0's pod's report, as ``gang_pod``, phase 20's, from the taken-over
+member's pod's report, as ``shard_pod``) and,
 last, the device line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when CUDA is not available or the port's package is not beside
@@ -3187,10 +3232,8 @@ def phase_gang(main_report: dict) -> dict:
     import grpc
 
     from k8s_device_plugin_tpu_torch.api import constants
-    from k8s_device_plugin_tpu_torch.api import deviceplugin_pb2 as pb
     from k8s_device_plugin_tpu_torch.api.grpc_defs import DevicePluginStub
     from k8s_device_plugin_tpu_torch.extender import gang as gang_mod
-    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
     from tests.fake_apiserver import FakeApiServer
 
     work = Path(tempfile.mkdtemp(prefix="gang", dir="/tmp"))
@@ -3400,45 +3443,8 @@ def phase_gang(main_report: dict) -> dict:
         # 5. Member 0 binds on this card's node: the stand-in kubelet's
         # Allocate through the daemon, then its pod on the allocated card.
         channel = grpc.insecure_channel(f"unix:{dp_dir / req.endpoint}")
-        stub = DevicePluginStub(channel)
-        areq = pb.AllocateRequest()
-        areq.container_requests.add(devicesIDs=topo["available"])
-        t_alloc = time.monotonic()
-        resp = stub.Allocate(areq, timeout=PLUGIN_WAIT_S).container_responses[0]
-        env = dict(resp.envs)
-        podres.set("default", members[0], topo["available"])
-        bind(members[0], GANG_NODE)
-        pod_env = dict(os.environ, **env)
-        pod_env["CUDA_VISIBLE_DEVICES"] = env[constants.NVIDIA_VISIBLE_DEVICES]
-        pod = subprocess.Popen([sys.executable, *DRA_POD_ARGS], cwd=ROOT, env=pod_env,
-                               text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
-        procs.append(pod)
-        report = None
-        for raw_line in pod.stdout:
-            if raw_line.startswith("{") and "partial" not in (snap := json.loads(raw_line)):
-                report = snap
-                line["allocate_to_report_s"] = time.monotonic() - t_alloc
-        rc = pod.wait(timeout=60)
-        err = pod.stderr.read()
-        pod.stderr.close()
-        if rc != 0 or report is None:
-            print(err[-4000:], file=sys.stderr, flush=True)
-            fail(f"member 0's pod exited {rc} with report {report}")
-        n_layers = ModelConfig.bench().n_layers
-        launches = report["kernel_launches"]
-        line["pod"] = {k: report.get(k) for k in (
-            "ok", "device_kind", "device_uuid", "expected_devices", "devices_match", "steps_run",
-            "time_to_devices_s", "step_time_s", "mfu", "first_loss", "kernel_launches")}
-        line["main_path_step_time_s"] = main_report.get("step_time_s")
-        if not (report["ok"] and report["expected_devices"] == count and report["devices_match"]):
-            fail(f"member 0's pod is not ok: {line['pod']}")
-        if report.get("device_uuid") not in topo["available"]:
-            fail(f"member 0's pod ran on {report.get('device_uuid')}, not on an allocated "
-                 f"card {topo['available']}")
-        want = {name: n_layers * report["steps_run"] for name in FLASH}
-        want["rmsnorm"] = 0
-        if launches != want:
-            fail(f"member 0's pod launched {launches}, expected {want}")
+        launches = run_member_pod(DevicePluginStub(channel), podres, bind, members[0], GANG_NODE,
+                                  topo["available"], count, main_report, line, fail)
 
         # 6. Member 1 binds on the synthetic node: the hold drops and the
         # competitor passes there.
@@ -3490,6 +3496,471 @@ def phase_gang(main_report: dict) -> dict:
     return launches
 
 
+SHARDS = 2
+SHARD_LEASE_S = 6
+SHARD_RESYNC_S = 1
+SHARD_IDENTITY = "nvidia-scheduler-extender-{}"
+SHARD_DUP = "nvidia-scheduler-extender-dup"
+SHARD_SY_CARDS = 8
+SHARD_POLL_S = 0.01
+# The peer scan's period (the manager's max(1, lease / 3)): the overlay's
+# staleness is at most one scan after the publish.
+SHARD_SCAN_S = max(1.0, SHARD_LEASE_S / 3.0)
+# A reserve wakes the publisher at once; the lease's own renew (lease / 3
+# or less) would publish up to 1.33 s late.
+SHARD_PUBLISH_LIMIT_S = 0.5
+SHARD_STALENESS_LIMIT_S = SHARD_SCAN_S + SHARD_PUBLISH_LIMIT_S
+AGE_SLACK_S = 0.5  # a hold's age_s is rounded to 0.1 s and read over HTTP
+
+
+def run_member_pod(stub, podres, bind, member: str, node: str, ids, count: int,
+                   main_report: dict, line: dict, fail_with) -> dict:
+    """A released gang member's pod on this card: the stand-in kubelet's
+    ``Allocate`` of ``ids`` through the daemon, the member bound to
+    ``node``, then ``workload.smoke --bench --steps 5`` in its own process
+    with the response's env and ``CUDA_VISIBLE_DEVICES`` from
+    ``NVIDIA_VISIBLE_DEVICES``. It must report ok on ``count`` cards, on an
+    allocated one, each flash kernel and delta launched ``n_layers`` times
+    a step it ran (its own counts) and the RMSNorm kernel not at all. The
+    report's launch counts are returned."""
+    from k8s_device_plugin_tpu_torch.api import constants
+    from k8s_device_plugin_tpu_torch.api import deviceplugin_pb2 as pb
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
+
+    areq = pb.AllocateRequest()
+    areq.container_requests.add(devicesIDs=ids)
+    t_alloc = time.monotonic()
+    resp = stub.Allocate(areq, timeout=PLUGIN_WAIT_S).container_responses[0]
+    env = dict(resp.envs)
+    podres.set("default", member, ids)
+    bind(member, node)
+    pod_env = dict(os.environ, **env)
+    pod_env["CUDA_VISIBLE_DEVICES"] = env[constants.NVIDIA_VISIBLE_DEVICES]
+    pod = subprocess.Popen([sys.executable, *DRA_POD_ARGS], cwd=ROOT, env=pod_env, text=True,
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+    report = None
+    try:
+        for raw_line in pod.stdout:
+            if raw_line.startswith("{") and "partial" not in (snap := json.loads(raw_line)):
+                report = snap
+                line["allocate_to_report_s"] = time.monotonic() - t_alloc
+        rc = pod.wait(timeout=60)
+        err = pod.stderr.read()
+    finally:
+        if pod.poll() is None:
+            pod.kill()
+            pod.wait()
+        pod.stdout.close()
+        pod.stderr.close()
+    if rc != 0 or report is None:
+        print(err[-4000:], file=sys.stderr, flush=True)
+        fail_with(f"{member}'s pod exited {rc} with report {report}")
+    launches = report["kernel_launches"]
+    line["pod"] = {k: report.get(k) for k in (
+        "ok", "device_kind", "device_uuid", "expected_devices", "devices_match", "steps_run",
+        "time_to_devices_s", "step_time_s", "mfu", "first_loss", "kernel_launches")}
+    line["main_path_step_time_s"] = main_report.get("step_time_s")
+    if not (report["ok"] and report["expected_devices"] == count and report["devices_match"]):
+        fail_with(f"{member}'s pod is not ok: {line['pod']}")
+    if report.get("device_uuid") not in ids:
+        fail_with(f"{member}'s pod ran on {report.get('device_uuid')}, not on an allocated "
+                  f"card {ids}")
+    want = {name: ModelConfig.bench().n_layers * report["steps_run"] for name in FLASH}
+    want["rmsnorm"] = 0
+    if launches != want:
+        fail_with(f"{member}'s pod launched {launches}, expected {want}")
+    return launches
+
+
+def phase_shards(main_report: dict) -> dict:
+    """Sharded gang admission over a daemon on the real NVML: two extender
+    replicas of two shards, the overlay, a SIGKILL stalling only its shard,
+    the takeover replaying its journal, a taken-over gang's member on this
+    card, the handback, the audits and SIGTERM."""
+    import grpc
+
+    from k8s_device_plugin_tpu_torch.api import constants
+    from k8s_device_plugin_tpu_torch.api.grpc_defs import DevicePluginStub
+    from k8s_device_plugin_tpu_torch.extender import gang as gang_mod
+    from k8s_device_plugin_tpu_torch.extender.holdscodec import decode_holds
+    from k8s_device_plugin_tpu_torch.extender.sharding import (
+        HOLDS_ANNOTATION, ShardRing, pick_key, shard_lease_name, standby_lease_name)
+    from tests.fake_apiserver import FakeApiServer
+
+    node = os.uname().nodename  # the card machine's own name, as the daemon's default
+    ring = ShardRing(SHARDS)
+    x = ring.shard_of(node)
+    y = 1 - x
+    sx = pick_key(ring, x, "hgx-sx-{0:03d}")
+    sy = pick_key(ring, y, "hgx-sy-{0:03d}")
+    g_x, g_y, g_y2 = (pick_key(ring, s, f"default/{p}-{{0:03d}}").split("/", 1)[1]
+                      for s, p in ((x, "gx"), (y, "gy"), (y, "gy2")))
+    work = Path(tempfile.mkdtemp(prefix="shard", dir="/tmp"))
+    dp_dir = work / "dp"
+    dp_dir.mkdir()
+    journal_dir = work / "journal"
+    api = FakeApiServer()
+    kubelet = Kubelet(str(dp_dir))
+    podres = PodResources(str(work / "pod-resources" / "kubelet.sock"))
+    api_url = api.start()
+    api.add_node(node)
+    kubeconfig = work / "kubeconfig.json"
+    kubeconfig.write_text(json.dumps({
+        "apiVersion": "v1", "kind": "Config", "current-context": "smoke",
+        "contexts": [{"name": "smoke", "context": {"cluster": "fake", "user": "smoke"}}],
+        "clusters": [{"name": "fake", "cluster": {"server": api_url}}],
+        "users": [{"name": "smoke", "user": {"token": "smoke"}}],
+    }))
+    line: dict = {"nvidia_smi": nvidia_smi(), "node": node, "x": x, "y": y,
+                  "nodes": {"sx": sx, "sy": sy}, "gangs": {"x": g_x, "y": g_y, "y2": g_y2}}
+    channel = None
+    procs: list = []
+    with open(work / "daemon.log", "w") as log_file:
+        daemon = subprocess.Popen([sys.executable, "-m", "k8s_device_plugin_tpu_torch",
+                                   "--device-plugin-dir", str(dp_dir), "--node-name", node,
+                                   "--kubeconfig", str(kubeconfig),
+                                   "--podresources-socket", podres.socket_path,
+                                   "--metrics-port", "0"],
+                                  cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT)
+    procs.append(daemon)
+    try:
+        def shard_fail(msg: str) -> None:
+            for path in sorted(work.glob("*.log")):
+                print(f"{path.name}:", path.read_text()[-3000:], file=sys.stderr, flush=True)
+            fail(msg)
+
+        def until(pred, what: str, bound_s: float = PLUGIN_WAIT_S,
+                  every_s: float = SHARD_POLL_S):
+            """Poll ``pred`` until it gives a value: (time, value)."""
+            deadline = time.monotonic() + bound_s
+            while not (value := pred()):
+                if time.monotonic() > deadline:
+                    shard_fail(f"not seen within {bound_s} s: {what}")
+                time.sleep(every_s)
+            return time.monotonic(), value
+
+        def extender(shard: int, port: int, log_name: str, identity: str = "",
+                     explicit_index: bool = False) -> subprocess.Popen:
+            """A sharded replica whose HOSTNAME is ``identity`` (by default
+            the StatefulSet pod name of ``shard``); the home shard from the
+            name's ordinal unless ``explicit_index``."""
+            index = ["--shard-index", str(shard)] if explicit_index else []
+            with open(work / log_name, "w") as log_file:
+                proc = subprocess.Popen(
+                    [sys.executable, "-m", "k8s_device_plugin_tpu_torch.extender", "--node-cache",
+                     "--gang-admission", "--shards", str(SHARDS), *index, "--journal-dir",
+                     str(journal_dir), "--audit-interval-s", str(GANG_AUDIT_INTERVAL_S),
+                     "--decisions", "--lease-seconds", str(SHARD_LEASE_S), "--gang-resync-s",
+                     str(SHARD_RESYNC_S), "--kubeconfig", str(kubeconfig), "--host",
+                     "127.0.0.1", "--port", str(port)],
+                    cwd=ROOT, env=dict(os.environ, HOSTNAME=identity or SHARD_IDENTITY.format(shard)),
+                    stdout=log_file, stderr=subprocess.STDOUT)
+            procs.append(proc)
+            return proc
+
+        def metric(base: str, name: str, **labels):
+            status, body = http_get(base + "/metrics")
+            if status != 200:
+                return None
+            try:
+                return sample_value(parse_metrics(body.decode()), name, **labels)
+            except ValueError as e:
+                shard_fail(str(e))
+
+        def readyz(base: str) -> dict:
+            status, body = http_get(base + "/readyz")
+            return json.loads(body) if status == 200 else {}
+
+        def owned(base: str):
+            return (readyz(base).get("shard") or {}).get("owned")
+
+        def post(base: str, path: str, body: dict) -> dict:
+            req = urllib.request.Request(base + path, data=json.dumps(body).encode(),
+                                         headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=30) as resp:
+                return json.loads(resp.read())
+
+        def gpu_pod(name: str, n: int, gang: str = "") -> dict:
+            meta = {"name": name, "namespace": "default", "uid": f"{name}-uid", "annotations": {}}
+            spec = {"containers": [{"name": "main", "resources": {
+                "requests": {constants.RESOURCE_NAME: str(n)}}}]}
+            if gang:
+                meta["labels"] = {gang_mod.GANG_NAME_LABEL: gang, gang_mod.GANG_SIZE_LABEL: "2"}
+                spec["schedulingGates"] = [{"name": gang_mod.GATE_NAME}]
+            return {"metadata": meta, "spec": spec, "status": {"phase": "Pending"}}
+
+        def add_gang(gang: str, n: int) -> list:
+            members = [f"{gang}-{i}" for i in range(2)]
+            for name in members:
+                api.add_pod(gpu_pod(name, n, gang))
+            return members
+
+        def released(members) -> bool:
+            return not any(gang_mod.is_gated(api.pods[("default", m)]) for m in members)
+
+        def bind(name: str, on: str) -> None:
+            """The scheduler's bind of a member, as a watch sees it."""
+            pod = json.loads(json.dumps(api.pods[("default", name)]))
+            pod["spec"]["nodeName"] = on
+            pod["status"] = {"phase": "Running"}
+            api.update_pod(pod)
+
+        def verdict(base: str, pod: dict, on: str):
+            """The name-only /filter's answer for ``pod`` on ``on``: None
+            passes, else the failure message."""
+            answer = post(base, "/filter", {"pod": pod, "nodenames": [on]})
+            return None if on in answer["nodenames"] else answer["failedNodes"].get(on, "?")
+
+        def fenced(base: str, pod: dict, on: str):
+            msg = verdict(base, pod, on)
+            return msg if msg and "reserved for a released gang" in msg else None
+
+        def holder(shard: int) -> str:
+            lease = api.leases.get(("kube-system", shard_lease_name(shard, SHARDS)), {})
+            return (lease.get("spec") or {}).get("holderIdentity", "")
+
+        def published(shard: int, gang: str) -> bool:
+            """``gang``'s hold on ``shard``'s lease, as a peer's scan reads it."""
+            lease = api.leases.get(("kube-system", shard_lease_name(shard, SHARDS)), {})
+            ann = (lease.get("metadata") or {}).get("annotations") or {}
+            return any(r.get("gang") == gang for r in decode_holds(ann.get(HOLDS_ANNOTATION, "")))
+
+        def hold_of(base: str, gang: str):
+            status, body = http_get(base + "/reservations")
+            holds = json.loads(body).get("holds", []) if status == 200 else []
+            return next((h for h in holds if h["gang"] == gang), None)
+
+        # The daemon publishes this card's node; SX (shard X) has as many
+        # cards, none free; SY (shard Y) 8, all free.
+        _, req, _ = kubelet.next_registration()
+        _, raw = until(lambda: api.nodes[node]["metadata"].get("annotations", {}).get(
+            constants.TOPOLOGY_ANNOTATION), "the node's nvidia.com/gpu-topology annotation")
+        topo = json.loads(raw)
+        count = topo["chip_count"]
+        if count < 1 or len(topo["available"]) != count:
+            shard_fail(f"the node's annotation before any allocation: {topo}")
+        line["cards"] = count
+
+        def hgx(name: str, index: int, free, cards: int) -> None:
+            api.add_node(name, {"metadata": {"name": name, "labels": {}, "annotations": {
+                constants.TOPOLOGY_ANNOTATION: hgx_annotation(name, index, free, cards)}}})
+        hgx(sx, 20, [], count)
+        hgx(sy, 21, range(SHARD_SY_CARDS), SHARD_SY_CARDS)
+
+        # 1. Both replicas: the start to their shard's gauge and to /readyz,
+        # each owning its home; a third replica of home X exits nonzero and
+        # leaves X's holder as it was.
+        ports = {s: free_port() for s in (x, y)}
+        base = {s: f"http://127.0.0.1:{ports[s]}" for s in (x, y)}
+        t_start = time.monotonic()
+        ext = {s: extender(s, ports[s], f"extender-{s}.log", explicit_index=(s == 0))
+               for s in (x, y)}
+        line["start"] = {}
+        for s in (x, y):
+            t_owned, _ = until(lambda: metric(base[s], "tpu_extender_shard_owned",
+                                              shard=str(s)) == 1,
+                               f"tpu_extender_shard_owned{{shard={s}}} 1")
+            t_ready, _ = until(lambda: readyz(base[s]).get("ok"), f"/readyz 200 of shard {s}")
+            line["start"][str(s)] = {"to_owned_s": t_owned - t_start,
+                                     "to_readyz_s": t_ready - t_start,
+                                     "owned": owned(base[s])}
+            if owned(base[s]) != [s] or holder(s) != SHARD_IDENTITY.format(s):
+                shard_fail(f"replica {s} at ready: {readyz(base[s])}, holder {holder(s)!r}")
+        dup = extender(x, free_port(), "dup.log", identity=SHARD_DUP, explicit_index=True)
+        t0 = time.monotonic()
+        dup_rc = dup.wait(timeout=PLUGIN_WAIT_S)
+        line["duplicate"] = {"rc": dup_rc, "exit_s": time.monotonic() - t0, "holder": holder(x)}
+        if dup_rc == 0 or holder(x) != SHARD_IDENTITY.format(x):
+            shard_fail(f"a second replica of home {x}: {line['duplicate']}")
+
+        # 2. G_Y (2 pods of 2 cards) goes onto SY through replica Y; replica
+        # X's /filter then refuses an 8-card pod on SY for the overlay alone.
+        # G_Y is submitted just after one of X's scans (seen as X's lease-age
+        # gauge, which every scan rewrites, moving), so the release lands
+        # early in X's scan period and the reading is near the staleness's
+        # worst case, not wherever the two replicas' start phases put it.
+        wide = gpu_pod("wide", SHARD_SY_CARDS)
+        if verdict(base[x], wide, sy) is not None:
+            shard_fail(f"an 8-card pod on the free SY before any hold: "
+                       f"{verdict(base[x], wide, sy)}")
+        age_x = metric(base[x], "tpu_extender_shard_lease_age_seconds", shard=str(x))
+        t_scan, _ = until(lambda: metric(base[x], "tpu_extender_shard_lease_age_seconds",
+                                         shard=str(x)) not in (None, age_x),
+                          "a scan of replica X", bound_s=2 * SHARD_SCAN_S + 1)
+        members_y = add_gang(g_y, 2)
+        t_rel_y, _ = until(lambda: released(members_y), f"G_Y ({g_y}) released by replica {y}")
+        t_pub, _ = until(lambda: published(y, g_y), f"G_Y's hold on shard {y}'s lease")
+        t_seen, note = until(lambda: fenced(base[x], wide, sy),
+                             "replica X's /filter refusing the 8-card pod on SY")
+        _, peer = until(lambda: metric(base[x], "tpu_extender_shard_peer_held_chips") == 4 and 4,
+                        "tpu_extender_shard_peer_held_chips 4 on replica X")
+        line["overlay"] = {"x_scan_to_release_s": t_rel_y - t_scan,
+                           "release_to_published_s": t_pub - t_rel_y,
+                           "release_to_peer_reject_s": t_seen - t_rel_y,
+                           "limit_s": SHARD_STALENESS_LIMIT_S, "note": note,
+                           "peer_held_chips": peer}
+        if (t_pub - t_rel_y > SHARD_PUBLISH_LIMIT_S
+                or t_seen - t_rel_y > SHARD_STALENESS_LIMIT_S):
+            shard_fail(f"the overlay published or read past its limit: {line['overlay']}")
+        for m in members_y:
+            bind(m, sy)
+
+        # 3. G_X: member 0 asks this node's cards, member 1 SX's; it waits
+        # until SX's cards come free, then replica X releases it and
+        # journals the hold under shard-X/.
+        members_x = add_gang(g_x, count)
+        until(lambda: metric(base[x], "tpu_gang_waiting", tier="standard") == 1,
+              "G_X waiting on replica X")
+        t_free = time.monotonic()
+        hgx(sx, 20, range(count), count)
+        t_rel_x, _ = until(lambda: released(members_x), f"G_X ({g_x}) released by replica {x}")
+        hold_x = hold_of(base[x], g_x)
+        journal_x = journal_dir / f"shard-{x}" / "admission.journal"
+        # Replica Y refuses a 1-card competitor on this node for X's overlay.
+        competitor = gpu_pod("competitor", 1)
+        t_seen_x, _ = until(lambda: fenced(base[y], competitor, node),
+                            "replica Y's /filter refusing the competitor on this node")
+        line["gang_x"] = {"free_to_released_s": t_rel_x - t_free, "hold": hold_x,
+                          "release_to_peer_reject_s": t_seen_x - t_rel_x,
+                          "journal_bytes": journal_x.stat().st_size if journal_x.exists() else 0}
+        if not hold_x or sum(hold_x["hosts"].values()) != 2 * count or not line["gang_x"][
+                "journal_bytes"]:
+            shard_fail(f"G_X's hold on replica X and its journal: {line['gang_x']}")
+
+        # 4. SIGKILL replica X before any member binds; G_Y2 then goes onto
+        # SY through replica Y before Y owns shard X, and the dead shard's
+        # overlay still fences this node.
+        ext[x].kill()
+        ext[x].wait()
+        t_kill = time.monotonic()
+        stall_note = fenced(base[y], competitor, node)
+        members_y2 = add_gang(g_y2, 2)
+        t_rel_y2, _ = until(lambda: released(members_y2), f"G_Y2 ({g_y2}) released")
+        owned_at_y2 = owned(base[y])
+        takeovers_at_y2 = metric(base[y], "tpu_extender_shard_takeovers_total", shard=str(x))
+        line["stall"] = {"kill_to_y2_released_s": t_rel_y2 - t_kill, "owned": owned_at_y2,
+                         "takeovers": takeovers_at_y2, "competitor_note": stall_note}
+        if owned_at_y2 != [y] or takeovers_at_y2 or not stall_note:
+            shard_fail(f"G_Y2 against the stalled shard: {line['stall']}")
+        for m in members_y2:
+            bind(m, sy)
+
+        # 5. Replica Y takes shard X over and replays shard-X/: G_X's hold
+        # back, the competitor refused on this node.
+        t_to, _ = until(lambda: metric(base[y], "tpu_extender_shard_takeovers_total",
+                                       shard=str(x)) == 1,
+                        f"tpu_extender_shard_takeovers_total{{shard={x}}} 1 on replica Y",
+                        every_s=0.05)
+        t_both, _ = until(lambda: owned(base[y]) == sorted((x, y)), "replica Y owning both",
+                          every_s=0.05)
+        # One gauge for the process: each shard's admitter sets it at its
+        # tick's end, so it reads G_X's demand after the taken-over shard's.
+        _, reserved = until(lambda: (v := metric(base[y], "tpu_gang_reserved_chips")) == 2 * count
+                            and v, f"tpu_gang_reserved_chips {2 * count} on replica Y")
+        t_read = time.monotonic()
+        hold_y = hold_of(base[y], g_x)
+        note_y = fenced(base[y], competitor, node)
+        line["takeover"] = {"kill_to_takeover_s": t_to - t_kill, "kill_to_owned_s": t_both - t_kill,
+                            "bound_s": 2 * SHARD_LEASE_S + SHARD_LEASE_S / 3,
+                            "reserved_chips": reserved, "hold": hold_y, "competitor_note": note_y}
+        if (t_to - t_kill > 2 * SHARD_LEASE_S + SHARD_LEASE_S / 3 or not hold_y
+                or hold_y["hosts"] != hold_x["hosts"] or not note_y
+                or hold_y["age_s"] < t_read - t_rel_x - AGE_SLACK_S):
+            shard_fail(f"the takeover: {line['takeover']}")
+
+        # 6. Member 0 binds on this card's node: its pod on the allocated card.
+        channel = grpc.insecure_channel(f"unix:{dp_dir / req.endpoint}")
+        launches = run_member_pod(DevicePluginStub(channel), podres, bind, members_x[0], node,
+                                  topo["available"], count, main_report, line, shard_fail)
+
+        # 7. Replica X again, same HOSTNAME and journal dir: it stands by,
+        # Y hands shard X back, and X owns it with G_X's hold at its first
+        # age; member 1 binds on SX and the hold drops.
+        ports[x] = free_port()
+        base[x] = f"http://127.0.0.1:{ports[x]}"
+        t_restart = time.monotonic()
+        ext[x] = extender(x, ports[x], f"restarted-{x}.log", explicit_index=(x == 0))
+        standby_seen = []
+
+        def handed_back():
+            lease = api.leases.get(("kube-system", standby_lease_name(x, SHARDS)), {})
+            if (lease.get("spec") or {}).get("holderIdentity"):
+                standby_seen.append(True)
+            return owned(base[x]) == [x] and owned(base[y]) == [y]
+        t_back, _ = until(handed_back, "shard X handed back to replica X", every_s=0.05)
+        t_read, hold_back = until(lambda: hold_of(base[x], g_x), "G_X's hold on replica X again")
+        line["handback"] = {"restart_to_owned_s": t_back - t_restart, "standby_seen": any(
+            standby_seen), "hold": hold_back, "released_to_read_s": t_read - t_rel_x}
+        if (not standby_seen or hold_back["age_s"] < t_read - t_rel_x - AGE_SLACK_S
+                or holder(x) != SHARD_IDENTITY.format(x)):
+            shard_fail(f"the handback: {line['handback']}")
+        t_bind = time.monotonic()
+        bind(members_x[1], sx)
+        t_drop, _ = until(lambda: metric(base[x], "tpu_gang_reservations") == 0
+                          and verdict(base[x], competitor, sx) is None,
+                          "G_X's hold dropped and the competitor passing on SX")
+        line["bind_to_fence_dropped_s"] = t_drop - t_bind
+
+        # 8. Two clean audit sweeps or more on each replica, the ownership
+        # invariant among them.
+        line["audit"] = {}
+        for s in (x, y):
+            def audited():
+                status, body = http_get(base[s] + "/debug/audit")
+                snap = json.loads(body) if status == 200 else {}
+                return snap.get("sweeps", 0) >= 2 and snap
+            _, snap = until(audited, f"two audit sweeps on replica {s}", every_s=0.1)
+            outcomes = {o: metric(base[s], "tpu_audit_sweeps_total", outcome=o)
+                        for o in ("clean", "findings", "error")}
+            names = [i["name"] for i in snap["invariants"]]
+            line["audit"][str(s)] = {"sweeps": snap["sweeps"], "outcomes": outcomes,
+                                     "findings": snap["findings"], "errors": snap["errors"],
+                                     "invariants": names}
+            if (snap["findings"] or snap["errors"] or outcomes["findings"] or outcomes["error"]
+                    or (outcomes["clean"] or 0) < 2 or "reservation_shard_ownership" not in names):
+                shard_fail(f"the audit on replica {s}: {line['audit'][str(s)]}")
+
+        # 9. The self-test.
+        t0 = time.monotonic()
+        self_test = subprocess.run([sys.executable, "-m",
+                                    "k8s_device_plugin_tpu_torch.extender.sharding",
+                                    "--shard-self-test"], cwd=ROOT, capture_output=True,
+                                   text=True, timeout=PLUGIN_WAIT_S)
+        line["self_test"] = {"rc": self_test.returncode, "s": time.monotonic() - t0}
+        if self_test.returncode != 0:
+            print(self_test.stdout[-2000:], self_test.stderr[-2000:], file=sys.stderr)
+            shard_fail(f"--shard-self-test exited {self_test.returncode}")
+
+        # 10. SIGTERM: both replicas and the daemon exit 0, every shard and
+        # standby lease released.
+        t0 = time.monotonic()
+        for proc in (*ext.values(), daemon):
+            proc.send_signal(signal.SIGTERM)
+        rcs = {str(s): ext[s].wait(timeout=PLUGIN_WAIT_S) for s in (x, y)}
+        rcs["daemon"] = daemon.wait(timeout=PLUGIN_WAIT_S)
+        line["sigterm_s"] = time.monotonic() - t0
+        line["rc"] = rcs
+        leases = {name: (lease.get("spec") or {}).get("holderIdentity", "")
+                  for (_, name), lease in api.leases.items()}
+        line["leases_after"] = leases
+        line["phase_s"] = time.monotonic() - t_start
+        emit({"shards": line})
+        if any(rcs.values()) or any(leases.values()) or len(leases) < SHARDS + 1:
+            shard_fail(f"SIGTERM: exits {rcs}, lease holders {leases}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if channel is not None:
+            channel.close()
+        kubelet.server.stop(grace=0)
+        podres.server.stop(grace=0)
+        api.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA "
@@ -3523,6 +3994,7 @@ def main() -> int:
     dra_launches = phase_dra_pod(main_report)
     phase_extender()
     gang_launches = phase_gang(main_report)
+    shard_launches = phase_shards(main_report)
     dist.destroy_process_group()
     path_launches = {name: (launches[name], steps) for name in FLASH}
     path_launches["rmsnorm"] = (norm_launches["rmsnorm"], norm_steps)
@@ -3530,7 +4002,8 @@ def main() -> int:
                "generate_dense": dense_gen, "generate_flash": flash_gen,
                "sharded": sharded_launches, "moe": moe_launches, "ring": ring_launches,
                "resume": resume_launches, "kv_sweep": sweep_launches,
-               "plugin_pod": pod_launches, "dra_pod": dra_launches, "gang_pod": gang_launches}
+               "plugin_pod": pod_launches, "dra_pod": dra_launches, "gang_pod": gang_launches,
+               "shard_pod": shard_launches}
     emit({"tools": {"nvidia_smi": nvidia_smi(), "runs": [
         {k: r[k] for k in ("phase", "tool", "rc", "wall_s")}
         | {"verb": r["args"][0] if r["tool"] == "doctor" else ""} for r in TOOL_RUNS]}})

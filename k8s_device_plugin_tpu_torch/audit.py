@@ -820,8 +820,9 @@ class ExtenderAudit:
     the cluster; nothing wired, no invariant at all (the JAX rule: an
     auditor of nothing would read clean). The engine is driven from the
     gang-admission loop, so the journal's read never races its one writer.
-    The index's ``placeable_recount`` and the later planes' invariants come
-    with those planes."""
+    With sharded admission (``shard_manager``) it also proves that every
+    hold lies on its own shard's nodes. The index's ``placeable_recount``
+    and the later planes' invariants come with those planes."""
 
     def __init__(
         self,
@@ -830,12 +831,14 @@ class ExtenderAudit:
         gang=None,  # extender.gang.GangAdmission
         index=None,  # extender.index.TopologyIndex
         resource_name: str = constants.RESOURCE_NAME,
+        shard_manager=None,  # extender.sharding.ShardManager
     ):
         self.reservations = reservations
         self.journal = journal
         self.gang = gang
         self.index = index
         self.resource_name = resource_name
+        self.shard_manager = shard_manager
         # Per-sweep facts.
         self._gangs: Optional[dict] = None
         self._gangs_error: Optional[Exception] = None
@@ -881,6 +884,16 @@ class ExtenderAudit:
                 "GPU pods need a fence (or a lapse bar); a fully gated gang with a "
                 "standing hold is a release that failed wholesale",
                 _skippable(self.check_gate_vs_hold),
+            ))
+        if self.shard_manager is not None:
+            out.append(Invariant(
+                "reservation_shard_ownership",
+                ("reservations", "shard-ring", "topology-index"),
+                "every hold must fence cards of nodes its own shard owns (the "
+                "consistent hash of the node's hostname), and no node may carry "
+                "holds of two shards: the structural guarantee against cross-shard "
+                "double-booking",
+                self.check_shard_ownership,
             ))
         if out:
             out.extend(shared_invariants())
@@ -947,6 +960,51 @@ class ExtenderAudit:
 
         out = diff()
         return diff() if out else out
+
+    def check_shard_ownership(self) -> List[Finding]:
+        """Sharded admission's guarantee, proven again from scratch each
+        sweep: each held host of every owned shard's table, hashed through
+        the ring, must belong to that shard, and no host may carry holds of
+        two shards. A GPU node forms no multi-host slice, so its capacity
+        key is its hostname (the index's ``slice_key`` is always None). A
+        host the index does not know (no index wired, or its entry gone
+        while the hold stands) skips the ownership half, as in JAX; the
+        two-shards check needs no hash and always runs."""
+        ring = self.shard_manager.ring
+        known: Optional[Set[str]] = None
+        if self.index is not None:
+            known = {e.hostname for e in self.index.entries() if e.hostname}
+        out: List[Finding] = []
+        holder_of: Dict[str, int] = {}
+        conflicted: Set[str] = set()
+        for shard_id, table in self.shard_manager.shard_tables():
+            for key, res in sorted(table.active().items()):
+                for host, n in sorted(res.hosts.items()):
+                    owner = ring.shard_of(host) if known is not None and host in known else shard_id
+                    if owner != shard_id:
+                        out.append(Finding.make(
+                            "reservation_shard_ownership", CRITICAL,
+                            f"shard {shard_id} holds {n} card(s) on {host} for gang "
+                            f"{key[0]}/{key[1]}, but shard {owner} owns that node: its true "
+                            f"owner can book those cards again",
+                            gang=f"{key[0]}/{key[1]}", node=host, shard=shard_id,
+                            owner_shard=owner, chips=n,
+                        ))
+                    prev = holder_of.get(host)
+                    if prev is not None and prev != shard_id:
+                        # One finding per host a sweep: ten holds behind one
+                        # conflicted host are one hazard.
+                        if host not in conflicted:
+                            conflicted.add(host)
+                            out.append(Finding.make(
+                                "reservation_shard_ownership", CRITICAL,
+                                f"host {host} carries holds from two shards ({prev} and "
+                                f"{shard_id}): cross-shard double-booking in progress",
+                                node=host, shards=f"{prev},{shard_id}",
+                            ))
+                    else:
+                        holder_of[host] = shard_id
+        return out
 
     def check_reservation_vs_cluster(self) -> List[Finding]:
         active = self.reservations.active()

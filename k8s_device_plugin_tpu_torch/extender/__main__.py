@@ -10,6 +10,13 @@ index feeds the admitter's capacity view and marks its waiting gangs dirty,
 and ``--audit-interval-s`` drives the extender's auditor from the admission
 loop. SIGTERM stops the admitter and releases the lease.
 
+With ``--shards N`` (N > 1) admission is sharded (``sharding.py``): the
+replica takes its home shard's lease (``--shard-index``, by default the
+trailing ordinal of HOSTNAME), runs one admitter per shard it owns with its
+journal under ``--journal-dir/shard-<k>``, takes over dead shards' leases
+unless ``--no-shard-takeover``, and serves /filter and /prioritize over
+every shard's holds.
+
 The flags keep the JAX extender's names and defaults and are read from the
 command line only (no ``TPU_*`` environment alias). A flag of a plane this
 port does not have yet is refused with a message naming the slice that
@@ -22,6 +29,7 @@ import argparse
 import gc
 import logging
 import os
+import re
 import signal
 import sys
 import threading
@@ -35,13 +43,9 @@ from .reservations import ReservationTable
 from .server import ExtenderHTTPServer, NodeAnnotationCache, ReadyStatus, TopologyExtender
 
 # The JAX extender's flags of planes that later slices of the port bring.
-_SHARDING = "reservation refencing and sharding"
 _PREEMPTION = "preemption"
 _DEFRAG = "defragmentation and rescue"
 UNPORTED_FLAGS = {
-    "--shards": _SHARDING,
-    "--shard-index": _SHARDING,
-    "--no-shard-takeover": _SHARDING,
     "--no-preemption": _PREEMPTION,
     "--preemption-rounds-per-tick": _PREEMPTION,
     "--no-defrag": _DEFRAG,
@@ -95,6 +99,19 @@ def parse_args(argv) -> argparse.Namespace:
                    help="fsync every journal record (machine-crash durability); by default "
                    "the reserve, admit and lapse records reach the OS before the admitter "
                    "acts on them and the rest at the end of each tick")
+    p.add_argument("--shards", type=int, default=1,
+                   help="shard gang admission by consistent hash of the node's hostname across "
+                   "this many per-shard Leases (extender/sharding.py). 1 keeps the singleton "
+                   "admitter; N > 1 runs one admitter per owned shard, each journaled under "
+                   "--journal-dir/shard-<k>, /filter and /prioritize on every replica over "
+                   "every shard's holds (read off the shard leases' annotations). Run N "
+                   "replicas, one home shard each")
+    p.add_argument("--shard-index", type=int, default=-1,
+                   help="this replica's home shard (0-based); -1 derives it from the trailing "
+                   "ordinal of HOSTNAME (a StatefulSet pod's name), else 0")
+    p.add_argument("--no-shard-takeover", action="store_true",
+                   help="do not take over other shards' stale leases: a dead shard's gangs "
+                   "then wait for its own replica's restart")
     p.add_argument("--no-singleton-lease", action="store_true",
                    help="skip the Lease that fences gang admission to one live replica; only "
                    "for dev clusters without lease RBAC")
@@ -240,12 +257,89 @@ def main(argv=None) -> int:
     gc.collect()
     gc.freeze()
     log = logging.getLogger(__name__)
+    sharded = a.gang_admission and a.shards > 1
+    if sharded and a.no_singleton_lease:
+        log.error("--shards %d needs the per-shard leases: they are the fence sharded "
+                  "admission stands on, so --no-singleton-lease cannot go with it", a.shards)
+        return 2
+
+    def make_topo_source():
+        if node_cache is None:
+            return None
+        cache = node_cache
+
+        def topo_source():
+            # Before the first relist the index is empty, not authoritative:
+            # raising routes the tick through its serve-stale-or-skip path
+            # instead of reading no capacity.
+            if not cache.synced:
+                raise RuntimeError("node cache never synced")
+            return cache.index.topologies()
+        return topo_source
+
+    manager = None
+    reservations_view = reservations
+    if sharded:
+        # Built, not started, before the HTTP server, so /filter is shielded
+        # by every owned shard's table and the peers' overlays from its
+        # first request; the leases and the journals' replay come below,
+        # behind the readiness gate, where the singleton's replay runs.
+        from .gang import GangAdmission
+        from .journal import AdmissionJournal
+        from .leader import default_identity
+        from .sharding import ShardManager
+
+        home = a.shard_index
+        if home < 0:
+            m = re.search(r"-(\d+)$", os.environ.get("HOSTNAME", ""))
+            home = int(m.group(1)) if m else 0
+        home %= a.shards
+
+        def shard_admitter(shard_id, gang_filter, topo_filter):
+            shard_journal = None
+            if a.journal_dir:
+                shard_journal = AdmissionJournal(os.path.join(a.journal_dir, f"shard-{shard_id}"),
+                                                 fsync_always=a.journal_fsync)
+            adm = GangAdmission(
+                client,
+                resync_interval_s=a.gang_resync_s,
+                reservations=ReservationTable(),
+                full_sweep_interval_s=a.gang_full_sweep_s,
+                topo_source=make_topo_source(),
+                watch=not a.no_gang_watch,
+                pending_event_threshold_s=a.gang_pending_event_s,
+                journal=shard_journal,
+                gang_filter=gang_filter,
+                topo_filter=topo_filter,
+                shard_id=shard_id,
+            )
+            adm.degraded = degraded
+            return adm
+
+        def shard_lost(shard_id: int) -> None:
+            # The singleton's rationale, per shard: a write in flight dies
+            # with the process; the kubelet restarts it into a clean acquire.
+            log.error("shard %d lease lost; exiting immediately so no in-flight admission "
+                      "write can land past the takeover horizon", shard_id)
+            os._exit(1)
+
+        manager = ShardManager(client, shards=a.shards, home_shard=home,
+                               admitter_factory=shard_admitter,
+                               lease_namespace=a.lease_namespace, lease_seconds=a.lease_seconds,
+                               identity=default_identity(), takeover=not a.no_shard_takeover,
+                               on_shard_lost=shard_lost)
+        reservations_view = manager.reservations_view()
+        metrics.SHARD_PROVIDER = manager.status
+        status.shard_status = manager.status
+        if node_cache is not None:
+            node_cache.index.on_change = (
+                lambda name, slice_keys: manager.note_node_event(slice_keys))
     # The singleton fence before anything serves: the reservation table is
     # this process's memory, so gang admission runs in exactly one live
     # replica. A second replica exits 1 here, loudly, and the holder is left
-    # untouched.
+    # untouched. Sharded, the per-shard leases are this fence, once a shard.
     leader = None
-    if a.gang_admission and not a.no_singleton_lease:
+    if a.gang_admission and not a.no_singleton_lease and not sharded:
         from .leader import LeaderLease, SecondReplica
 
         def lease_lost():
@@ -265,30 +359,36 @@ def main(argv=None) -> int:
             log.error("REFUSING to start gang admission: %s. The extender Deployment must stay "
                       "at replicas: 1 (deploy/nvidia-extender-torch.yml): a second admitter "
                       "would run its own reservation table and the gang release fence would "
-                      "silently stop holding. Scale back down (or pass --no-singleton-lease "
-                      "on a dev cluster without lease RBAC).", e)
+                      "silently stop holding. Scale back down, shard it (--shards, one "
+                      "replica a shard), or pass --no-singleton-lease on a dev cluster "
+                      "without lease RBAC.", e)
             return 1
+    identity = manager.identity if manager is not None else (
+        leader.identity if leader is not None else "")
     srv = ExtenderHTTPServer(
-        extender=TopologyExtender(reservations=reservations, node_cache=node_cache),
+        extender=TopologyExtender(reservations=reservations_view, node_cache=node_cache),
         host=a.host, port=a.port, ready_check=ready.is_set, ready_status=status.snapshot,
-        degraded=degraded, identity=leader.identity if leader is not None else "")
+        degraded=degraded, identity=identity)
     srv.start()
     log.info("extender serving on %s:%d", a.host, srv.port)
     gang = None
-    if a.gang_admission:
+    if sharded:
+        from .leader import SecondReplica
+
+        try:
+            # The home shard's lease (fail fast: the singleton's contract per
+            # shard), its journal's replay, the peer scan; dead shards are
+            # taken over on the scan loop.
+            manager.start()
+        except SecondReplica as e:
+            log.error("REFUSING to start shard %d admission: %s. Another replica holds this "
+                      "shard's lease as its home: give each replica its own --shard-index "
+                      "(a StatefulSet's ordinal does by default).", manager.home_shard, e)
+            return 1
+        gang = manager.home_admission()
+    elif a.gang_admission:
         from .gang import GangAdmission
 
-        topo_source = None
-        if node_cache is not None:
-            cache = node_cache
-
-            def topo_source():
-                # Before the first relist the index is empty, not
-                # authoritative: raising routes the tick through its
-                # serve-stale-or-skip path instead of reading no capacity.
-                if not cache.synced:
-                    raise RuntimeError("node cache never synced")
-                return cache.index.topologies()
         journal = None
         if a.journal_dir:
             from .journal import AdmissionJournal
@@ -299,7 +399,7 @@ def main(argv=None) -> int:
             resync_interval_s=a.gang_resync_s,
             reservations=reservations,
             full_sweep_interval_s=a.gang_full_sweep_s,
-            topo_source=topo_source,
+            topo_source=make_topo_source(),
             watch=not a.no_gang_watch,
             pending_event_threshold_s=a.gang_pending_event_s,
             journal=journal,
@@ -317,22 +417,49 @@ def main(argv=None) -> int:
     if a.audit_interval_s > 0:
         from .. import audit
 
-        ext_audit = audit.ExtenderAudit(
-            reservations=reservations,
-            journal=gang.journal if gang is not None else None,
-            gang=gang,
-            index=node_cache.index if node_cache is not None else None,
-        )
-        engine = ext_audit.engine(interval_s=a.audit_interval_s)
-        if not engine.invariants:
-            # No plane to join: an engine of no invariant would sweep clean
-            # while auditing nothing.
-            log.warning("--audit-interval-s set but no auditable plane is wired (need "
-                        "--gang-admission); the consistency auditor will not run")
-        else:
+        auditor_lock = threading.Lock()
+
+        def build_auditor(gang_obj):
+            # The scan thread's late adoption and this thread's check can
+            # both reach here: the lock makes the second call a no-op.
+            with auditor_lock:
+                if gang_obj is not None and gang_obj.auditor is not None:
+                    return gang_obj.auditor
+                return _build_auditor(gang_obj)
+
+        def _build_auditor(gang_obj):
+            ext_audit = audit.ExtenderAudit(
+                # Sharded: the home shard's own table and journal (the loop
+                # the sweeps ride); unsharded, the one table.
+                reservations=gang_obj.reservations if gang_obj is not None else reservations,
+                journal=gang_obj.journal if gang_obj is not None else None,
+                gang=gang_obj,
+                index=node_cache.index if node_cache is not None else None,
+                shard_manager=manager,
+            )
+            engine = ext_audit.engine(interval_s=a.audit_interval_s)
+            if not engine.invariants:
+                # No plane to join: an engine of no invariant would sweep
+                # clean while auditing nothing.
+                log.warning("--audit-interval-s set but no auditable plane is wired (need "
+                            "--gang-admission); the consistency auditor will not run")
+                return None
             audit.install_engine(engine)
             # Sweeps ride the admission loop, the journal's one writer.
-            gang.auditor = engine
+            gang_obj.auditor = engine
+            return engine
+
+        if sharded and gang is None:
+            # A standby start (an interim owner holds the home shard): the
+            # auditor is built when the scan adopts the home shard. The scan
+            # may have adopted it before the hook was set: build now if so
+            # (build_auditor builds once, whichever thread comes first).
+            manager.on_home_adopted = build_auditor
+            late = manager.home_admission()
+            if late is not None:
+                build_auditor(late)
+        else:
+            build_auditor(gang)
     status.mark_ready()
     stop = threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
@@ -343,7 +470,10 @@ def main(argv=None) -> int:
     if profiler is not None:
         profiler.stop()
         stackprof.install_profiler(None)
-    if gang is not None:
+    if manager is not None:
+        # Every owned shard's admitter stopped and its lease released.
+        manager.stop()
+    elif gang is not None:
         gang.stop()
     if leader is not None:
         # Cleared on the way out, so a successor acquires at once.

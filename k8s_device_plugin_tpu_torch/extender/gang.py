@@ -37,8 +37,10 @@ cards that will really be gone.
 
 The priority, preemption, defrag and rescue planes of the JAX admitter hook
 in through ``priority_resolver``, ``preemption``, ``defrag`` and ``rescue``,
-which stay None until their slices come; sharded admission comes with the
-sharding slice.
+which stay None until their slices come. Sharded admission
+(``sharding.py``) builds one admitter per owned shard with ``shard_id``,
+``gang_filter`` and ``topo_filter``: it then sees only its shard's gangs and
+places them only on its shard's nodes.
 """
 
 from __future__ import annotations
@@ -316,10 +318,22 @@ class GangAdmission:
         pending_event_repost_s: float = 600.0,
         pending_event_budget: int = 10,
         journal: Optional[AdmissionJournal] = None,
+        gang_filter: Optional[Callable[[GangKey], bool]] = None,
+        topo_filter: Optional[Callable[[NodeTopology], bool]] = None,
+        shard_id: Optional[int] = None,
     ):
         self.client = client
         self.resource_name = resource_name
         self.resync_interval_s = resync_interval_s
+        # Sharded admission (sharding.py): this admitter owns one shard of
+        # the consistent-hash ring. ``gang_filter`` keeps every pass (ticks,
+        # the recovery's reconcile, explain, the audit) to the shard's
+        # gangs; ``topo_filter`` keeps the capacity view to the shard's
+        # nodes, so no two shards ever reserve cards of one node. None (the
+        # default) is the unsharded admitter.
+        self.gang_filter = gang_filter
+        self.topo_filter = topo_filter
+        self.shard_id = shard_id
         # The level-triggered backstop: the loop sweeps every gang at least
         # this often; the ticks in between are dirty ticks over the gangs
         # events marked plus the gangs holding reservations.
@@ -688,6 +702,8 @@ class GangAdmission:
         info = pod_gang(pod)
         if info is None:
             return
+        if self.gang_filter is not None and not self.gang_filter((info[0], info[1])):
+            return  # another shard's gang: not this admitter's to wake
         with self._dirty_lock:
             self._dirty.add((info[0], info[1]))
         metrics.GANG_DIRTY_MARKS.inc(source="pod")
@@ -914,6 +930,11 @@ class GangAdmission:
             views[key] = GangView(size=size, live=alive, standins=done[:max(0, size - len(alive))])
         if keys is not None:
             views = {k: v for k, v in views.items() if k in keys}
+        if self.gang_filter is not None:
+            # Sharded: another shard's gangs are invisible everywhere this
+            # discovery feeds, so this admitter can neither admit nor drop
+            # what it does not own.
+            views = {k: v for k, v in views.items() if self.gang_filter(k)}
         return views
 
     def tick(self, full: bool = True) -> List[GangKey]:
@@ -1163,6 +1184,9 @@ class GangAdmission:
         self._publish_waiting()
         for key in released:
             metrics.GANG_RELEASED.inc(tier=self._gang_tier.get(key, TIER_STANDARD))
+        if released and self.shard_id is not None:
+            # Each shard's admission throughput (rate() is gangs/s).
+            metrics.SHARD_ADMITTED.inc(len(released), shard=str(self.shard_id))
         active = self.reservations.active()
         metrics.GANG_RESERVED.set(len(active))
         metrics.GANG_RESERVED_CHIPS.set(sum(r.total_chips for r in active.values()))
@@ -1319,6 +1343,10 @@ class GangAdmission:
                 except ValueError as e:  # every malformed shape, normalized
                     log.warning("bad topology annotation on %s: %s",
                                 (node.get("metadata") or {}).get("name"), e)
+        if self.topo_filter is not None:
+            # Sharded: only the nodes this shard owns, on either source (the
+            # peer shards filter the complement).
+            topos = [t for t in topos if self.topo_filter(t)]
         if self.rescue is not None:
             # The rescue plane's node lifecycle filter: cordoned, tainted and
             # NotReady nodes leave the capacity view.

@@ -282,6 +282,14 @@ class LeaderLease:
             self._thread = None
         self._release()
 
+    def abandon(self) -> None:
+        """Stop renewing without releasing, as a killed process does: the
+        lease ages out and a successor takes it over after its decay."""
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+
     def _release(self) -> None:
         """Clear holderIdentity on a graceful stop, so the next pod acquires
         at once instead of crash-looping against this fresh renewTime.

@@ -1059,14 +1059,19 @@ class ReadyStatus:
     """The startup phase behind /readyz and /debug/readyz: ``replaying``
     (the admission journal's replay, once admission is wired), ``warming``
     and ``ready``, with the index's warm progress (``parsed/total``), so a
-    stuck warm is told from a slow one."""
+    stuck warm is told from a slow one, and, when sharded, the shards this
+    replica owns."""
 
     def __init__(self, ready_event: threading.Event, journal_configured: bool = False,
-                 warm_progress=None, degraded=None):
+                 warm_progress=None, shard_status=None, degraded=None):
         self._ready = ready_event
         self._replay_done = not journal_configured
         # () -> {"parsed": int, "total": int}, or None without a cache.
         self.warm_progress = warm_progress
+        # () -> ShardManager.status(), or None unsharded: a rollout probe
+        # tells "replica up but owns nothing yet" from "ready" by the owned
+        # shards and each one's phase in the body.
+        self.shard_status = shard_status
         # Optional DegradedMode: its state and staleness ride the body.
         self.degraded = degraded
         self._t0 = time.monotonic()
@@ -1097,6 +1102,14 @@ class ReadyStatus:
                     out[key] = provider()
                 except Exception:  # noqa: BLE001 - advisory: never breaks the probe
                     pass
+        if self.shard_status is not None:
+            try:
+                st = self.shard_status()
+                out["shard"] = {"shards": st.get("shards"), "home": st.get("home"),
+                                "owned": st.get("owned"), "phases": st.get("shard_phases"),
+                                "takeovers": st.get("takeovers")}
+            except Exception:  # noqa: BLE001 - advisory, as the warm progress
+                pass
         if self.time_to_ready_s is not None:
             out["time_to_ready_s"] = self.time_to_ready_s
         if phase == "replaying":

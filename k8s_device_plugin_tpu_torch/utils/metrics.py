@@ -630,6 +630,37 @@ SHARD_ACQUIRE_CONFLICTS = EXTENDER_REGISTRY.counter(
     "409 on create/replace); the jittered retry keeps replicas racing "
     "one released lease from stampeding the API server",
 )
+# Sharded admission (extender/sharding.py): gang admission partitioned by
+# consistent hash of the node's hostname across per-shard leases.
+SHARD_OWNED = EXTENDER_REGISTRY.gauge(
+    "tpu_extender_shard_owned",
+    "1 while this replica holds shard {shard}'s admission lease "
+    "(extender/sharding.py); the series is pruned on loss, so "
+    "sum(tpu_extender_shard_owned) across replicas below the shard count "
+    "means some shard's gangs are stalled awaiting takeover",
+)
+SHARD_LEASE_AGE = EXTENDER_REGISTRY.gauge(
+    "tpu_extender_shard_lease_age_seconds",
+    "Seconds since this replica acquired shard {shard}'s lease; a young "
+    "age on a shard other than the home one is a fresh takeover",
+)
+SHARD_TAKEOVERS = EXTENDER_REGISTRY.counter(
+    "tpu_extender_shard_takeovers_total",
+    "Dead shards' leases this replica took over, by shard: the failovers "
+    "of sharded admission, each ending a stall of exactly that shard's "
+    "gangs",
+)
+SHARD_ADMITTED = EXTENDER_REGISTRY.counter(
+    "tpu_extender_shard_admitted_total",
+    "Gangs admitted (gates removed after a capacity reserve) by shard; "
+    "rate() of it is the gangs-admitted/s of each shard",
+)
+SHARD_PEER_HELD_CHIPS = EXTENDER_REGISTRY.gauge(
+    "tpu_extender_shard_peer_held_chips",
+    "Cards withheld from this replica's /filter by other shards' "
+    "published holds (the overlay read off the shard leases' "
+    "annotations)",
+)
 STATE_JOURNAL_RECORDS = EXTENDER_REGISTRY.counter(
     "tpu_extender_state_journal_records_total",
     "Admission-state journal records appended, by op (reserve/shrink/"
@@ -957,6 +988,13 @@ DEBUG_ENDPOINTS: Dict[str, str] = {
         "mutation-while-open evidence the degraded_consistency audit "
         "invariant checks"
     ),
+    "/debug/shards": (
+        "sharded-admission snapshot (extender/sharding.py): shard count, "
+        "home shard, the owned shards with each one's lease and replay "
+        "phase, takeovers, and the peers' published hold overlay "
+        "(extender: not configured when --shards is 1; node daemon: not "
+        "configured)"
+    ),
     "/debug/readyz": (
         "readiness phase and index warm progress (extender: "
         "replaying|warming|ready with warm parsed/total, always 200; "
@@ -968,6 +1006,10 @@ DEBUG_ENDPOINTS: Dict[str, str] = {
 # by the extender's entry point. /debug/readyz, unlike /readyz, always
 # answers 200, so a not-ready extender still shows its phase.
 READYZ_PROVIDER = None
+
+# () -> dict shard snapshot (extender/sharding.py ShardManager.status),
+# installed by the extender's entry point when --shards > 1.
+SHARD_PROVIDER = None
 
 
 def debug_payload(path: str) -> Optional[bytes]:
@@ -1009,6 +1051,14 @@ def debug_payload(path: str) -> Optional[bytes]:
                     "extender's entry point installs one)",
                 }
             return READYZ_PROVIDER()
+        if parsed.path == "/debug/shards":
+            if SHARD_PROVIDER is None:
+                return {
+                    "configured": False,
+                    "note": "sharded admission not wired in this process (extender "
+                    "--shards > 1 installs it)",
+                }
+            return SHARD_PROVIDER()
         if parsed.path == "/debug/profile":
             from . import profiling, stackprof
 

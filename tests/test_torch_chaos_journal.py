@@ -11,8 +11,10 @@ does, and only the journal's bytes survive), then recovers a fresh admitter
 over the same journal dir and holds it to the fake server's and the table's
 state: no card double-booked, no gang left gateless and unfenced, a lapsed
 hold lapsed across restarts, a torn tail or a mid-compaction crash falling
-back to the durable prefix. The sharded, preemption and defrag cases of the
-JAX file come with those planes.
+back to the durable prefix. The JAX file's three sharded cases (a shard's
+SIGKILL at 1,000 nodes until its takeover, a shard's split brain, a death in
+the middle of a takeover) are here too; its preemption and defrag cases come
+with those planes.
 """
 
 import importlib
@@ -250,3 +252,218 @@ def test_gang_admission_serves_last_known_topology_through_outage(plane, api):
     server.faults.add(kind="status", status=503, times=-1, method="GET")
     assert [t.hostname for t in adm._node_topologies()] == ["n1"]
     server.faults.clear()
+
+
+# ---------------------------------------------------------------------------
+# sharded admission: a shard's takeover, a shard's split brain and a death
+# in the middle of a takeover (the JAX file's sharded cases)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def bare_api(plane):
+    """A fake API server with no node: the sharded cases place their own."""
+    s = FakeApiServer()
+    url = s.start()
+    yield s, plane.KubeClient(url)
+    s.stop()
+
+
+def _wait(cond, timeout):
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if cond():
+            return True
+        time.sleep(0.05)
+    return False
+
+
+def _sharded_factory(plane, client, tmp_path, kill_gang_patch_for=frozenset()):
+    """Admitters over real per-shard journals; a shard in
+    ``kill_gang_patch_for`` dies at its first gate patch."""
+
+    def factory(shard_id, gang_filter, topo_filter):
+        c = client
+        if shard_id in kill_gang_patch_for:
+            c = KillPointClient(client, "remove_pod_scheduling_gate", 0)
+        return plane.gang.GangAdmission(
+            c, reservations=plane.reservations.ReservationTable(),
+            journal=plane.journal.AdmissionJournal(os.path.join(str(tmp_path), f"shard-{shard_id}")),
+            gang_filter=gang_filter, topo_filter=topo_filter, shard_id=shard_id)
+
+    return factory
+
+
+def _host_index(hosts):
+    import types
+
+    entries = [types.SimpleNamespace(hostname=h, slice_key=None) for h in hosts]
+    return types.SimpleNamespace(entries=lambda: entries)
+
+
+def test_sigkill_one_shard_stalls_only_its_gangs_until_takeover(plane, bare_api, tmp_path):
+    """3 shards over 1,000 nodes: SIGKILL of one shard after its reserve and
+    before its gate patch stalls only that shard's gangs while the others
+    admit; the takeover replays the dead shard's journal within the lease
+    bound, with the hold's original age, and the ownership invariant (every
+    held host against its own shard, no host held by two) sweeps clean
+    throughout."""
+    server, client = bare_api
+    sh = plane.sharding
+    ring = sh.ShardRing(3)
+    hosts = [f"node-{i:04d}" for i in range(1000)]
+    for name in hosts:
+        server.add_node(name, plane.node(name))
+    gangs = {s: [] for s in range(3)}
+    for s in range(3):
+        for j in range(2):
+            gname = plane.pick_key(ring, s, "default/g{0:04d}-" + f"{s}{j}").split("/", 1)[1]
+            add_gang(plane, server, gname)
+            gangs[s].append(gname)
+    managers = []
+    for s in range(3):
+        m = sh.ShardManager(
+            client, shards=3, home_shard=s,
+            admitter_factory=_sharded_factory(plane, client, tmp_path,
+                                              {2} if s == 2 else frozenset()),
+            identity=f"rep-{s}", lease_seconds=2.0, takeover=(s == 0), auto_start=False)
+        m._adopt_shard(s, reason="home")
+        managers.append(m)
+    index = _host_index(hosts)
+
+    def audit_clean(tables):
+        mgr = type("M", (), {"ring": ring, "shard_tables": staticmethod(lambda: tables)})()
+        return plane.audit.ExtenderAudit(index=index, shard_manager=mgr).check_shard_ownership()
+
+    gate = plane.gang.GATE_NAME
+    for s in (0, 1):
+        released = managers[s].ticked_admissions()[0].tick()
+        assert sorted(released) == sorted(("default", g) for g in gangs[s])
+    with pytest.raises(SigKill):
+        managers[2].ticked_admissions()[0].tick()
+    managers[2].abandon()
+    stalled = gangs[2][0]
+    for g in gangs[0] + gangs[1]:
+        for i in range(2):
+            assert gate not in gates_of(server, "default", f"{g}-w{i}")
+    for i in range(2):
+        assert gate in gates_of(server, "default", f"{stalled}-w{i}")
+    for s in (0, 1):
+        managers[s].ticked_admissions()[0].tick()
+    assert audit_clean([(s, managers[s].ticked_admissions()[0].reservations)
+                        for s in (0, 1)]) == []
+    kill_ts = time.time()
+    assert _wait(lambda: managers[0].scan_once() or 2 in managers[0].owned_shards(), 10), \
+        "no takeover within the lease bound"
+    adopted = [a for a in managers[0].ticked_admissions() if a.shard_id == 2][0]
+    key = ("default", stalled)
+    st = adopted.reservations.export_state()
+    assert st[key]["age_s"] >= (time.time() - kill_ts) - 0.5  # the original age
+    adopted.tick()
+    for g in gangs[2]:
+        for i in range(2):
+            assert gate not in gates_of(server, "default", f"{g}-w{i}")
+    assert sum(adopted.reservations.export_state()[key]["hosts"].values()) == 4
+    tables = [(a.shard_id, a.reservations) for a in managers[0].ticked_admissions()]
+    tables.append((1, managers[1].ticked_admissions()[0].reservations))
+    assert sum(len(t.active()) for _, t in tables) == 6
+    assert audit_clean(tables) == []
+    managers[0].stop()
+    managers[1].stop()
+
+
+def test_shard_split_brain_partitioned_holder_self_demotes_first(plane, bare_api):
+    """A shard's holder cut off from the API server demotes itself (the
+    renew deadline) strictly before its lease can be taken over: when
+    on_lost fires a competitor still reads the lease live, and only past
+    the published duration does the takeover succeed."""
+
+    class PartitionedClient:
+        def __init__(self, inner):
+            self._inner = inner
+            self.partitioned = False
+
+        def __getattr__(self, name):
+            real = getattr(self._inner, name)
+            if not callable(real):
+                return real
+
+            def wrapper(*a, **kw):
+                if self.partitioned:
+                    raise OSError("network partition")
+                return real(*a, **kw)
+
+            return wrapper
+
+    server, client = bare_api
+    holder_client = PartitionedClient(client)
+    lost = []
+    name = plane.sharding.shard_lease_name(1, 3)
+    holder = plane.leader.LeaderLease(holder_client, name=name, identity="rep-holder",
+                                      lease_seconds=6.0, renew_deadline_s=0.8,
+                                      on_lost=lambda: lost.append(time.time()))
+    holder.start()
+    try:
+        holder_client.partitioned = True
+        assert _wait(lambda: lost, 15), "the partitioned holder never demoted"
+        competitor = plane.leader.LeaderLease(client, name=name, identity="rep-competitor",
+                                              lease_seconds=6.0)
+        with pytest.raises(plane.leader.SecondReplica):
+            competitor.acquire()
+        competitor._clock = lambda: time.time() + 7.0
+        competitor.acquire()
+        assert server.leases[("kube-system", name)]["spec"]["holderIdentity"] == "rep-competitor"
+    finally:
+        holder._stop.set()
+        if holder._thread is not None:
+            holder._thread.join(timeout=5)
+
+
+def test_mid_rebalance_death_second_takeover_replays_idempotently(plane, bare_api, tmp_path):
+    """A replica dies after taking a dead shard's lease and before its
+    journal's replay; the next owner replays the same journal: the gang is
+    admitted exactly once, with its original fence."""
+    server, client = bare_api
+    sh = plane.sharding
+    ring = sh.ShardRing(2)
+    host = plane.pick_key(ring, 1, "n-{0:04d}")
+    server.add_node(host, plane.node(host))
+    gname = plane.pick_key(ring, 1, "default/g-{0:04d}").split("/", 1)[1]
+    add_gang(plane, server, gname)
+    gate = plane.gang.GATE_NAME
+    m1 = sh.ShardManager(client, shards=2, home_shard=1,
+                         admitter_factory=_sharded_factory(plane, client, tmp_path, {1}),
+                         identity="rep-1", lease_seconds=2.0, takeover=False, auto_start=False)
+    m1._adopt_shard(1, reason="home")
+    with pytest.raises(SigKill):
+        m1.ticked_admissions()[0].tick()
+    m1.abandon()
+    time.sleep(2.3)
+
+    class FactoryKill(BaseException):
+        pass
+
+    def dying_factory(shard_id, gang_filter, topo_filter):
+        raise FactoryKill("died between the lease and the replay")
+
+    m2 = sh.ShardManager(client, shards=2, home_shard=0, admitter_factory=dying_factory,
+                         identity="rep-2", lease_seconds=2.0, auto_start=False)
+    with pytest.raises(FactoryKill):
+        m2._adopt_shard(1, reason="takeover")
+    m2.abandon()
+    for i in range(2):
+        assert gate in gates_of(server, "default", f"{gname}-w{i}")
+    time.sleep(2.3)
+    m3 = sh.ShardManager(client, shards=2, home_shard=0,
+                         admitter_factory=_sharded_factory(plane, client, tmp_path),
+                         identity="rep-3", lease_seconds=2.0, auto_start=False)
+    m3._adopt_shard(0, reason="home")
+    m3.scan_once()
+    assert m3.owned_shards() == {0, 1}
+    adopted = [a for a in m3.ticked_admissions() if a.shard_id == 1][0]
+    assert sum(adopted.reservations.held_by_host().values()) == 4
+    assert adopted.tick() == [("default", gname)]
+    for i in range(2):
+        assert gate not in gates_of(server, "default", f"{gname}-w{i}")
+    assert adopted.tick() == []  # exactly once
+    m3.stop()

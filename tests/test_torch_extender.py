@@ -567,6 +567,8 @@ def test_extender_imports_no_torch_or_jax_in_a_fresh_process():
             "import k8s_device_plugin_tpu_torch.extender.gang; "
             "import k8s_device_plugin_tpu_torch.extender.journal; "
             "import k8s_device_plugin_tpu_torch.extender.leader; "
+            "import k8s_device_plugin_tpu_torch.extender.sharding; "
+            "import k8s_device_plugin_tpu_torch.extender.holdscodec; "
             "import k8s_device_plugin_tpu_torch.audit; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax') "
             "or m.startswith('k8s_device_plugin_tpu.') or m == 'k8s_device_plugin_tpu'))")
@@ -638,9 +640,10 @@ def test_flags_of_planes_not_ported_are_refused_naming_their_slice(flag, capsys)
 
 
 def test_only_the_sharding_preemption_and_defrag_flags_are_refused():
+    # The sharding flags are taken since sharded admission was ported
+    # (test_sharding_flags_are_taken); preemption's and defrag's are not.
     assert set(ext_main.UNPORTED_FLAGS) == {
-        "--shards", "--shard-index", "--no-shard-takeover", "--no-preemption",
-        "--preemption-rounds-per-tick", "--no-defrag", "--defrag-max-evictions-per-hour",
+        "--no-preemption", "--preemption-rounds-per-tick", "--no-defrag", "--defrag-max-evictions-per-hour",
         "--defrag-max-concurrent", "--defrag-stranded-ticks", "--no-rescue",
         "--rescue-grace-ticks"}
 
@@ -653,6 +656,26 @@ ADMISSION_FLAGS = {
     "--journal-fsync": [], "--no-singleton-lease": [], "--lease-namespace": ["ns"],
     "--lease-seconds": ["15"], "--audit-interval-s": ["60"],
 }
+
+
+SHARDING_FLAGS = {"--shards": ["2"], "--shard-index": ["1"], "--no-shard-takeover": []}
+
+
+@pytest.mark.parametrize("flag", sorted(SHARDING_FLAGS))
+def test_sharding_flags_are_taken(flag, monkeypatch):
+    """The JAX names and defaults (1 shard, the home from HOSTNAME's
+    ordinal, takeover on), from the command line only: no TPU_SHARDS or
+    TPU_SHARD_INDEX alias."""
+    a = ext_main.parse_args([flag, *SHARDING_FLAGS[flag]])
+    value = getattr(a, flag.lstrip("-").replace("-", "_"))
+    want = SHARDING_FLAGS[flag]
+    assert value == (True if not want else type(value)(want[0]))
+    d = ext_main.parse_args([])
+    assert (d.shards, d.shard_index, d.no_shard_takeover) == (1, -1, False)
+    monkeypatch.setenv("TPU_SHARDS", "4")
+    monkeypatch.setenv("TPU_SHARD_INDEX", "3")
+    d = ext_main.parse_args([])
+    assert (d.shards, d.shard_index) == (1, -1)
 
 
 @pytest.mark.parametrize("flag", sorted(ADMISSION_FLAGS))

@@ -11,6 +11,7 @@ gang plane and the shared three (the JAX ``loop_inventory`` comes with the
 registry lint).
 """
 
+import importlib
 import time
 
 import pytest
@@ -44,7 +45,11 @@ def plane(request, layouts):
 @pytest.fixture
 def stack(plane, tmp_path):
     """The JAX ``extender_stack``: a fake API server, a table journaled to
-    disk, an index of two nodes feeding an admitter, and its auditor."""
+    disk, an index of two nodes feeding an admitter, and its auditor. The
+    resilience layer's process-global record starts empty: a breaker window
+    another file's chaos case left in this worker is not this stack's."""
+    importlib.import_module(
+        plane.metrics.__name__.rsplit(".", 1)[0] + ".resilience").TRACKER.reset()
     api = FakeApiServer()
     client = plane.KubeClient(api.start())
     reservations = plane.reservations.ReservationTable()

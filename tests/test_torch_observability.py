@@ -49,7 +49,7 @@ WAIT_S = 15
 # The surfaces the port serves; the extender's come with the extender.
 PORT_DEBUG = {"/debug/traces", "/debug/events", "/debug/decisions", "/debug/telemetry",
               "/debug/audit", "/debug/resilience", "/debug/profile", "/debug/lockdep",
-              "/debug/blackbox", "/debug/readyz"}
+              "/debug/blackbox", "/debug/readyz", "/debug/shards"}
 
 
 @pytest.fixture(scope="module")

@@ -1024,8 +1024,8 @@ def test_timed_lock_feeds_the_global_graph_and_its_gauge(plane):
 def test_port_daemon_builds_no_timed_lock_so_lockdep_reads_zero_edges():
     """The JAX node daemon builds no TimedLock (only its extender does), and
     neither does the port's: the only modules of the package that construct
-    one are the extender's (its topology index and reservation table), so
-    with --lockdep on the daemon's graph holds no edge."""
+    one are the extender's (its topology index, reservation table and shard
+    manager), so with --lockdep on the daemon's graph holds no edge."""
     import k8s_device_plugin_tpu_torch as pkg
 
     root = os.path.dirname(pkg.__file__)
@@ -1034,4 +1034,5 @@ def test_port_daemon_builds_no_timed_lock_so_lockdep_reads_zero_edges():
         for f in files:
             if f.endswith(".py") and "TimedLock(" in open(os.path.join(dirpath, f)).read():
                 users.append(os.path.relpath(os.path.join(dirpath, f), root))
-    assert sorted(users) == ["extender/index.py", "extender/reservations.py"], users
+    assert sorted(users) == ["extender/index.py", "extender/reservations.py",
+                             "extender/sharding.py"], users

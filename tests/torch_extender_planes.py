@@ -1,7 +1,8 @@
 """The two planes of the scheduler extender's parity tests
 (tests/test_torch_extender.py, tests/test_torch_topology_index.py,
-tests/test_torch_index_snapshot.py, tests/test_torch_reservations.py, and
-gang admission's tests/test_torch_{gang,journal,leader,chaos_journal}.py).
+tests/test_torch_index_snapshot.py, tests/test_torch_reservations.py, gang
+admission's tests/test_torch_{gang,journal,leader,chaos_journal}.py, and
+sharded admission's tests/test_torch_{sharding,holdscodec}.py).
 
 The JAX plane publishes the ``google.com/tpu-topology`` annotation of a v5p
 host of 4 chips (tests/test_extender.py's ``make_node``); the port's plane
@@ -24,11 +25,13 @@ import pytest
 from k8s_device_plugin_tpu import audit as jax_audit
 from k8s_device_plugin_tpu.api import constants as jax_constants
 from k8s_device_plugin_tpu.extender import gang as jax_gang
+from k8s_device_plugin_tpu.extender import holdscodec as jax_holdscodec
 from k8s_device_plugin_tpu.extender import index as jax_index
 from k8s_device_plugin_tpu.extender import journal as jax_journal
 from k8s_device_plugin_tpu.extender import leader as jax_leader
 from k8s_device_plugin_tpu.extender import reservations as jax_reservations
 from k8s_device_plugin_tpu.extender import server as jax_server
+from k8s_device_plugin_tpu.extender import sharding as jax_sharding
 from k8s_device_plugin_tpu.kube.client import KubeClient as JaxKubeClient
 from k8s_device_plugin_tpu.topology import schema as jax_schema
 from k8s_device_plugin_tpu.utils import metrics as jax_metrics
@@ -37,11 +40,13 @@ from k8s_device_plugin_tpu_torch import audit
 from k8s_device_plugin_tpu_torch.api import constants
 from k8s_device_plugin_tpu_torch.discovery.scanner import NvmlInfo
 from k8s_device_plugin_tpu_torch.extender import gang
+from k8s_device_plugin_tpu_torch.extender import holdscodec
 from k8s_device_plugin_tpu_torch.extender import index
 from k8s_device_plugin_tpu_torch.extender import journal
 from k8s_device_plugin_tpu_torch.extender import leader
 from k8s_device_plugin_tpu_torch.extender import reservations
 from k8s_device_plugin_tpu_torch.extender import server
+from k8s_device_plugin_tpu_torch.extender import sharding
 from k8s_device_plugin_tpu_torch.kube.client import KubeClient
 from k8s_device_plugin_tpu_torch.topology import schema
 from k8s_device_plugin_tpu_torch.topology.links import LinkTopology
@@ -106,9 +111,12 @@ class JaxPlane:
     name = "jax"
     audit = jax_audit
     gang = jax_gang
+    holdscodec = jax_holdscodec
     journal = jax_journal
     leader = jax_leader
     server = jax_server
+    sharding = jax_sharding
+    pick_key = staticmethod(jax_sharding._pick_key)
     index = jax_index
     reservations = jax_reservations
     schema = jax_schema
@@ -138,9 +146,12 @@ class TorchPlane:
     name = "torch"
     audit = audit
     gang = gang
+    holdscodec = holdscodec
     journal = journal
     leader = leader
     server = server
+    sharding = sharding
+    pick_key = staticmethod(sharding.pick_key)
     index = index
     reservations = reservations
     schema = schema
