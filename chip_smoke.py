@@ -393,9 +393,46 @@ caught while the run goes on:
    daemon with code 0, every shard and standby lease released. One line
    with every time beside the card's name and power limit; the times are
    the host CPU's except the pod's step, which stands beside phase 5's.
+21. Preemption on the card: phase 19's stand-ins (sockets under
+   ``/tmp/pre*``), a new fake API server holding the PriorityClasses
+   ``batch`` (-10) and ``prod`` (1,000,000), the daemon over the real NVML
+   publishing this node N, a synthetic HGX node S of 8 cards, and ``python
+   -m k8s_device_plugin_tpu_torch.extender --node-cache --gang-admission
+   --journal-dir D --audit-interval-s 1 --decisions --gang-resync-s 1``
+   (preemption on by default), HOSTNAME ``127.0.0.1``. (1) V_card, one
+   member of N's card count of class ``batch``, released onto N, allocated
+   through the daemon and bound, its pod ``workload.smoke --bench --steps
+   600`` stepping on the card in its own process; V_syn, two 4-card pods
+   of class ``batch`` bound to S, holding all its cards; each pod's
+   checkpoint stamped through the port's ``workload.beacon.CheckpointBeacon``
+   over the kube client, V_card's 60 s back, V_syn's 3,000 s. (2) A gang of
+   no class (standard tier) asking N's cards stays gated over three ticks,
+   nothing evicted, ``tpu_gang_waiting{tier="standard"}`` 1; it is deleted.
+   (3) ``/preemption`` for a bare ``prod`` pod of N's cards names N with
+   V_card's member alone, and nothing is evicted. (4) G_P, one gated member
+   of N's cards of class ``prod``: V_card's member evicted, V_syn not, G_P's
+   gates gone; the ledger's ``preempt_victim selected`` for V_card and
+   ``preemption executed`` for G_P; ``tpu_extender_preemptions_total{tier=
+   "critical",outcome="executed"}`` and ``tpu_extender_preemption_victims_
+   total{victim_tier="batch"}`` 1; the journal's ``preempt_intent``,
+   ``preempt_evicted``, ``preempt_done`` for G_P in order; a
+   ``GPUGangPreempted`` Event on V_card's pod. (5) The stand-in kubelet,
+   seeing V_card's pod deleted, sends its process SIGTERM (it must still be
+   stepping) and clears its PodResources entry; its context leaves the card
+   (``compute_apps``). (6) G_P's member through ``Allocate`` on N's cards
+   and bound, its pod as phase 19's (ok, on an allocated card, its own
+   launch counts), no other process than the script's on the card while it
+   steps, the hold dropped. (7) ``tools.explain --evicted vcard --url``
+   exits 0 naming G_P, the victim tier and the last checkpoint. (8) ``python
+   -m k8s_device_plugin_tpu_torch.extender.preemption --self-test`` exits 0.
+   (9) Two clean audit sweeps or more; SIGTERM ends the extender and the
+   daemon with code 0 and releases the lease. One line with every time
+   beside the card's name and power limit; the times are the host CPU's
+   except the pod's step, which stands beside phase 5's.
 
 Then one ``{"tools": ...}`` line: the card's name and power limit, and
-each tool run of phases 16 and 19 with its phase, exit code and wall time.
+each tool run of phases 16, 19 and 21 with its phase, exit code and wall
+time.
 Then one ``{"kernels": [...]}`` line (each kernel's launches from the path
 that runs it: K1-K3 from phase 5, K4 from phase 6; every path's counts
 under ``launches_by_path``, phase 10's as ``sharded``, phase 11's as
@@ -403,7 +440,8 @@ under ``launches_by_path``, phase 10's as ``sharded``, phase 11's as
 ``kv_sweep``, phase 16's, from the pod's report, as ``plugin_pod``,
 phase 17's, from its pod's report, as ``dra_pod``, phase 19's, from
 member 0's pod's report, as ``gang_pod``, phase 20's, from the taken-over
-member's pod's report, as ``shard_pod``) and,
+member's pod's report, as ``shard_pod``, phase 21's, from the preemptor's
+pod's report, as ``preempt_pod``) and,
 last, the device line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when CUDA is not available or the port's package is not beside
@@ -3513,29 +3551,37 @@ SHARD_STALENESS_LIMIT_S = SHARD_SCAN_S + SHARD_PUBLISH_LIMIT_S
 AGE_SLACK_S = 0.5  # a hold's age_s is rounded to 0.1 s and read over HTTP
 
 
-def run_member_pod(stub, podres, bind, member: str, node: str, ids, count: int,
-                   main_report: dict, line: dict, fail_with) -> dict:
-    """A released gang member's pod on this card: the stand-in kubelet's
-    ``Allocate`` of ``ids`` through the daemon, the member bound to
-    ``node``, then ``workload.smoke --bench --steps 5`` in its own process
-    with the response's env and ``CUDA_VISIBLE_DEVICES`` from
-    ``NVIDIA_VISIBLE_DEVICES``. It must report ok on ``count`` cards, on an
-    allocated one, each flash kernel and delta launched ``n_layers`` times
-    a step it ran (its own counts) and the RMSNorm kernel not at all. The
-    report's launch counts are returned."""
+def allocate_and_bind(stub, podres, bind, member: str, node: str, ids) -> dict:
+    """A released gang member's admission on this card: the stand-in
+    kubelet's ``Allocate`` of ``ids`` through the daemon, its PodResources
+    entry, the member bound to ``node``. Returns its container's env: the
+    response's, with ``CUDA_VISIBLE_DEVICES`` from ``NVIDIA_VISIBLE_DEVICES``."""
     from k8s_device_plugin_tpu_torch.api import constants
     from k8s_device_plugin_tpu_torch.api import deviceplugin_pb2 as pb
-    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
 
     areq = pb.AllocateRequest()
     areq.container_requests.add(devicesIDs=ids)
-    t_alloc = time.monotonic()
     resp = stub.Allocate(areq, timeout=PLUGIN_WAIT_S).container_responses[0]
     env = dict(resp.envs)
     podres.set("default", member, ids)
     bind(member, node)
     pod_env = dict(os.environ, **env)
     pod_env["CUDA_VISIBLE_DEVICES"] = env[constants.NVIDIA_VISIBLE_DEVICES]
+    return pod_env
+
+
+def run_member_pod(stub, podres, bind, member: str, node: str, ids, count: int,
+                   main_report: dict, line: dict, fail_with) -> dict:
+    """A released gang member's pod on this card: ``allocate_and_bind``,
+    then ``workload.smoke --bench --steps 5`` in its own process with the
+    container's env. It must report ok on ``count`` cards, on an allocated
+    one, each flash kernel and delta launched ``n_layers`` times a step it
+    ran (its own counts) and the RMSNorm kernel not at all. The report's
+    launch counts are returned."""
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
+
+    t_alloc = time.monotonic()
+    pod_env = allocate_and_bind(stub, podres, bind, member, node, ids)
     pod = subprocess.Popen([sys.executable, *DRA_POD_ARGS], cwd=ROOT, env=pod_env, text=True,
                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
     report = None
@@ -3961,6 +4007,398 @@ def phase_shards(main_report: dict) -> dict:
     return launches
 
 
+PREEMPT_NODE = "preempt-node"
+PREEMPT_HGX = "preempt-hgx"
+PREEMPT_RESYNC_S = 1
+PREEMPT_SYN_CARDS = 8
+# The classes of the phase: the victims' and the preemptor's.
+PREEMPT_CLASSES = {"batch": -10, "prod": 1_000_000}
+# Checkpoint ages stamped on the victims: V_card saved a minute ago, V_syn
+# fifty minutes ago (the costlier victim).
+VICTIM_CKPT_AGE_S = {"card": 60.0, "syn": 3000.0}
+# Enough steps (about 0.2 s each at bench widths) that the victim's pod is
+# still stepping when it is evicted; it is stopped there, not run out.
+VICTIM_POD_ARGS = ("-m", "k8s_device_plugin_tpu_torch.workload.smoke", "--bench", "--steps",
+                   "600")
+STANDARD_WAIT_TICKS = 3
+
+
+def phase_preemption(main_report: dict) -> dict:
+    """Preemption on the card: a batch gang's pod running the kernels is
+    evicted for a critical gang, whose pod then runs on the same card."""
+    import grpc
+
+    from k8s_device_plugin_tpu_torch.api import constants
+    from k8s_device_plugin_tpu_torch.api.grpc_defs import DevicePluginStub
+    from k8s_device_plugin_tpu_torch.extender import gang as gang_mod
+    from k8s_device_plugin_tpu_torch.kube.client import KubeClient
+    from k8s_device_plugin_tpu_torch.utils import statestore
+    from k8s_device_plugin_tpu_torch.workload.beacon import CheckpointBeacon
+    from tests.fake_apiserver import FakeApiServer
+
+    work = Path(tempfile.mkdtemp(prefix="pre", dir="/tmp"))
+    dp_dir = work / "dp"
+    dp_dir.mkdir()
+    journal_dir = work / "journal"
+    api = FakeApiServer()
+    kubelet = Kubelet(str(dp_dir))
+    podres = PodResources(str(work / "pod-resources" / "kubelet.sock"))
+    api_url = api.start()
+    api.add_node(PREEMPT_NODE)
+    for name, value in PREEMPT_CLASSES.items():
+        api.add_priority_class(name, value)
+    client = KubeClient(api_url)
+    kubeconfig = work / "kubeconfig.json"
+    kubeconfig.write_text(json.dumps({
+        "apiVersion": "v1", "kind": "Config", "current-context": "smoke",
+        "contexts": [{"name": "smoke", "context": {"cluster": "fake", "user": "smoke"}}],
+        "clusters": [{"name": "fake", "cluster": {"server": api_url}}],
+        "users": [{"name": "smoke", "user": {"token": "smoke"}}],
+    }))
+    line: dict = {"nvidia_smi": nvidia_smi()}
+    t_phase = time.monotonic()
+    channel = None
+    procs: list = []
+    with open(work / "daemon.log", "w") as log_file:
+        daemon = subprocess.Popen([sys.executable, "-m", "k8s_device_plugin_tpu_torch",
+                                   "--device-plugin-dir", str(dp_dir), "--node-name",
+                                   PREEMPT_NODE, "--kubeconfig", str(kubeconfig),
+                                   "--podresources-socket", podres.socket_path,
+                                   "--metrics-port", "0"],
+                                  cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT)
+    procs.append(daemon)
+    try:
+        def preempt_fail(msg: str) -> None:
+            for path in sorted(work.glob("*.log")):
+                print(f"{path.name}:", path.read_text()[-3000:], file=sys.stderr, flush=True)
+            fail(msg)
+
+        def until(pred, what: str, bound_s: float = PLUGIN_WAIT_S, every_s: float = 0.002):
+            """Poll ``pred`` until it gives a value: (time, value)."""
+            deadline = time.monotonic() + bound_s
+            while not (value := pred()):
+                if time.monotonic() > deadline:
+                    preempt_fail(f"not seen within {bound_s} s: {what}")
+                time.sleep(every_s)
+            return time.monotonic(), value
+
+        def metric(name: str, **labels):
+            status, body = http_get(base + "/metrics")
+            if status != 200:
+                return None
+            try:
+                return sample_value(parse_metrics(body.decode()), name, **labels)
+            except ValueError as e:
+                preempt_fail(str(e))
+
+        def gpu_pod(name: str, gang: str, size: int, n: int, class_name: str = "",
+                    node: str = "") -> dict:
+            """A pod of ``n`` cards: a gated member of ``gang`` (of ``size``),
+            or, bound to ``node``, a running one; a bare pod without
+            ``gang``."""
+            meta = {"name": name, "namespace": "default", "uid": f"{name}-uid",
+                    "annotations": {}}
+            spec = {"containers": [{"name": "main", "resources": {
+                "requests": {constants.RESOURCE_NAME: str(n)}}}]}
+            status = {"phase": "Pending"}
+            if gang:
+                meta["labels"] = {gang_mod.GANG_NAME_LABEL: gang,
+                                  gang_mod.GANG_SIZE_LABEL: str(size)}
+                if node:
+                    spec["nodeName"] = node
+                    status = {"phase": "Running"}
+                else:
+                    spec["schedulingGates"] = [{"name": gang_mod.GATE_NAME}]
+            if class_name:
+                spec["priorityClassName"] = class_name
+            return {"metadata": meta, "spec": spec, "status": status}
+
+        def gated(name: str) -> bool:
+            return gang_mod.is_gated(api.pods[("default", name)])
+
+        def bind(name: str, node: str) -> None:
+            """The scheduler's bind of a member, as a watch sees it."""
+            pod = json.loads(json.dumps(api.pods[("default", name)]))
+            pod["spec"]["nodeName"] = node
+            pod["status"] = {"phase": "Running"}
+            api.update_pod(pod)
+
+        def stamp_checkpoint(name: str, age_s: float) -> None:
+            """A save ``age_s`` ago, stamped through the port's beacon over
+            the kube client."""
+            ts = time.time() - age_s
+            beacon = CheckpointBeacon(lambda ann: client.patch_pod_annotations(
+                "default", name, {k: str(ts) for k in ann}))
+            if not beacon.note_saved(0):
+                preempt_fail(f"the checkpoint beacon could not stamp {name}")
+
+        # The daemon publishes this card's node N; the synthetic node S has
+        # 8 cards, none free.
+        _, req, _ = kubelet.next_registration()
+        _, raw = until(lambda: api.nodes[PREEMPT_NODE]["metadata"].get("annotations", {}).get(
+            constants.TOPOLOGY_ANNOTATION), "the node's nvidia.com/gpu-topology annotation")
+        topo = json.loads(raw)
+        count = topo["chip_count"]
+        ids = topo["available"]
+        line["node"] = {"cards": count, "available": len(ids)}
+        if count < 1 or len(ids) != count:
+            preempt_fail(f"the node's annotation before any allocation: {topo}")
+        api.add_node(PREEMPT_HGX, {"metadata": {"name": PREEMPT_HGX, "labels": {},
+                                                "annotations": {
+            constants.TOPOLOGY_ANNOTATION: hgx_annotation(PREEMPT_HGX, 21, [],
+                                                          PREEMPT_SYN_CARDS)}}})
+        port = free_port()
+        base = f"http://127.0.0.1:{port}"
+        with open(work / "extender.log", "w") as log_file:
+            ext = subprocess.Popen(
+                [sys.executable, "-m", "k8s_device_plugin_tpu_torch.extender", "--node-cache",
+                 "--gang-admission", "--journal-dir", str(journal_dir), "--audit-interval-s",
+                 str(GANG_AUDIT_INTERVAL_S), "--decisions", "--gang-resync-s",
+                 str(PREEMPT_RESYNC_S), "--kubeconfig", str(kubeconfig), "--host", "127.0.0.1",
+                 "--port", str(port)],
+                cwd=ROOT, env=dict(os.environ, HOSTNAME=GANG_IDENTITY), stdout=log_file,
+                stderr=subprocess.STDOUT)
+        procs.append(ext)
+        until(lambda: http_get(base + "/readyz")[0] == 200, "/readyz 200")
+        until(lambda: any(m == "GET" and p.startswith("/api/v1/nodes?") and "watch=true" in p
+                          for m, p in list(api.requests)), "the extender's node watch")
+        apps_before = len(compute_apps())
+        line["compute_apps_before"] = apps_before
+
+        # 1. Two running batch victims. V_card: one member of c cards,
+        # released onto N, allocated and bound, its pod stepping on the
+        # card. V_syn: two 4-card pods bound to S, holding all its cards.
+        v_card, v_syn = "vcard", "vsyn"
+        v_member = f"{v_card}-0"
+        api.add_pod(gpu_pod(v_member, v_card, 1, count, "batch"))
+        until(lambda: not gated(v_member), "V_card's gate removed")
+        syn_members = [f"{v_syn}-{i}" for i in range(2)]
+        for name in syn_members:
+            api.add_pod(gpu_pod(name, v_syn, 2, PREEMPT_SYN_CARDS // 2, "batch",
+                                node=PREEMPT_HGX))
+        channel = grpc.insecure_channel(f"unix:{dp_dir / req.endpoint}")
+        stub = DevicePluginStub(channel)
+        victim_env = allocate_and_bind(stub, podres, bind, v_member, PREEMPT_NODE, ids)
+        with open(work / "victim.log", "w") as log_file:
+            victim = subprocess.Popen([sys.executable, *VICTIM_POD_ARGS], cwd=ROOT,
+                                      env=victim_env, text=True, stdout=subprocess.PIPE,
+                                      stderr=log_file)
+        procs.append(victim)
+        victim_lines: list = []
+        stepping = threading.Event()
+
+        def read_victim() -> None:
+            for raw_line in victim.stdout:
+                victim_lines.append(raw_line)
+                if raw_line.startswith("{") and json.loads(raw_line).get("partial") == \
+                        "first_step":
+                    stepping.set()
+
+        reader = threading.Thread(target=read_victim, daemon=True)
+        reader.start()
+        t0 = time.monotonic()
+        if not stepping.wait(PLUGIN_WAIT_S):
+            preempt_fail(f"V_card's pod did not step within {PLUGIN_WAIT_S} s: "
+                         f"{victim_lines[-3:]} {victim.poll()}")
+        line["victim_start_to_first_step_s"] = time.monotonic() - t0
+        stamp_checkpoint(v_member, VICTIM_CKPT_AGE_S["card"])
+        for name in syn_members:
+            stamp_checkpoint(name, VICTIM_CKPT_AGE_S["syn"])
+        until(lambda: metric("tpu_gang_reservations") == 0, "V_card's hold dropped after its bind")
+
+        # 2. A standard-tier gang cannot preempt: Q stays gated over three
+        # ticks, nothing is evicted, and it waits under the standard tier.
+        q = "qstd-0"
+        api.add_pod(gpu_pod(q, "qstd", 1, count))
+        until(lambda: metric("tpu_gang_waiting", tier="standard") == 1,
+              "tpu_gang_waiting{tier=standard} 1")
+
+        def ticks():
+            return sum(metric("tpu_gang_ticks_total", mode=m) or 0 for m in ("full", "dirty"))
+        t_q = ticks()
+        until(lambda: ticks() >= t_q + STANDARD_WAIT_TICKS, f"{STANDARD_WAIT_TICKS} more ticks",
+              every_s=0.05)
+        line["standard"] = {"gated": gated(q), "evictions": len(api.evictions),
+                            "waiting": metric("tpu_gang_waiting", tier="standard")}
+        if not gated(q) or api.evictions or line["standard"]["waiting"] != 1:
+            preempt_fail(f"the standard-tier gang: {line['standard']}")
+        api.delete_pod("default", q)
+
+        # 3. The verb is a dry run: a bare prod pod of c cards names N with
+        # V_card's member alone, and nothing is evicted.
+        bare = gpu_pod("bare", "", 1, count, "prod")
+        req_ = urllib.request.Request(base + "/preemption",
+                                      data=json.dumps({"pod": bare}).encode(),
+                                      headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req_, timeout=30) as resp:
+            verb = json.loads(resp.read())["nodeNameToMetaVictims"]
+        line["verb"] = verb
+        if (set(verb) != {PREEMPT_NODE}
+                or [p["uid"] for p in verb[PREEMPT_NODE]["pods"]] != [f"{v_member}-uid"]
+                or api.evictions):
+            preempt_fail(f"the /preemption dry run: {verb}, evictions {api.evictions}")
+
+        # 5's stand-in kubelet: on seeing V_card's pod deleted it sends
+        # SIGTERM to its process and clears its PodResources entry.
+        killed: dict = {}
+
+        def kubelet_kill() -> None:
+            while ("default", v_member) in api.pods:
+                time.sleep(0.002)
+            killed["t"] = time.monotonic()
+            killed["stepping"] = victim.poll() is None
+            victim.send_signal(signal.SIGTERM)
+            podres.drop("default", v_member)
+
+        killer = threading.Thread(target=kubelet_kill, daemon=True)
+        killer.start()
+
+        # 4. The round: G_P, gated, one member of c cards of class prod.
+        g_p = "gprod"
+        p_member = f"{g_p}-0"
+        t_submit = time.monotonic()
+        api.add_pod(gpu_pod(p_member, g_p, 1, count, "prod"))
+        t_evicted, _ = until(lambda: ("default", v_member) in api.evictions,
+                             "V_card's eviction", bound_s=PREEMPT_RESYNC_S + 10)  # a timeout
+        t_released, _ = until(lambda: not gated(p_member), "G_P's gates removed")
+        line["submit_to_eviction_s"] = t_evicted - t_submit
+        line["submit_to_released_s"] = t_released - t_submit
+        line["eviction_to_released_s"] = t_released - t_evicted
+        # The limits of PERF.md §2: the round plans and evicts on the tick
+        # after the watch marks G_P dirty, and releases it in that same tick.
+        if line["submit_to_eviction_s"] > PREEMPT_RESYNC_S + 1:
+            preempt_fail(f"submission to V_card's eviction {line['submit_to_eviction_s']:.3f} s, "
+                         f"over --gang-resync-s + 1 s")
+        if line["eviction_to_released_s"] > PREEMPT_RESYNC_S:
+            preempt_fail(f"V_card's eviction to G_P's gates gone "
+                         f"{line['eviction_to_released_s']:.3f} s, over one tick")
+        evicted = sorted(name for _, name in api.evictions)
+        line["evicted"] = evicted
+        if evicted != [v_member]:
+            preempt_fail(f"evictions {evicted}: V_card's member alone was the plan")
+
+        def decisions(kind: str) -> list:
+            status, body = http_get(base + f"/debug/decisions?kind={kind}")
+            return json.loads(body).get("records", []) if status == 200 else []
+        selected = [r for r in decisions("preempt_victim")
+                    if r.get("gang") == f"default/{v_card}" and r.get("reason") == "selected"]
+        executed = [r for r in decisions("preemption")
+                    if r.get("gang") == f"default/{g_p}" and r.get("reason") == "executed"]
+        line["decisions"] = {"selected": len(selected), "executed": len(executed)}
+        if not selected or not executed:
+            preempt_fail(f"the decision ledger's round: {line['decisions']}")
+        counters = {"executed": metric("tpu_extender_preemptions_total", tier="critical",
+                                       outcome="executed"),
+                    "victims": metric("tpu_extender_preemption_victims_total",
+                                      victim_tier="batch")}
+        line["metrics"] = counters
+        if counters != {"executed": 1, "victims": 1}:
+            preempt_fail(f"the preemption counters: {counters}")
+        store = statestore.read_state(str(journal_dir / "admission.journal"),
+                                      str(journal_dir / "admission.snapshot.json"))
+        ops = [r["op"] for r in store.records
+               if r["op"].startswith("preempt_") and r.get("g") == ["default", g_p]]
+        line["journal"] = ops
+        if ops != ["preempt_intent", "preempt_evicted", "preempt_done"]:
+            preempt_fail(f"the journal's round for G_P: {ops}")
+        events = [e for e in api.events if e.get("reason") == "GPUGangPreempted"
+                  and (e.get("involvedObject") or {}).get("name") == v_member]
+        if len(events) != 1:
+            preempt_fail(f"the victim's GPUGangPreempted Event: {api.events}")
+
+        # 5. The stand-in kubelet's SIGTERM: the victim's process exits and
+        # its context leaves the card.
+        killer.join(timeout=PLUGIN_WAIT_S)
+        if not killed.get("stepping"):
+            preempt_fail(f"V_card's pod ended before its eviction: {victim_lines[-2:]}")
+        victim_rc = victim.wait(timeout=PLUGIN_WAIT_S)
+        t_exit = time.monotonic()
+        t_gone, _ = until(lambda: len(compute_apps()) == apps_before,
+                          "the victim's context gone from the card", every_s=0.05)
+        line["victim"] = {"rc": victim_rc, "eviction_to_sigterm_s": killed["t"] - t_evicted,
+                          "eviction_to_exit_s": t_exit - t_evicted,
+                          "eviction_to_off_card_s": t_gone - t_evicted}
+
+        # 6. G_P's member on the freed card: Allocate, bound, the hold drops;
+        # its pod runs the kernels while no other process holds the card.
+        peak_apps = [0]
+        sampling = threading.Event()
+
+        def sample_apps() -> None:
+            while not sampling.is_set():
+                peak_apps[0] = max(peak_apps[0], len(compute_apps()))
+                sampling.wait(0.25)
+
+        sampler = threading.Thread(target=sample_apps, daemon=True)
+        sampler.start()
+        try:
+            pod_line: dict = {}
+            launches = run_member_pod(stub, podres, bind, p_member, PREEMPT_NODE, ids, count,
+                                      main_report, pod_line, preempt_fail)
+        finally:
+            sampling.set()
+            sampler.join()
+        line["preemptor"] = pod_line
+        line["preemptor_peak_compute_apps"] = peak_apps[0]
+        if peak_apps[0] > apps_before + 1:
+            preempt_fail(f"{peak_apps[0]} processes held the card while G_P's pod stepped "
+                         f"(the script's {apps_before} and the pod's)")
+        until(lambda: metric("tpu_gang_reservations") == 0, "G_P's hold dropped after its bind")
+
+        # 7. The explainer reads the live round.
+        out = run_tool("preempt", "explain", "--evicted", v_card, "--url", base)
+        wanted = (f"evicted by default/{g_p}", "victim tier batch", "last checkpoint")
+        if out.returncode != 0 or not all(w in out.stdout for w in wanted):
+            tool_fail(out, "tools.explain --evicted", preempt_fail)
+        line["explain_head"] = out.stdout.splitlines()[0]
+
+        # 8. The module's self-test.
+        self_test = subprocess.run(
+            [sys.executable, "-m", "k8s_device_plugin_tpu_torch.extender.preemption",
+             "--self-test"], cwd=ROOT, capture_output=True, text=True, timeout=120)
+        line["self_test_rc"] = self_test.returncode
+        if self_test.returncode != 0:
+            preempt_fail(f"the preemption self-test: {self_test.stdout} {self_test.stderr}")
+
+        # 9. Two clean audit sweeps or more; SIGTERM ends the extender and
+        # the daemon with code 0 and releases the lease.
+        def audited():
+            status, body = http_get(base + "/debug/audit")
+            snap = json.loads(body) if status == 200 else {}
+            return snap.get("sweeps", 0) >= 2 and snap
+        _, audit_snap = until(audited, "two audit sweeps", every_s=0.1)
+        outcomes = {o: metric("tpu_audit_sweeps_total", outcome=o)
+                    for o in ("clean", "findings", "error")}
+        line["audit"] = {"sweeps": audit_snap["sweeps"], "outcomes": outcomes}
+        if (audit_snap["findings"] or audit_snap["errors"] or outcomes["findings"]
+                or outcomes["error"] or (outcomes["clean"] or 0) < 2):
+            preempt_fail(f"the audit: {audit_snap}")
+        ext.send_signal(signal.SIGTERM)
+        ext_rc = ext.wait(timeout=PLUGIN_WAIT_S)
+        daemon.send_signal(signal.SIGTERM)
+        rc = daemon.wait(timeout=PLUGIN_WAIT_S)
+        holder = api.leases[LEASE_KEY]["spec"].get("holderIdentity", "")
+        line["rc"] = {"extender": ext_rc, "daemon": rc}
+        line["lease_holder_after"] = holder
+        line["phase_s"] = time.monotonic() - t_phase
+        emit({"preemption": line})
+        if ext_rc != 0 or rc != 0 or holder != "":
+            preempt_fail(f"SIGTERM: the extender exited {ext_rc}, the daemon {rc}; the lease's "
+                         f"holder reads {holder!r}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if channel is not None:
+            channel.close()
+        kubelet.server.stop(grace=0)
+        podres.server.stop(grace=0)
+        api.stop()
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA "
@@ -3995,6 +4433,7 @@ def main() -> int:
     phase_extender()
     gang_launches = phase_gang(main_report)
     shard_launches = phase_shards(main_report)
+    preempt_launches = phase_preemption(main_report)
     dist.destroy_process_group()
     path_launches = {name: (launches[name], steps) for name in FLASH}
     path_launches["rmsnorm"] = (norm_launches["rmsnorm"], norm_steps)
@@ -4003,7 +4442,7 @@ def main() -> int:
                "sharded": sharded_launches, "moe": moe_launches, "ring": ring_launches,
                "resume": resume_launches, "kv_sweep": sweep_launches,
                "plugin_pod": pod_launches, "dra_pod": dra_launches, "gang_pod": gang_launches,
-               "shard_pod": shard_launches}
+               "shard_pod": shard_launches, "preempt_pod": preempt_launches}
     emit({"tools": {"nvidia_smi": nvidia_smi(), "runs": [
         {k: r[k] for k in ("phase", "tool", "rc", "wall_s")}
         | {"verb": r["args"][0] if r["tool"] == "doctor" else ""} for r in TOOL_RUNS]}})

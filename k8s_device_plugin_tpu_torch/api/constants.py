@@ -60,6 +60,13 @@ TRACE_ANNOTATION = "tpu.google.com/trace-context"
 ADMIT_TS_ANNOTATION = "tpu.google.com/admitted-at"
 GANG_NAME_LABEL = "tpu.google.com/gang-name"
 
+# The pod annotation a workload's checkpoint beacon stamps after each durable
+# save (epoch seconds, workload/beacon.CheckpointBeacon), the JAX package's
+# key. The preemption planner (extender/preemption.py) reads it to rank a
+# victim's restart cost: a gang that saved seconds ago loses almost nothing
+# to an eviction, one an hour past its last save loses an hour of card time.
+CHECKPOINT_TS_ANNOTATION = "tpu.google.com/last-checkpoint"
+
 # The container env the NVIDIA container runtime reads to inject the
 # allocated cards, the NVIDIA driver's libraries and the node-level
 # device nodes (the reference's server.go:196-198).

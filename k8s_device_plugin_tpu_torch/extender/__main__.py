@@ -17,6 +17,14 @@ journal under ``--journal-dir/shard-<k>``, takes over dead shards' leases
 unless ``--no-shard-takeover``, and serves /filter and /prioritize over
 every shard's holds.
 
+With ``--gang-admission`` preemption is on, as in JAX: complete gangs are
+evaluated in PriorityClass order, a capacity-blocked gang may evict running
+gangs of strictly lower priority (``preemption.py``: the minimal victim set,
+cheapest first, two-phase journaled), and ``/preemption`` answers the
+engine's dry run. Each admitter (the singleton, or each shard's) gets its own
+engine over the one resolver of the process. ``--no-preemption`` keeps every
+gang equal.
+
 The flags keep the JAX extender's names and defaults and are read from the
 command line only (no ``TPU_*`` environment alias). A flag of a plane this
 port does not have yet is refused with a message naming the slice that
@@ -43,11 +51,8 @@ from .reservations import ReservationTable
 from .server import ExtenderHTTPServer, NodeAnnotationCache, ReadyStatus, TopologyExtender
 
 # The JAX extender's flags of planes that later slices of the port bring.
-_PREEMPTION = "preemption"
 _DEFRAG = "defragmentation and rescue"
 UNPORTED_FLAGS = {
-    "--no-preemption": _PREEMPTION,
-    "--preemption-rounds-per-tick": _PREEMPTION,
     "--no-defrag": _DEFRAG,
     "--defrag-max-evictions-per-hour": _DEFRAG,
     "--defrag-max-concurrent": _DEFRAG,
@@ -125,6 +130,18 @@ def parse_args(argv) -> argparse.Namespace:
                    "loop: the reservation table against the journal's replay, the "
                    "cluster's gangs and their gates (/debug/audit, tpu_audit_*); needs "
                    "--gang-admission. 0 disables it")
+    p.add_argument("--no-preemption", action="store_true",
+                   help="disable priority tiers and cost-aware preemption "
+                   "(extender/preemption.py). By default (with --gang-admission) complete "
+                   "gangs evaluate in PriorityClass order and a capacity-blocked "
+                   "higher-priority gang may evict strictly lower-priority running gangs: "
+                   "the minimal victim set, ranked by tier then restart cost (checkpoint "
+                   "recency and duty cycle), two-phase journaled, served as the "
+                   "scheduler-extender /preemption verb. With this flag every gang is equal "
+                   "(FIFO)")
+    p.add_argument("--preemption-rounds-per-tick", type=int, default=1,
+                   help="max preemption rounds (one waiting gang's eviction wave) per "
+                   "admission tick: the blast-radius budget")
     p.add_argument("--node-cache-interval-s", type=float, default=5.0,
                    help="node-annotation cache relist interval")
     p.add_argument("--no-node-watch", action="store_true",
@@ -277,6 +294,29 @@ def main(argv=None) -> int:
             return cache.index.topologies()
         return topo_source
 
+    # Priority tiers and preemption (preemption.py): one PriorityClass
+    # resolver a process (it caches the class vocabulary), and an engine on
+    # each admitter, the singleton or every shard's, so a shard's rounds stay
+    # inside its own gangs and nodes. The JAX condition is "any eviction
+    # plane on"; the defrag and rescue planes join it, and wire_preemption
+    # gains their engines, with their slice.
+    preempt_resolver = None
+    if a.gang_admission and not a.no_preemption:
+        from .preemption import PriorityResolver
+
+        preempt_resolver = PriorityResolver(client)
+
+    def wire_preemption(adm) -> None:
+        if preempt_resolver is None:
+            return
+        from .preemption import PreemptionEngine
+
+        # The queue's priority order belongs to the preemption plane:
+        # --no-preemption keeps every gang equal.
+        adm.priority_resolver = preempt_resolver
+        adm.preemption = PreemptionEngine(adm, preempt_resolver,
+                                          rounds_per_tick=a.preemption_rounds_per_tick)
+
     manager = None
     reservations_view = reservations
     if sharded:
@@ -314,6 +354,7 @@ def main(argv=None) -> int:
                 shard_id=shard_id,
             )
             adm.degraded = degraded
+            wire_preemption(adm)
             return adm
 
         def shard_lost(shard_id: int) -> None:
@@ -405,6 +446,7 @@ def main(argv=None) -> int:
             journal=journal,
         )
         gang.degraded = degraded
+        wire_preemption(gang)
         if node_cache is not None:
             # A node's annotation change wakes the capacity-waiting gangs.
             node_cache.index.on_change = lambda name, slice_keys: gang.note_node_event(slice_keys)
@@ -414,6 +456,18 @@ def main(argv=None) -> int:
         gang.recover()
         gang.start()
     status.mark_replayed()
+    if preempt_resolver is not None:
+        def preemption_verb(pod: dict) -> dict:
+            # The dry run of the scheduler-extender verb (the scheduler that
+            # calls it evicts); sharded, the home shard's engine answers.
+            # Each shard's own tick drives its rounds regardless.
+            adm = manager.home_admission() if manager is not None else gang
+            engine = getattr(adm, "preemption", None)
+            if engine is None:
+                return {"nodeNameToMetaVictims": {}}
+            return engine.dry_run(pod)
+
+        srv.preemption_handler = preemption_verb
     if a.audit_interval_s > 0:
         from .. import audit
 

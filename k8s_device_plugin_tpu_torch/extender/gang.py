@@ -36,8 +36,9 @@ plugin's ``Allocate`` would take, so later gangs of the same tick see the
 cards that will really be gone.
 
 The priority, preemption, defrag and rescue planes of the JAX admitter hook
-in through ``priority_resolver``, ``preemption``, ``defrag`` and ``rescue``,
-which stay None until their slices come. Sharded admission
+in through ``priority_resolver``, ``preemption``, ``defrag`` and ``rescue``:
+the entry point wires the first two (``preemption.py``); the last two stay
+None until their slice comes. Sharded admission
 (``sharding.py``) builds one admitter per owned shard with ``shard_id``,
 ``gang_filter`` and ``topo_filter``: it then sees only its shard's gangs and
 places them only on its shard's nodes.
@@ -401,9 +402,10 @@ class GangAdmission:
         # from _loop after each tick: this thread is the journal's one
         # writer, so the replay check never races an append.
         self.auditor = None
-        # The planes of later slices, None until they come: a priority
-        # resolver (priority-ordered queue), preemption, defragmentation and
-        # rescue. None keeps the FIFO admitter, bit for bit.
+        # The planes on the admitter: a priority resolver (priority-ordered
+        # queue) and preemption (preemption.py, wired by the entry point),
+        # defragmentation and rescue (a later slice). None keeps the FIFO
+        # admitter, bit for bit.
         self.priority_resolver = None
         self.preemption = None
         self.defrag = None

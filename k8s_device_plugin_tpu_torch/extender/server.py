@@ -1127,13 +1127,18 @@ class ExtenderHTTPServer(BackgroundHTTPServer):
     the protocol's lowercase JSON tags ('nodes', 'nodenames', 'failedNodes',
     'error'; HostPriority 'host'/'score').
 
-    /preemption and /drain answer as the JAX server does when no preemption
-    or rescue plane is wired (404); those planes come with later slices."""
+    /preemption answers ``preemption_handler(pod)`` (the preemption
+    engine's dry run: the node -> victims map, never an eviction), and 404
+    when no engine is wired, as the JAX server does. /drain answers 404: the
+    rescue plane comes with a later slice."""
 
     def __init__(self, extender: Optional[TopologyExtender] = None, host: str = "0.0.0.0",
                  port: int = 0, ready_check=None, ready_status=None, degraded=None,
-                 identity: str = ""):
+                 identity: str = "", preemption_handler=None):
         super().__init__(host, port)
+        # The scheduler-extender preemption verb, (pod) -> dict: None answers
+        # 404, so a deployment without the plane fails loudly, not emptily.
+        self.preemption_handler = preemption_handler
         # The admitter identity holding the singleton lease (leader.py), ""
         # with the fence off: /reservations names it, so a reader can tell
         # a holder's table from a non-holder's.
@@ -1255,8 +1260,14 @@ class ExtenderHTTPServer(BackgroundHTTPServer):
                         self._send(fast_scores if fast_scores is not None
                                    else ext.prioritize(pod, items))
                     elif self.path == "/preemption":
-                        self._send({"error": "preemption not enabled"}, 404)
-                        return
+                        handler = server.preemption_handler
+                        if handler is None:
+                            self._send({"error": "preemption not enabled"}, 404)
+                            return
+                        # A dry run only: the scheduler that calls this verb
+                        # evicts itself; the engine's own rounds ride the
+                        # admission tick.
+                        self._send(handler(pod))
                     elif self.path == "/drain":
                         self._send({"error": "drain not enabled"}, 404)
                         return

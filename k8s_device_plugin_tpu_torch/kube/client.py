@@ -589,6 +589,15 @@ class KubeClient:
                 return {}
             raise
 
+    # -- priority classes ----------------------------------------------------
+
+    def list_priority_classes(self) -> dict:
+        """scheduling.k8s.io/v1 PriorityClassList: the cluster's priority
+        vocabulary. The preemption plane's resolver (extender/preemption.py)
+        folds name -> value once and refreshes on an unknown-class miss, so
+        the steady state costs no request."""
+        return self.get("/apis/scheduling.k8s.io/v1/priorityclasses", verb="LIST")
+
     def patch_pod_annotations(
         self,
         namespace: str,

@@ -126,6 +126,25 @@ def update_node_gauges(state, free_ids) -> dict:
     return stats
 
 
+def gang_duty_cycles() -> Dict[str, float]:
+    """gang label -> mean duty cycle (%) over the cards attributed to it on
+    the sampler's last pass: the work-in-flight signal of the preemption
+    planner's victim ranking (extender/preemption.py), where an idle gang is
+    a cheaper victim than one at 95%. Empty when no sampler runs in this
+    process, the extender's normal case (the attribution join and the duty
+    series live on the node daemon)."""
+    sampler = SAMPLER
+    if sampler is None:
+        return {}
+    sums: Dict[str, list] = {}
+    for chip in sampler.snapshot().get("chips", []):
+        gang = chip.get("gang")
+        duty = chip.get("duty_cycle_pct")
+        if gang and duty is not None:
+            sums.setdefault(gang, []).append(float(duty))
+    return {g: sum(v) / len(v) for g, v in sums.items()}
+
+
 def debug_snapshot() -> dict:
     """The /debug/telemetry payload: sampler state and the last per-card
     readings with attribution, the node's capacity stats, and the

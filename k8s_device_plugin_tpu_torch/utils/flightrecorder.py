@@ -141,8 +141,11 @@ class FlightRecorder:
         path = os.path.join(self.dump_dir, name)
         try:
             os.makedirs(self.dump_dir, exist_ok=True)
-            with open(path, "w") as f:
+            # Written aside and renamed: a reader that sees the name reads
+            # the whole dump, never a half-written one.
+            with open(path + ".tmp", "w") as f:
                 json.dump(snap, f, indent=1)
+            os.replace(path + ".tmp", path)
         except OSError:
             return None
         return path

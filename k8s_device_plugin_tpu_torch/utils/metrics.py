@@ -583,6 +583,21 @@ GANG_WAITING = EXTENDER_REGISTRY.gauge(
     "priority tier (emptied tiers prune their series); sum() for the "
     "total",
 )
+# Priority and preemption (extender/preemption.py): a higher-tier gang
+# evicts lower-tier running gangs when no node fits it, two-phase journaled.
+PREEMPTIONS = EXTENDER_REGISTRY.counter(
+    "tpu_extender_preemptions_total",
+    "Preemption rounds by the PREEMPTOR gang's tier and outcome "
+    "(executed: victims evicted and the freed box reserved; blocked: "
+    "an eviction was refused — PodDisruptionBudget or apiserver — "
+    "and the round aborted for retry next tick)",
+)
+PREEMPTION_VICTIMS = EXTENDER_REGISTRY.counter(
+    "tpu_extender_preemption_victims_total",
+    "Gangs evicted by preemption, by the VICTIM's tier — a growing "
+    "critical/high share means high tiers are cannibalizing each "
+    "other and the cluster needs capacity, not priorities",
+)
 GANG_TICKS = EXTENDER_REGISTRY.counter(
     "tpu_gang_ticks_total",
     "Gang admission evaluation passes, by mode: full (every gang "

@@ -47,101 +47,29 @@ step would, so no parameter moves. A restore copies every value into the
 live tensors in place, each keeping its device (the step count stays on
 the card where the optimizer is ``capturable``).
 
-``CheckpointBeacon`` is the JAX class as it is: the control plane (the
-extender's preemption planner and defrag engine) reads its annotation
-through the JAX ``CheckpointBeacon.age_from``.
+``CheckpointBeacon`` (``workload/beacon.py``, re-exported here) is the JAX
+class as it is, in a module without torch: the extender's preemption planner
+reads its annotation through ``CheckpointBeacon.age_from``.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-import time
-from collections.abc import Callable
 
 import torch
 import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
+from ..api.constants import CHECKPOINT_TS_ANNOTATION  # noqa: F401 - re-exported
 from ..parallel.mesh import FSDP_AXIS, PIPE_AXIS
 from . import train
+from .beacon import CheckpointBeacon  # noqa: F401 - re-exported
 from .model import TransformerLM
-
-# The pod annotation the beacon stamps, as the JAX package's
-# api/constants.py names it: the extender (extender/preemption.py) reads it
-# to rank a victim's restart cost. A gang that checkpointed seconds ago
-# loses almost nothing to an eviction; one an hour past its last save loses
-# an hour of card time.
-CHECKPOINT_TS_ANNOTATION = "tpu.google.com/last-checkpoint"
 
 # The suffix of the directory a save writes before its commit.
 TMP_SUFFIX = ".tmp"
-
-
-class CheckpointBeacon:
-    """Publishes checkpoint recency to the control plane.
-
-    After every durable save, the beacon stamps the pod's
-    ``tpu.google.com/last-checkpoint`` annotation (epoch seconds) so
-    the extender's preemption planner (extender/preemption.py) can
-    rank this gang's restart cost truthfully: a gang that saved
-    seconds ago is a cheap victim, one an hour past its save is not.
-    Best-effort by design — a failed stamp costs accuracy of the cost
-    ranking, never the save.
-
-    ``stamp`` is any ``(annotations: dict) -> None`` writer; the
-    common wiring is ``KubeClient.patch_pod_annotations`` curried with
-    this pod's identity (``CheckpointBeacon.for_pod``)."""
-
-    ANNOTATION = CHECKPOINT_TS_ANNOTATION
-
-    def __init__(self, stamp: Callable[[dict], None]):
-        self._stamp = stamp
-        self.last_stamped: float | None = None
-
-    @staticmethod
-    def for_pod(client, namespace: str = "", name: str = ""):
-        """Beacon bound to this pod via the downward-API env vars
-        (POD_NAMESPACE / POD_NAME) or explicit identity."""
-        ns = namespace or os.environ.get("POD_NAMESPACE", "default")
-        pod = name or os.environ.get("POD_NAME", "")
-        if not pod:
-            return None
-
-        def stamp(ann: dict) -> None:
-            client.patch_pod_annotations(ns, pod, ann)
-
-        return CheckpointBeacon(stamp)
-
-    @staticmethod
-    def age_from(annotations: dict | None, now: float | None = None) -> float | None:
-        """Seconds since the last durable save recorded on a pod's
-        annotations, or None when never stamped / unparsable — the ONE
-        parser of the beacon's annotation, shared by the preemption
-        planner's victim ranking and the defrag engine's
-        fresh-checkpoint preference so the two cost models can never
-        read the same stamp differently. Clock skew that would read
-        negative clamps to 0 (a save from "the future" is simply
-        fresh)."""
-        raw = (annotations or {}).get(CHECKPOINT_TS_ANNOTATION)
-        if not raw:
-            return None
-        try:
-            ts = float(raw)
-        except (TypeError, ValueError):
-            return None
-        return max(0.0, (now if now is not None else time.time()) - ts)
-
-    def note_saved(self, step: int) -> bool:
-        ts = round(time.time(), 3)
-        try:
-            self._stamp({self.ANNOTATION: str(ts)})
-        except Exception:  # noqa: BLE001 — recency is advisory; the
-            # checkpoint itself already committed
-            return False
-        self.last_stamped = ts
-        return True
 
 
 class _Layout:

@@ -13,8 +13,9 @@ state: no card double-booked, no gang left gateless and unfenced, a lapsed
 hold lapsed across restarts, a torn tail or a mid-compaction crash falling
 back to the durable prefix. The JAX file's three sharded cases (a shard's
 SIGKILL at 1,000 nodes until its takeover, a shard's split brain, a death in
-the middle of a takeover) are here too; its preemption and defrag cases come
-with those planes.
+the middle of a takeover) and its two preemption kill-points (a death in the
+middle of the evictions, and one between the evictions and the fence) are
+here too; its defrag and rescue cases come with those planes.
 """
 
 import importlib
@@ -236,6 +237,111 @@ def test_lapsed_hold_stays_lapsed_across_restarts(plane, api, tmp_path):
     adm0, table0 = admission(plane, client)
     adm0.tick()
     assert table0.reserved_chips("n1") == 4
+
+
+# ---------------------------------------------------------------------------
+# the preemption kill-points
+# ---------------------------------------------------------------------------
+
+
+def _preemption_cluster(plane, server):
+    """n1 full, held by a running batch gang of two 2-card pods; a gated
+    critical gang asking its 4 cards."""
+    server.add_node("n1", plane.node("n1", []))
+    for i in range(2):
+        p = gang_pod(plane, f"b{i}", "batch", 2, 2)
+        p["metadata"]["uid"] = f"uid-b{i}"
+        p["spec"].update(schedulingGates=[], nodeName="n1", priority=-10)
+        server.add_pod(p)
+    hp = gang_pod(plane, "prod-w0", "prod", 1, 4)
+    hp["spec"]["priority"] = 1_000_000
+    server.add_pod(hp)
+
+
+def _wire_preemption(plane, adm, client):
+    resolver = plane.preemption.PriorityResolver(client)
+    adm.priority_resolver = resolver
+    adm.preemption = plane.preemption.PreemptionEngine(adm, resolver)
+
+
+def test_sigkill_mid_preemption_evictions_aborts_then_replans(plane, api, tmp_path):
+    """After preempt_intent, one victim pod evicted and the other not:
+    recovery aborts the open intent (nothing was fenced, the preemptor is
+    still gated, never gateless and unfenced), and the next tick plans again
+    from the cluster's truth and finishes exactly once."""
+    server, client = api
+    gate = plane.gang.GATE_NAME
+    _preemption_cluster(plane, server)
+    adm1, _ = admission(plane, KillPointClient(client, "evict_pod", 1), tmp_path)
+    _wire_preemption(plane, adm1, client)
+    with pytest.raises(SigKill):
+        adm1.tick()
+    # One victim pod went through the eviction door; the intent is durable
+    # and nothing was reserved.
+    assert len(server.evictions) == 1
+    adm2, table2 = admission(plane, client, tmp_path)
+    _wire_preemption(plane, adm2, client)
+    summary = adm2.recover()
+    assert (summary["preempt_aborted"], summary["preempt_refenced"]) == (1, 0)
+    assert table2.active() == {}
+    assert gate in gates_of(server, "default", "prod-w0")
+    # The node daemon frees the evicted pod's 2 cards and republishes: the
+    # next round evicts only the remaining victim pod and admits.
+    server.add_node("n1", plane.node("n1", [0, 1]))
+    assert adm2.tick() == [("default", "prod")]
+    assert len(server.evictions) == 2  # one more, not an eviction storm
+    assert gate not in gates_of(server, "default", "prod-w0")
+    assert table2.reserved_chips("n1") == 4  # the whole demand fenced
+    assert adm2.preemption.open_intents() == {}
+    adm2.journal.close()
+
+
+def test_sigkill_between_evictions_and_fence_refences_on_recovery(plane, api, tmp_path):
+    """After preempt_evicted, before the reserve, the window where freed
+    cards could be stolen: recovery re-installs the planned fence before any
+    tick or /filter, the release finishes against the standing hold, and the
+    audit sweeps clean."""
+    server, client = api
+    gate = plane.gang.GATE_NAME
+    _preemption_cluster(plane, server)
+    adm1, table1 = admission(plane, client, tmp_path)
+    _wire_preemption(plane, adm1, client)
+
+    def die_on_reserve(*a, **kw):
+        raise SigKill("between preempt_evicted and reserve")
+
+    table1.reserve = die_on_reserve
+    with pytest.raises(SigKill):
+        adm1.tick()
+    assert len(server.evictions) == 2  # both victim pods gone, the phase durable
+    adm2, table2 = admission(plane, client, tmp_path)
+    _wire_preemption(plane, adm2, client)
+    summary = adm2.recover()
+    assert (summary["preempt_refenced"], summary["preempt_aborted"]) == (1, 0)
+    # The fence is back from the journaled plan before any tick, with the
+    # preemptor's priority.
+    assert table2.reserved_chips("n1") == 4
+    assert table2.active()[("default", "prod")].priority == 1_000_000
+    # The daemon republishes the freed cards: a competitor's /filter is
+    # shielded by the rehydrated fence.
+    fresh = plane.node("n1")
+    server.add_node("n1", fresh)
+    passing, failed = plane.server.TopologyExtender(reservations=table2).filter(
+        pod(plane, 2), [fresh])
+    assert passing == []
+    assert "reserved for a released gang" in failed["n1"]
+    # The next tick finishes the release against the standing hold: gates
+    # off, fence standing, never gateless and unfenced.
+    assert adm2.tick() == [("default", "prod")]
+    assert gate not in gates_of(server, "default", "prod-w0")
+    assert table2.reserved_chips("n1") == 4
+    assert adm2.preemption.open_intents() == {}
+    eng = plane.audit.ExtenderAudit(reservations=table2, journal=adm2.journal,
+                                    gang=adm2).engine()
+    findings = eng.sweep_once()
+    assert [f for f in findings if f.severity == plane.audit.CRITICAL] == []
+    assert [f for f in findings if f.invariant == "gate_vs_hold"] == []
+    adm2.journal.close()
 
 
 def test_gang_admission_serves_last_known_topology_through_outage(plane, api):

@@ -569,6 +569,8 @@ def test_extender_imports_no_torch_or_jax_in_a_fresh_process():
             "import k8s_device_plugin_tpu_torch.extender.leader; "
             "import k8s_device_plugin_tpu_torch.extender.sharding; "
             "import k8s_device_plugin_tpu_torch.extender.holdscodec; "
+            "import k8s_device_plugin_tpu_torch.extender.preemption; "
+            "import k8s_device_plugin_tpu_torch.workload.beacon; "
             "import k8s_device_plugin_tpu_torch.audit; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax') "
             "or m.startswith('k8s_device_plugin_tpu.') or m == 'k8s_device_plugin_tpu'))")
@@ -640,12 +642,29 @@ def test_flags_of_planes_not_ported_are_refused_naming_their_slice(flag, capsys)
 
 
 def test_only_the_sharding_preemption_and_defrag_flags_are_refused():
-    # The sharding flags are taken since sharded admission was ported
-    # (test_sharding_flags_are_taken); preemption's and defrag's are not.
+    # The sharding and preemption flags are taken since those planes were
+    # ported (test_sharding_flags_are_taken, test_preemption_flags_are_taken);
+    # the defrag and rescue planes' six are not.
     assert set(ext_main.UNPORTED_FLAGS) == {
-        "--no-preemption", "--preemption-rounds-per-tick", "--no-defrag", "--defrag-max-evictions-per-hour",
-        "--defrag-max-concurrent", "--defrag-stranded-ticks", "--no-rescue",
-        "--rescue-grace-ticks"}
+        "--no-defrag", "--defrag-max-evictions-per-hour", "--defrag-max-concurrent",
+        "--defrag-stranded-ticks", "--no-rescue", "--rescue-grace-ticks"}
+
+
+PREEMPTION_FLAGS = {"--no-preemption": [], "--preemption-rounds-per-tick": ["3"]}
+
+
+@pytest.mark.parametrize("flag", sorted(PREEMPTION_FLAGS))
+def test_preemption_flags_are_taken(flag, monkeypatch):
+    """The JAX names and defaults (preemption on, one round a tick), from
+    the command line only."""
+    a = ext_main.parse_args([flag, *PREEMPTION_FLAGS[flag]])
+    value = getattr(a, flag.lstrip("-").replace("-", "_"))
+    want = PREEMPTION_FLAGS[flag]
+    assert value == (True if not want else type(value)(want[0]))
+    monkeypatch.setenv("TPU_NO_PREEMPTION", "1")
+    monkeypatch.setenv("TPU_PREEMPTION_ROUNDS_PER_TICK", "5")
+    d = ext_main.parse_args([])
+    assert (d.no_preemption, d.preemption_rounds_per_tick) == (False, 1)
 
 
 # The admission plane's flags, each with a value the parser must take (the

@@ -186,6 +186,8 @@ def test_all_client_calls_flow_through_resilience(plane, api):
     client.list_nodes(label_selector="a=b")
     # Fleet discovery's lease list, which both clients have.
     client.list_leases(namespace="ns")
+    # The preemption plane's PriorityClass listing, which both clients have.
+    client.list_priority_classes()
     for _ in client.watch_nodes(timeout_seconds=1):
         break
     # Gang admission's gate removal, which both clients have.
@@ -194,7 +196,7 @@ def test_all_client_calls_flow_through_resilience(plane, api):
     if plane.name == "torch":
         client.delete_pod("default", "p2")
         called |= {"delete_pod", "list_nodes", "watch_nodes", "remove_pod_scheduling_gate",
-                   "list_leases"}
+                   "list_leases", "list_priority_classes"}
         public = {n for n in dir(client) if not n.startswith("_") and callable(getattr(client, n))}
         assert public - called == {"from_env", "from_kubeconfig", "in_cluster",
                                    "interrupt_watches"}

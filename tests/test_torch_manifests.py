@@ -294,7 +294,8 @@ def test_extender_manifest_matches_the_served_protocol():
                                 f"{d['Service']['metadata']['namespace']}:{port}")
     # The verbs are path segments under urlPrefix: the paths the server routes.
     assert (ext["filterVerb"], ext["prioritizeVerb"]) == ("filter", "prioritize")
-    assert "preemptVerb" not in ext  # no preemption plane in this slice
+    # The verb the server routes to the preemption engine's dry run.
+    assert ext["preemptVerb"] == "preemption"
     assert ext["managedResources"] == [{"name": constants.RESOURCE_NAME,
                                         "ignoredByScheduler": False}]
     assert ext["nodeCacheCapable"] is True and a.node_cache
@@ -321,8 +322,9 @@ def test_extender_manifest_paths_are_served(tmp_path):
         srv.stop()
 
 
-def _gpu_annotation(name: str, cards: int) -> str:
-    """A node's nvidia.com/gpu-topology of ``cards`` free cards."""
+def _gpu_annotation(name: str, cards: int, free: bool = True) -> str:
+    """A node's nvidia.com/gpu-topology of ``cards`` cards, all free (or all
+    held when not ``free``)."""
     from k8s_device_plugin_tpu_torch.topology.schema import (SCHEMA_VERSION, CardInfo,
                                                              NodeTopology)
 
@@ -330,7 +332,7 @@ def _gpu_annotation(name: str, cards: int) -> str:
                       pci_addr="", numa_node=0, hbm_bytes=1, name="card") for i in range(cards)]
     return NodeTopology(version=SCHEMA_VERSION, hostname=name, chip_type="H100",
                         product="card", chip_count=cards, numa_nodes=1, chips=chips,
-                        available=[c.id for c in chips]).to_json()
+                        available=[c.id for c in chips] if free else []).to_json()
 
 
 def _gang_member(name: str, gang: str, cards: int) -> dict:
@@ -350,9 +352,11 @@ def test_extender_cluster_role_grants_exactly_what_the_plane_calls(tmp_path):
     relist, watch and the fetch of a node that joined after the relist; gang
     admission's pod list and watch, a gate removal whose guarded patch meets
     a changed gate list (the pod's re-read and the patch again), a gang left
-    waiting past the threshold (its Event), and the lease taken at the start
-    and released at SIGTERM. They are every call it sends, and all the role
-    grants."""
+    waiting past the threshold (its Event), a critical gang's preemption round
+    (the PriorityClass listing, an eviction the API server answers 405 and
+    the plain delete it falls back to, the victim's Event), and the lease
+    taken at the start and released at SIGTERM. They are every call it
+    sends, and all the role grants."""
     from k8s_device_plugin_tpu_torch.extender import gang as gang_mod
 
     api = FakeApiServer()
@@ -361,6 +365,14 @@ def test_extender_cluster_role_grants_exactly_what_the_plane_calls(tmp_path):
     try:
         api.add_node("n1", {"metadata": {"name": "n1", "annotations": {
             constants.TOPOLOGY_ANNOTATION: _gpu_annotation("n1", 2)}}})
+        # A 4-card node a running batch pod holds whole: the victim of the
+        # critical gang below.
+        api.add_node("n2", {"metadata": {"name": "n2", "annotations": {
+            constants.TOPOLOGY_ANNOTATION: _gpu_annotation("n2", 4, free=False)}}})
+        victim = _gang_member("batch-0", "batch", 4)
+        victim["spec"].update(schedulingGates=[], nodeName="n2", priority=-10)
+        api.add_pod(victim)
+        api.add_priority_class("prod", 1_000_000)
         kc = tmp_path / "kc.json"
         kc.write_text(json.dumps({
             "apiVersion": "v1", "kind": "Config",
@@ -401,9 +413,16 @@ def test_extender_cluster_role_grants_exactly_what_the_plane_calls(tmp_path):
         api.faults.add(kind="status", status=422, times=1, method="PATCH", path_re="/pods/")
         api.add_pod(_gang_member("fits-0", "fits", 1))
         api.add_pod(_gang_member("wide-0", "wide", 64))  # waits past the threshold
+        # The eviction subresource unsupported once: the plain delete follows.
+        api.faults.add(kind="status", status=405, times=1, method="POST", path_re="/eviction$")
+        prod = _gang_member("prod-0", "prod", 4)
+        prod["spec"]["priorityClassName"] = "prod"
+        api.add_pod(prod)
         deadline = time.time() + 20
         while time.time() < deadline and not (
-                not gang_mod.is_gated(api.pods[("default", "fits-0")]) and api.events
+                not gang_mod.is_gated(api.pods[("default", "fits-0")])
+                and not gang_mod.is_gated(api.pods[("default", "prod-0")])
+                and any(e["reason"] == "GPUGangPending" for e in api.events)
                 and ("", "watch", "nodes") in kube_calls(api.requests)):
             time.sleep(0.1)
     finally:
@@ -413,6 +432,9 @@ def test_extender_cluster_role_grants_exactly_what_the_plane_calls(tmp_path):
         stop_in_background(api)
     assert not gang_mod.is_gated(api.pods[("default", "fits-0")])
     assert gang_mod.is_gated(api.pods[("default", "wide-0")])
+    assert not gang_mod.is_gated(api.pods[("default", "prod-0")])
+    assert api.deletions == [("default", "batch-0")] and api.evictions == []
+    assert any(e["reason"] == "GPUGangPreempted" for e in api.events)
     assert api.leases[("kube-system", "nvidia-scheduler-extender")]["spec"][
         "holderIdentity"] == ""
     calls = kube_calls(api.requests)
@@ -422,6 +444,7 @@ def test_extender_cluster_role_grants_exactly_what_the_plane_calls(tmp_path):
     assert calls == granted == {
         ("", "get", "nodes"), ("", "list", "nodes"), ("", "watch", "nodes"),
         ("", "get", "pods"), ("", "list", "pods"), ("", "watch", "pods"), ("", "patch", "pods"),
-        ("", "create", "events"),
+        ("", "delete", "pods"), ("", "create", "pods/eviction"), ("", "create", "events"),
+        ("scheduling.k8s.io", "list", "priorityclasses"),
         ("coordination.k8s.io", "get", "leases"), ("coordination.k8s.io", "create", "leases"),
         ("coordination.k8s.io", "update", "leases")}

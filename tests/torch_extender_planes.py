@@ -1,8 +1,9 @@
 """The two planes of the scheduler extender's parity tests
 (tests/test_torch_extender.py, tests/test_torch_topology_index.py,
 tests/test_torch_index_snapshot.py, tests/test_torch_reservations.py, gang
-admission's tests/test_torch_{gang,journal,leader,chaos_journal}.py, and
-sharded admission's tests/test_torch_{sharding,holdscodec}.py).
+admission's tests/test_torch_{gang,journal,leader,chaos_journal}.py,
+sharded admission's tests/test_torch_{sharding,holdscodec}.py, and
+preemption's tests/test_torch_preemption.py).
 
 The JAX plane publishes the ``google.com/tpu-topology`` annotation of a v5p
 host of 4 chips (tests/test_extender.py's ``make_node``); the port's plane
@@ -29,6 +30,7 @@ from k8s_device_plugin_tpu.extender import holdscodec as jax_holdscodec
 from k8s_device_plugin_tpu.extender import index as jax_index
 from k8s_device_plugin_tpu.extender import journal as jax_journal
 from k8s_device_plugin_tpu.extender import leader as jax_leader
+from k8s_device_plugin_tpu.extender import preemption as jax_preemption
 from k8s_device_plugin_tpu.extender import reservations as jax_reservations
 from k8s_device_plugin_tpu.extender import server as jax_server
 from k8s_device_plugin_tpu.extender import sharding as jax_sharding
@@ -44,6 +46,7 @@ from k8s_device_plugin_tpu_torch.extender import holdscodec
 from k8s_device_plugin_tpu_torch.extender import index
 from k8s_device_plugin_tpu_torch.extender import journal
 from k8s_device_plugin_tpu_torch.extender import leader
+from k8s_device_plugin_tpu_torch.extender import preemption
 from k8s_device_plugin_tpu_torch.extender import reservations
 from k8s_device_plugin_tpu_torch.extender import server
 from k8s_device_plugin_tpu_torch.extender import sharding
@@ -114,6 +117,7 @@ class JaxPlane:
     holdscodec = jax_holdscodec
     journal = jax_journal
     leader = jax_leader
+    preemption = jax_preemption
     server = jax_server
     sharding = jax_sharding
     pick_key = staticmethod(jax_sharding._pick_key)
@@ -149,6 +153,7 @@ class TorchPlane:
     holdscodec = holdscodec
     journal = journal
     leader = leader
+    preemption = preemption
     server = server
     sharding = sharding
     pick_key = staticmethod(sharding.pick_key)
