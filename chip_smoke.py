@@ -429,10 +429,59 @@ caught while the run goes on:
    daemon with code 0 and releases the lease. One line with every time
    beside the card's name and power limit; the times are the host CPU's
    except the pod's step, which stands beside phase 5's.
+22. Defragmentation on the card: phase 21's stand-ins (sockets under
+   ``/tmp/dfg*``, a fresh fake API server with the PriorityClass ``batch``,
+   the daemon over the real NVML publishing this node N with
+   ``--resync-interval 2``), synthetic HGX nodes S and S2 of 8 cards, the
+   extender as phase 21 runs it (preemption, defragmentation and rescue on
+   by default). (1) V, a batch gang of two: V-b (4 cards) bound to S, V-a
+   (N's cards) released onto N, allocated and bound, its pod stepping on the
+   card; W, a standard gang of one 4-card member bound to S2; V's beacon
+   stamped 60 s back; ``tools.defrag status`` shows no stranded demand. (2)
+   X, gated, one member of 8 cards of no class: 4 cards free on S and on S2,
+   none on N, no node places 8. Timed from the submission:
+   ``tpu_extender_stranded_demand{size="8"}`` 1, V's two evictions, X's
+   gates gone; W untouched, ``defrag executed`` for X and ``defrag_victim``
+   for V in the ledger, the budget at 10, the journal's ``defrag_intent``,
+   ``defrag_evicted``, ``defrag_done`` in order, X's hold all of S (X then
+   bound there), a ``GPUGangMigrated`` Event on V's pod. (3) The stand-in
+   kubelet clears V-a's PodResources entry and sends it SIGTERM; timed from
+   the eviction: its exit, its context off the card, the card published
+   free. (4) V's job controller recreates both members gated: the 4-card one
+   lands on S2, the other on N and runs ``workload.smoke --bench --steps 5``
+   as phase 19's pods (ok, on an allocated card, its own launch counts). (5)
+   ``tools.defrag plan``, ``tools.explain --migrated v`` (naming S and
+   default/x) and ``tools.tputop``'s defrag footer (the budget) against the
+   extender exit 0. (6) ``extender.defrag`` and ``tools.defrag``
+   ``--self-test`` exit 0. (7) Two clean audit sweeps or more,
+   ``defrag_vs_reservations`` among the invariants; SIGTERM ends every
+   process with code 0.
+23. Drain and rescue on the card: phase 22's stand-ins (``/tmp/rsc*``),
+   synthetic nodes H and F of N's card count, R a standard gang of one
+   member bound to F. (1) D, a standard gang of one member of N's cards,
+   released onto N, its pod stepping; H joins, all free; ``python -m
+   k8s_device_plugin_tpu_torch.tools.doctor drain N --url``, timed from the
+   POST: N cordoned and tainted ``tpu.google.com/maintenance=drain``, D's
+   eviction, its exit, its context off the card, the drain-complete
+   annotation, the doctor's exit 0. D's recreated member is released by
+   the rescue fence on H and bound there; ``rescue executed`` names
+   ``draining``, the journal holds ``rescue_intent``, ``rescue_evicted``,
+   ``rescue_done`` in order, ``tpu_node_cordoned{node=N}`` 1, no other pod
+   evicted; ``doctor drain --uncordon N`` exits 0 and takes the cordon, the
+   taint, the stamp and the gauge away. (2) F's cards moved to ``failed`` in
+   its annotation, as a daemon publishes a health withdrawal: timed from
+   there, R's eviction and its recreated member released by the fence on N
+   (the only free healthy node), which runs the kernels as in (4) of phase
+   22. (3) ``tools.explain --rescued r`` names F and ``chip_failed``,
+   ``--rescued d`` names ``draining``; ``extender.rescue --self-test`` exits
+   0. (4) Two clean audit sweeps or more, ``rescue_vs_health`` among the
+   invariants; SIGTERM ends every process with code 0. Each phase prints one
+   line with every time beside the card's name and power limit; the times
+   are the host CPU's except the pods' steps, which stand beside phase 5's.
 
 Then one ``{"tools": ...}`` line: the card's name and power limit, and
-each tool run of phases 16, 19 and 21 with its phase, exit code and wall
-time.
+each tool run of phases 16, 19 and 21 to 23 with its phase, exit code and
+wall time.
 Then one ``{"kernels": [...]}`` line (each kernel's launches from the path
 that runs it: K1-K3 from phase 5, K4 from phase 6; every path's counts
 under ``launches_by_path``, phase 10's as ``sharded``, phase 11's as
@@ -441,7 +490,8 @@ under ``launches_by_path``, phase 10's as ``sharded``, phase 11's as
 phase 17's, from its pod's report, as ``dra_pod``, phase 19's, from
 member 0's pod's report, as ``gang_pod``, phase 20's, from the taken-over
 member's pod's report, as ``shard_pod``, phase 21's, from the preemptor's
-pod's report, as ``preempt_pod``) and,
+pod's report, as ``preempt_pod``, phases 22's and 23's, from the replacement
+members' pods' reports, as ``defrag_pod`` and ``rescue_pod``) and,
 last, the device line
 ``{"ok": true, "device": {...}}``. Exits non-zero, printing no
 result, when CUDA is not available or the port's package is not beside
@@ -4399,6 +4449,649 @@ def phase_preemption(main_report: dict) -> dict:
     return launches
 
 
+# -- phases 22 and 23: defragmentation and rescue ----------------------------
+
+STAGE_RESYNC_S = 1
+# The daemon's controller resync: the stand-in kubelet clears a killed pod's
+# PodResources entry at once, and a delete the daemon saw before that clear
+# frees the card at this resync.
+STAGE_DAEMON_RESYNC_S = 2
+STAGE_POLL_S = 0.01
+STAGE_CLASSES = {"batch": -10}
+DEFRAG_NODE = "defrag-node"
+DEFRAG_S, DEFRAG_S2 = "defrag-s", "defrag-s2"
+DEFRAG_SYN_CARDS = 8
+DEFRAG_CKPT_AGE_S = 60.0
+DEFRAG_STRANDED_TICKS = 3  # the extender's --defrag-stranded-ticks default
+DEFRAG_BUDGET = 12  # its --defrag-max-evictions-per-hour default
+RESCUE_NODE = "rescue-node"
+RESCUE_H, RESCUE_F = "rescue-h", "rescue-f"
+RESCUE_GRACE_TICKS = 2  # the extender's --rescue-grace-ticks default
+
+
+class Stage:
+    """Phase 21's stand-ins for phases 22 and 23: a short dir under /tmp, a
+    fresh fake API server and its kube config, the daemon over the real NVML
+    publishing this node, the stand-in kubelet and PodResources, and the
+    extender run as phase 21 runs it (every eviction plane on by default).
+    ``close`` stops every process it started."""
+
+    def __init__(self, prefix: str, node: str, label: str):
+        from k8s_device_plugin_tpu_torch.kube.client import KubeClient
+        from tests.fake_apiserver import FakeApiServer
+
+        self.label = label
+        self.node = node
+        self.work = Path(tempfile.mkdtemp(prefix=prefix, dir="/tmp"))
+        self.dp_dir = self.work / "dp"
+        self.dp_dir.mkdir()
+        self.journal_dir = self.work / "journal"
+        self.api = FakeApiServer()
+        self.kubelet = Kubelet(str(self.dp_dir))
+        self.podres = PodResources(str(self.work / "pod-resources" / "kubelet.sock"))
+        api_url = self.api.start()
+        self.api.add_node(node)
+        for name, value in STAGE_CLASSES.items():
+            self.api.add_priority_class(name, value)
+        self.client = KubeClient(api_url)
+        self.kubeconfig = self.work / "kubeconfig.json"
+        self.kubeconfig.write_text(json.dumps({
+            "apiVersion": "v1", "kind": "Config", "current-context": "smoke",
+            "contexts": [{"name": "smoke", "context": {"cluster": "fake", "user": "smoke"}}],
+            "clusters": [{"name": "fake", "cluster": {"server": api_url}}],
+            "users": [{"name": "smoke", "user": {"token": "smoke"}}],
+        }))
+        self.procs: list = []
+        self.channel = None
+        self.base = ""
+
+    def fail(self, msg: str) -> None:
+        for path in sorted(self.work.glob("*.log")):
+            print(f"{path.name}:", path.read_text()[-3000:], file=sys.stderr, flush=True)
+        fail(f"{self.label}: {msg}")
+
+    def until(self, pred, what: str, bound_s: float = PLUGIN_WAIT_S,
+              every_s: float = STAGE_POLL_S):
+        """Poll ``pred`` until it gives a value: (time, value)."""
+        deadline = time.monotonic() + bound_s
+        while not (value := pred()):
+            if time.monotonic() > deadline:
+                self.fail(f"not seen within {bound_s} s: {what}")
+            time.sleep(every_s)
+        return time.monotonic(), value
+
+    def start_daemon(self):
+        """The daemon over the real NVML: its registration, this node's
+        annotation (every card free), the Allocate stub. Returns the node's
+        card ids."""
+        import grpc
+
+        from k8s_device_plugin_tpu_torch.api.grpc_defs import DevicePluginStub
+
+        with open(self.work / "daemon.log", "w") as log_file:
+            self.daemon = subprocess.Popen(
+                [sys.executable, "-m", "k8s_device_plugin_tpu_torch", "--device-plugin-dir",
+                 str(self.dp_dir), "--node-name", self.node, "--kubeconfig",
+                 str(self.kubeconfig), "--podresources-socket", self.podres.socket_path,
+                 "--metrics-port", "0", "--resync-interval", str(STAGE_DAEMON_RESYNC_S)],
+                cwd=ROOT, stdout=log_file, stderr=subprocess.STDOUT)
+        self.procs.append(self.daemon)
+        _, req, _ = self.kubelet.next_registration()
+        topo = self.topology(self.node, bound_s=PLUGIN_WAIT_S)
+        if topo["chip_count"] < 1 or len(topo["available"]) != topo["chip_count"]:
+            self.fail(f"the node's annotation before any allocation: {topo}")
+        self.channel = grpc.insecure_channel(f"unix:{self.dp_dir / req.endpoint}")
+        self.stub = DevicePluginStub(self.channel)
+        return list(topo["available"])
+
+    def topology(self, node: str, bound_s: float = PLUGIN_WAIT_S) -> dict:
+        from k8s_device_plugin_tpu_torch.api import constants
+
+        _, raw = self.until(lambda: self.api.nodes[node]["metadata"].get(
+            "annotations", {}).get(constants.TOPOLOGY_ANNOTATION),
+            f"{node}'s nvidia.com/gpu-topology annotation", bound_s)
+        return json.loads(raw)
+
+    def free_cards(self, node: str) -> int:
+        return len(self.topology(node)["available"])
+
+    def add_synthetic(self, name: str, index: int, count: int, free) -> None:
+        """A synthetic node of ``count`` cards, every pair NV18, with the
+        cards of ``free`` (indices) free."""
+        from k8s_device_plugin_tpu_torch.api import constants
+
+        self.api.add_node(name, {"metadata": {"name": name, "labels": {}, "annotations": {
+            constants.TOPOLOGY_ANNOTATION: hgx_annotation(name, index, free, count)}}})
+
+    def republish(self, name: str, index: int, count: int, free) -> None:
+        """A synthetic node's daemon republishing its availability."""
+        from k8s_device_plugin_tpu_torch.api import constants
+
+        node = json.loads(json.dumps(self.api.nodes[name]))
+        node["metadata"]["annotations"][constants.TOPOLOGY_ANNOTATION] = hgx_annotation(
+            name, index, free, count)
+        self.api.add_node(name, node)
+
+    def start_extender(self) -> None:
+        port = free_port()
+        self.base = f"http://127.0.0.1:{port}"
+        with open(self.work / "extender.log", "w") as log_file:
+            self.ext = subprocess.Popen(
+                [sys.executable, "-m", "k8s_device_plugin_tpu_torch.extender", "--node-cache",
+                 "--gang-admission", "--journal-dir", str(self.journal_dir),
+                 "--audit-interval-s", str(GANG_AUDIT_INTERVAL_S), "--decisions",
+                 "--gang-resync-s", str(STAGE_RESYNC_S), "--kubeconfig", str(self.kubeconfig),
+                 "--host", "127.0.0.1", "--port", str(port)],
+                cwd=ROOT, env=dict(os.environ, HOSTNAME=GANG_IDENTITY), stdout=log_file,
+                stderr=subprocess.STDOUT)
+        self.procs.append(self.ext)
+        self.until(lambda: http_get(self.base + "/readyz")[0] == 200, "/readyz 200")
+        self.until(lambda: any(m == "GET" and p.startswith("/api/v1/nodes?") and "watch=true" in p
+                               for m, p in list(self.api.requests)), "the extender's node watch")
+
+    def metric(self, name: str, **labels):
+        status, body = http_get(self.base + "/metrics")
+        if status != 200:
+            return None
+        try:
+            return sample_value(parse_metrics(body.decode()), name, **labels)
+        except ValueError as e:
+            self.fail(str(e))
+
+    def gpu_pod(self, name: str, gang: str, n: int, class_name: str = "", node: str = "",
+                size: int = 1) -> dict:
+        """A member of ``n`` cards of ``gang`` (of ``size``): gated, or
+        bound to ``node`` and running."""
+        from k8s_device_plugin_tpu_torch.api import constants
+        from k8s_device_plugin_tpu_torch.extender import gang as gang_mod
+
+        meta = {"name": name, "namespace": "default", "uid": f"{name}-uid", "annotations": {},
+                "labels": {gang_mod.GANG_NAME_LABEL: gang, gang_mod.GANG_SIZE_LABEL: str(size)}}
+        spec = {"containers": [{"name": "main", "resources": {
+            "requests": {constants.RESOURCE_NAME: str(n)}}}]}
+        status = {"phase": "Pending"}
+        if node:
+            spec["nodeName"] = node
+            status = {"phase": "Running"}
+        else:
+            spec["schedulingGates"] = [{"name": gang_mod.GATE_NAME}]
+        if class_name:
+            spec["priorityClassName"] = class_name
+        return {"metadata": meta, "spec": spec, "status": status}
+
+    def gated(self, name: str) -> bool:
+        from k8s_device_plugin_tpu_torch.extender import gang as gang_mod
+
+        return gang_mod.is_gated(self.api.pods[("default", name)])
+
+    def bind(self, name: str, node: str) -> None:
+        """The scheduler's bind of a member, as a watch sees it."""
+        pod = json.loads(json.dumps(self.api.pods[("default", name)]))
+        pod["spec"]["nodeName"] = node
+        pod["status"] = {"phase": "Running"}
+        self.api.update_pod(pod)
+
+    def first_seen(self, preds: dict, bound_s: float):
+        """Poll each of ``preds`` (name -> predicate) from a thread of its own
+        until each has held once. Returns a join: name -> the monotonic time
+        it first held, failing the phase for any not seen within
+        ``bound_s``."""
+        seen: dict = {}
+
+        def poll() -> None:
+            deadline = time.monotonic() + bound_s
+            while len(seen) < len(preds) and time.monotonic() < deadline:
+                for name, pred in preds.items():
+                    if name not in seen and pred():
+                        seen[name] = time.monotonic()
+                time.sleep(STAGE_POLL_S)
+
+        thread = threading.Thread(target=poll, daemon=True)
+        thread.start()
+
+        def join() -> dict:
+            thread.join(bound_s + 5)
+            missing = sorted(set(preds) - set(seen))
+            if missing:
+                self.fail(f"not seen within {bound_s} s: {missing}")
+            return dict(seen)
+        return join
+
+    def stamp_checkpoint(self, name: str, age_s: float) -> None:
+        """A save ``age_s`` ago, stamped through the port's beacon."""
+        from k8s_device_plugin_tpu_torch.workload.beacon import CheckpointBeacon
+
+        ts = time.time() - age_s
+        beacon = CheckpointBeacon(lambda ann: self.client.patch_pod_annotations(
+            "default", name, {k: str(ts) for k in ann}))
+        if not beacon.note_saved(0):
+            self.fail(f"the checkpoint beacon could not stamp {name}")
+
+    def stepping_pod(self, member: str, ids):
+        """A released member's pod stepping on the card until the stand-in
+        kubelet stops it: Allocate, bind, ``VICTIM_POD_ARGS`` in its own
+        process. Returns the process and its first step's wait (s)."""
+        env = allocate_and_bind(self.stub, self.podres, self.bind, member, self.node, ids)
+        with open(self.work / f"{member}.log", "w") as log_file:
+            proc = subprocess.Popen([sys.executable, *VICTIM_POD_ARGS], cwd=ROOT, env=env,
+                                    text=True, stdout=subprocess.PIPE, stderr=log_file)
+        self.procs.append(proc)
+        lines: list = []
+        stepping = threading.Event()
+
+        def read() -> None:
+            for raw_line in proc.stdout:
+                lines.append(raw_line)
+                if raw_line.startswith("{") and json.loads(raw_line).get("partial") == \
+                        "first_step":
+                    stepping.set()
+
+        threading.Thread(target=read, daemon=True).start()
+        t0 = time.monotonic()
+        if not stepping.wait(PLUGIN_WAIT_S):
+            self.fail(f"{member}'s pod did not step within {PLUGIN_WAIT_S} s: {lines[-3:]} "
+                      f"{proc.poll()}")
+        return proc, time.monotonic() - t0
+
+    def kubelet_kill(self, member: str, proc) -> dict:
+        """The stand-in kubelet: once ``member``'s pod is deleted it clears
+        its PodResources entry and sends its process SIGTERM. Returns the
+        dict the thread fills (the deletion's time, whether the pod was still
+        stepping, the exit's time and code)."""
+        seen: dict = {}
+
+        def watch() -> None:
+            while ("default", member) in self.api.pods:
+                time.sleep(0.002)
+            seen["t"] = time.monotonic()
+            seen["stepping"] = proc.poll() is None
+            self.podres.drop("default", member)
+            proc.send_signal(signal.SIGTERM)
+            seen["rc"] = proc.wait(timeout=PLUGIN_WAIT_S)
+            seen["t_exit"] = time.monotonic()
+
+        seen["thread"] = threading.Thread(target=watch, daemon=True)
+        seen["thread"].start()
+        return seen
+
+    def decisions(self, kind: str) -> list:
+        status, body = http_get(self.base + f"/debug/decisions?kind={kind}")
+        return json.loads(body).get("records", []) if status == 200 else []
+
+    def journal_ops(self, plane: str, gang: str) -> list:
+        """The journal's two-phase round records of ``plane`` for ``gang``
+        (the budget's ``defrag_spend`` stamps left out)."""
+        from k8s_device_plugin_tpu_torch.utils import statestore
+
+        store = statestore.read_state(str(self.journal_dir / "admission.journal"),
+                                      str(self.journal_dir / "admission.snapshot.json"))
+        phases = {f"{plane}_{p}" for p in ("intent", "evicted", "done", "abort")}
+        return [r["op"] for r in store.records
+                if r["op"] in phases and r.get("g") == ["default", gang]]
+
+    def audit_and_stop(self, invariant: str) -> dict:
+        """Two clean audit sweeps or more, ``invariant`` among the
+        invariants; then SIGTERM ends the extender and the daemon with code
+        0 and releases the lease."""
+        def audited():
+            status, body = http_get(self.base + "/debug/audit")
+            snap = json.loads(body) if status == 200 else {}
+            return snap.get("sweeps", 0) >= 2 and snap
+        _, snap = self.until(audited, "two audit sweeps", every_s=0.1)
+        outcomes = {o: self.metric("tpu_audit_sweeps_total", outcome=o)
+                    for o in ("clean", "findings", "error")}
+        names = sorted(i["name"] for i in snap.get("invariants", []))
+        out = {"sweeps": snap["sweeps"], "outcomes": outcomes, "invariants": names}
+        if (snap["findings"] or snap["errors"] or outcomes["findings"] or outcomes["error"]
+                or (outcomes["clean"] or 0) < 2 or invariant not in names):
+            self.fail(f"the audit: {snap}")
+        self.ext.send_signal(signal.SIGTERM)
+        ext_rc = self.ext.wait(timeout=PLUGIN_WAIT_S)
+        self.daemon.send_signal(signal.SIGTERM)
+        rc = self.daemon.wait(timeout=PLUGIN_WAIT_S)
+        holder = self.api.leases[LEASE_KEY]["spec"].get("holderIdentity", "")
+        out["rc"] = {"extender": ext_rc, "daemon": rc}
+        if ext_rc != 0 or rc != 0 or holder != "":
+            self.fail(f"SIGTERM: the extender exited {ext_rc}, the daemon {rc}; the lease's "
+                      f"holder reads {holder!r}")
+        return out
+
+    def close(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        if self.channel is not None:
+            self.channel.close()
+        self.kubelet.server.stop(grace=0)
+        self.podres.server.stop(grace=0)
+        self.api.stop()
+        shutil.rmtree(self.work, ignore_errors=True)
+
+
+def phase_defrag(main_report: dict) -> dict:
+    """Defragmentation on the card: a batch gang whose member's pod runs the
+    kernels is migrated to free a whole node for a stranded 8-card gang, and
+    its replacement member runs the kernels on the same card."""
+    stage = Stage("dfg", DEFRAG_NODE, "defrag")
+    line: dict = {"nvidia_smi": nvidia_smi()}
+    t_phase = time.monotonic()
+    api = stage.api
+    try:
+        ids = stage.start_daemon()
+        count = len(ids)
+        line["node"] = {"cards": count}
+        if count >= 4:
+            stage.fail(f"the phase's cluster needs a node of fewer than 4 cards, not {count}")
+        # S: 8 cards, all free at first.
+        stage.add_synthetic(DEFRAG_S, 22, DEFRAG_SYN_CARDS, range(DEFRAG_SYN_CARDS))
+        stage.start_extender()
+        base = stage.base
+        apps_before = len(compute_apps())
+        line["compute_apps_before"] = apps_before
+
+        # 1. Two running gangs. V (batch), both members gated and admitted:
+        # V-b's 4 cards on S (bound, no process), V-a on this card, its pod
+        # stepping. W (standard): one 4-card member on S2, which joins with
+        # its other 4 cards free.
+        v, w, x = "v", "w", "x"
+        va, vb, wm, xm = f"{v}-a", f"{v}-b", f"{w}-0", f"{x}-0"
+        api.add_pod(stage.gpu_pod(vb, v, 4, "batch", size=2))
+        api.add_pod(stage.gpu_pod(va, v, count, "batch", size=2))
+        stage.until(lambda: not stage.gated(va) and not stage.gated(vb), "V's gates removed")
+        holds = json.loads(http_get(base + "/reservations")[1])["holds"]
+        if [h["hosts"] for h in holds if h["gang"] == v] != [{DEFRAG_S: 4, DEFRAG_NODE: count}]:
+            stage.fail(f"V's hold: {holds}")
+        stage.bind(vb, DEFRAG_S)
+        stage.republish(DEFRAG_S, 22, DEFRAG_SYN_CARDS, range(4, DEFRAG_SYN_CARDS))
+        va_proc, first_step_s = stage.stepping_pod(va, ids)
+        line["va_start_to_first_step_s"] = first_step_s
+        stage.add_synthetic(DEFRAG_S2, 23, DEFRAG_SYN_CARDS, range(4, DEFRAG_SYN_CARDS))
+        api.add_pod(stage.gpu_pod(wm, w, 4, node=DEFRAG_S2))
+        for name in (va, vb):
+            stage.stamp_checkpoint(name, DEFRAG_CKPT_AGE_S)
+        stage.until(lambda: stage.free_cards(DEFRAG_NODE) == 0, "V-a's card published held")
+        stage.until(lambda: stage.metric("tpu_gang_reservations") == 0,
+                    "V's hold dropped after its binds")
+        out = run_tool("defrag", "defrag", "status", "--url", base)
+        if out.returncode != 0 or "no stranded demand" not in out.stdout:
+            tool_fail(out, "tools.defrag status before the stranded gang", stage.fail)
+
+        # 3's stand-in kubelet, armed before the round.
+        killed = stage.kubelet_kill(va, va_proc)
+
+        # 2. X: one gated member of 8 cards, no class. Free cards: 4 on S, 4
+        # on S2, none here; no node places 8.
+        t_submit = time.monotonic()
+        api.add_pod(stage.gpu_pod(xm, x, DEFRAG_SYN_CARDS))
+        t_stranded, _ = stage.until(
+            lambda: stage.metric("tpu_extender_stranded_demand", size=str(DEFRAG_SYN_CARDS),
+                                 shard="") == 1, "tpu_extender_stranded_demand{size=8} 1")
+        bound_s = (DEFRAG_STRANDED_TICKS + 2) * STAGE_RESYNC_S + 10
+        t_evicted, _ = stage.until(lambda: {("default", va), ("default", vb)} <= set(
+            api.evictions), "V's two evictions", bound_s)
+        t_released, _ = stage.until(lambda: not stage.gated(xm), "X's gates removed")
+        line["submit_to_stranded_s"] = t_stranded - t_submit
+        line["submit_to_evictions_s"] = t_evicted - t_submit
+        line["submit_to_released_s"] = t_released - t_submit
+        evicted = sorted(name for _, name in api.evictions)
+        line["evicted"] = evicted
+        if evicted != sorted([va, vb]) or ("default", wm) not in api.pods:
+            stage.fail(f"evictions {evicted}: V's two members alone were the plan, W untouched")
+        executed = [r for r in stage.decisions("defrag")
+                    if r.get("gang") == f"default/{x}" and r.get("reason") == "executed"]
+        migrated = [r for r in stage.decisions("defrag_victim")
+                    if r.get("gang") == f"default/{v}" and r.get("reason") == "migrated"]
+        line["decisions"] = {"executed": len(executed), "migrated": len(migrated)}
+        if not executed or not migrated:
+            stage.fail(f"the decision ledger's round: {line['decisions']}")
+        budget = stage.metric("tpu_extender_defrag_budget_remaining", shard="")
+        line["budget_remaining"] = budget
+        if budget != DEFRAG_BUDGET - 2:
+            stage.fail(f"tpu_extender_defrag_budget_remaining {budget}, not {DEFRAG_BUDGET - 2}")
+        ops = stage.journal_ops("defrag", x)
+        line["journal"] = ops
+        if ops != ["defrag_intent", "defrag_evicted", "defrag_done"]:
+            stage.fail(f"the journal's round for X: {ops}")
+        holds = json.loads(http_get(base + "/reservations")[1])["holds"]
+        line["x_hold"] = [h["hosts"] for h in holds if h["gang"] == x]
+        if line["x_hold"] != [{DEFRAG_S: DEFRAG_SYN_CARDS}]:
+            stage.fail(f"X's hold: {holds}")
+        events = [e for e in api.events if e.get("reason") == "GPUGangMigrated"
+                  and (e.get("involvedObject") or {}).get("name") in (va, vb)]
+        if len(events) != 1:
+            stage.fail(f"V's GPUGangMigrated Event: {api.events}")
+        # X bound to S, no process; S's daemon republishes it full.
+        stage.bind(xm, DEFRAG_S)
+        stage.republish(DEFRAG_S, 22, DEFRAG_SYN_CARDS, [])
+        stage.until(lambda: stage.metric("tpu_gang_reservations") == 0,
+                    "X's hold dropped after its bind")
+
+        # 3. The stand-in kubelet stopped V-a's process: its exit, its
+        # context off the card.
+        killed["thread"].join(timeout=PLUGIN_WAIT_S)
+        if not killed.get("stepping") or "rc" not in killed:
+            stage.fail(f"V-a's pod ended before its eviction or did not exit: {killed}")
+        t_gone, _ = stage.until(lambda: len(compute_apps()) == apps_before,
+                                "V-a's context gone from the card", every_s=0.05)
+        line["va"] = {"rc": killed["rc"], "eviction_to_exit_s": killed["t_exit"] - t_evicted,
+                      "eviction_to_off_card_s": t_gone - t_evicted}
+        t_free, _ = stage.until(lambda: stage.free_cards(DEFRAG_NODE) == count,
+                                "this node's cards published free again")
+        line["va"]["eviction_to_published_free_s"] = t_free - t_evicted
+
+        # 4. V's job controller recreates its two members, gated: the 4-card
+        # one lands on S2, the other on this card and runs the kernels.
+        va2, vb2 = f"{v}-a2", f"{v}-b2"
+        api.add_pod(stage.gpu_pod(vb2, v, 4, "batch", size=2))
+        api.add_pod(stage.gpu_pod(va2, v, count, "batch", size=2))
+        t_v2 = time.monotonic()
+        t_v2_released, _ = stage.until(lambda: not stage.gated(va2) and not stage.gated(vb2),
+                                       "V's replacements released")
+        line["v_recreated_to_released_s"] = t_v2_released - t_v2
+        holds = json.loads(http_get(base + "/reservations")[1])["holds"]
+        line["v_hold"] = [h["hosts"] for h in holds if h["gang"] == v]
+        if line["v_hold"] != [{DEFRAG_S2: 4, DEFRAG_NODE: count}]:
+            stage.fail(f"V's replacements' hold: {holds}")
+        stage.bind(vb2, DEFRAG_S2)
+        pod_line: dict = {}
+        launches = run_member_pod(stage.stub, stage.podres, stage.bind, va2, DEFRAG_NODE, ids,
+                                  count, main_report, pod_line, stage.fail)
+        line["replacement"] = pod_line
+        stage.until(lambda: stage.metric("tpu_gang_reservations") == 0,
+                    "V's hold dropped after its binds")
+
+        # 5. The tools read the live round.
+        out = run_tool("defrag", "defrag", "plan", "--url", base)
+        if (out.returncode != 0 or f"box on {DEFRAG_S}" not in out.stdout
+                or f"migrate default/{v}" not in out.stdout):
+            tool_fail(out, "tools.defrag plan", stage.fail)
+        line["plan_head"] = out.stdout.splitlines()[0]
+        out = run_tool("defrag", "explain", "--migrated", v, "--url", base)
+        if (out.returncode != 0 or DEFRAG_S not in out.stdout
+                or f"default/{x}" not in out.stdout):
+            tool_fail(out, "tools.explain --migrated", stage.fail)
+        line["explain_head"] = out.stdout.splitlines()[0]
+        out = run_tool("defrag", "tputop", "--url", base)
+        footer = out.stdout.splitlines()[-1] if out.stdout else ""
+        if (out.returncode != 0 or not footer.startswith("defrag: ")
+                or f"budget {DEFRAG_BUDGET - 2} eviction(s) left/h" not in footer):
+            tool_fail(out, "tools.tputop's defrag footer", stage.fail)
+        line["tputop_footer"] = footer
+
+        # 6. The self-tests.
+        for module in ("extender.defrag", "tools.defrag"):
+            st = subprocess.run([sys.executable, "-m", f"k8s_device_plugin_tpu_torch.{module}",
+                                 "--self-test"], cwd=ROOT, capture_output=True, text=True,
+                                timeout=120)
+            line[f"{module}_self_test_rc"] = st.returncode
+            if st.returncode != 0:
+                stage.fail(f"{module} --self-test: {st.stdout} {st.stderr}")
+
+        # 7. The audit and the shutdown.
+        line["audit"] = stage.audit_and_stop("defrag_vs_reservations")
+        line["phase_s"] = time.monotonic() - t_phase
+        emit({"defrag": line})
+    finally:
+        stage.close()
+    return launches
+
+
+def phase_rescue(main_report: dict) -> dict:
+    """Drain and rescue on the card: ``tpu-doctor drain`` evacuates a pod
+    running the kernels off this node, then a gang bound to a node whose
+    cards were withdrawn is rescued onto this card and runs the kernels."""
+    from k8s_device_plugin_tpu_torch.api import constants
+
+    stage = Stage("rsc", RESCUE_NODE, "rescue")
+    line: dict = {"nvidia_smi": nvidia_smi()}
+    t_phase = time.monotonic()
+    api = stage.api
+    try:
+        ids = stage.start_daemon()
+        count = len(ids)
+        line["node"] = {"cards": count}
+        # F: this node's card count, every card held by R's running member.
+        stage.add_synthetic(RESCUE_F, 24, count, [])
+        r, d = "r", "d"
+        rm, dm = f"{r}-0", f"{d}-0"
+        api.add_pod(stage.gpu_pod(rm, r, count, node=RESCUE_F))
+        stage.start_extender()
+        base = stage.base
+        apps_before = len(compute_apps())
+        line["compute_apps_before"] = apps_before
+
+        # 1. D, standard, released onto this node (the only free one) and
+        # stepping; then H, as many free cards, joins.
+        api.add_pod(stage.gpu_pod(dm, d, count))
+        stage.until(lambda: not stage.gated(dm), "D's gate removed")
+        d_proc, first_step_s = stage.stepping_pod(dm, ids)
+        line["d_start_to_first_step_s"] = first_step_s
+        stage.add_synthetic(RESCUE_H, 25, count, range(count))
+        stage.until(lambda: stage.metric("tpu_gang_reservations") == 0, "D's hold dropped")
+        stage.until(lambda: stage.free_cards(RESCUE_NODE) == 0, "D's card published held")
+        killed = stage.kubelet_kill(dm, d_proc)
+
+        def cordoned() -> bool:
+            node = api.nodes[RESCUE_NODE]
+            taints = (node.get("spec") or {}).get("taints") or []
+            return bool((node.get("spec") or {}).get("unschedulable")) and any(
+                t.get("key") == constants.MAINTENANCE_TAINT
+                and t.get("value") == constants.DRAIN_TAINT_VALUE for t in taints)
+
+        def stamped() -> bool:
+            return constants.DRAIN_COMPLETE_ANNOTATION in api.nodes[RESCUE_NODE]["metadata"].get(
+                "annotations", {})
+
+        t_post = time.monotonic()
+        doctor = subprocess.Popen(
+            [sys.executable, "-m", "k8s_device_plugin_tpu_torch.tools.doctor", "drain",
+             RESCUE_NODE, "--url", base, "--poll-s", "0.2", "--timeout-s", "60"],
+            cwd=ROOT, text=True, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        stage.procs.append(doctor)
+        bound_s = (RESCUE_GRACE_TICKS + 2) * STAGE_RESYNC_S + 10
+        # The drain's events, each timed as it first shows while this thread
+        # waits for the context to leave the card.
+        drained = stage.first_seen({
+            "cordoned": cordoned,
+            "eviction": lambda: ("default", dm) in api.evictions,
+            "drain_complete": stamped,
+            "doctor_exit": lambda: doctor.poll() is not None,
+        }, bound_s)
+        stage.until(lambda: ("default", dm) in api.evictions, "D's eviction", bound_s)
+        killed["thread"].join(timeout=PLUGIN_WAIT_S)
+        if not killed.get("stepping") or "rc" not in killed:
+            stage.fail(f"D's pod ended before its eviction or did not exit: {killed}")
+        t_gone, _ = stage.until(lambda: len(compute_apps()) == apps_before,
+                                "D's context gone from the card", every_s=0.05)
+        seen = drained()
+        d_out, d_err = doctor.communicate(timeout=PLUGIN_WAIT_S)
+        if doctor.returncode != 0 or f"node {RESCUE_NODE} drained" not in d_out:
+            stage.fail(f"tpu-doctor drain: rc {doctor.returncode}\n{d_out}\n{d_err}")
+        line["drain"] = {f"post_to_{name}_s": t - t_post for name, t in sorted(seen.items())}
+        line["drain"].update(post_to_exit_s=killed["t_exit"] - t_post,
+                             post_to_off_card_s=t_gone - t_post, d_rc=killed["rc"])
+        # D's controller recreates its member, gated: the rescue fence on H
+        # releases it, bound there with no process; H's daemon republishes.
+        dm2 = f"{d}-1"
+        api.add_pod(stage.gpu_pod(dm2, d, count))
+        stage.until(lambda: not stage.gated(dm2), "D's replacement released")
+        holds = json.loads(http_get(base + "/reservations")[1])["holds"]
+        if [h["hosts"] for h in holds if h["gang"] == d] != [{RESCUE_H: count}]:
+            stage.fail(f"D's rescue fence: {holds}")
+        stage.bind(dm2, RESCUE_H)
+        stage.republish(RESCUE_H, 25, count, [])
+        executed = [rec for rec in stage.decisions("rescue")
+                    if rec.get("gang") == f"default/{d}" and rec.get("reason") == "executed"]
+        if not executed or "draining" not in executed[-1].get("message", ""):
+            stage.fail(f"D's rescue record: {executed}")
+        ops = stage.journal_ops("rescue", d)
+        line["drain"]["journal"] = ops
+        if ops != ["rescue_intent", "rescue_evicted", "rescue_done"]:
+            stage.fail(f"the journal's rescue of D: {ops}")
+        gauge = stage.metric("tpu_node_cordoned", node=RESCUE_NODE)
+        evicted = sorted(name for _, name in api.evictions)
+        line["drain"].update(cordoned_gauge=gauge, evicted=evicted)
+        if gauge != 1 or evicted != [dm]:
+            stage.fail(f"tpu_node_cordoned {gauge}, evictions {evicted}")
+        out = run_tool("rescue", "doctor", "drain", RESCUE_NODE, "--uncordon", "--url", base)
+        node = api.nodes[RESCUE_NODE]
+        after = {"unschedulable": bool(node["spec"].get("unschedulable")),
+                 "taints": [t["key"] for t in node["spec"].get("taints") or []],
+                 "stamped": stamped(),
+                 "gauge": stage.metric("tpu_node_cordoned", node=RESCUE_NODE) or 0}
+        line["uncordon"] = after
+        if out.returncode != 0 or any(after.values()):
+            tool_fail(out, f"tpu-doctor drain --uncordon: {after}", stage.fail)
+
+        # 2. F's cards withdrawn, as its daemon publishes a health
+        # withdrawal: R is rescued onto this node, the only free healthy one.
+        stage.until(lambda: stage.free_cards(RESCUE_NODE) == count,
+                    "this node's cards published free again")
+        t_fail = time.monotonic()
+        api.fail_chips(RESCUE_F, [c["id"] for c in stage.topology(RESCUE_F)["chips"]],
+                       annotation=constants.TOPOLOGY_ANNOTATION)
+        t_r_evicted, _ = stage.until(lambda: ("default", rm) in api.evictions, "R's eviction",
+                                     bound_s)
+        rm2 = f"{r}-1"
+        api.add_pod(stage.gpu_pod(rm2, r, count))
+        t_r_released, _ = stage.until(lambda: not stage.gated(rm2), "R's replacement released")
+        line["rescue"] = {"failed_to_eviction_s": t_r_evicted - t_fail,
+                          "failed_to_released_s": t_r_released - t_fail}
+        holds = json.loads(http_get(base + "/reservations")[1])["holds"]
+        if [h["hosts"] for h in holds if h["gang"] == r] != [{RESCUE_NODE: count}]:
+            stage.fail(f"R's rescue fence: {holds}")
+        pod_line: dict = {}
+        launches = run_member_pod(stage.stub, stage.podres, stage.bind, rm2, RESCUE_NODE, ids,
+                                  count, main_report, pod_line, stage.fail)
+        line["replacement"] = pod_line
+        stage.until(lambda: stage.metric("tpu_gang_reservations") == 0,
+                    "R's hold dropped after its bind")
+
+        # 3. The tools and the self-test.
+        out = run_tool("rescue", "explain", "--rescued", r, "--url", base)
+        if out.returncode != 0 or RESCUE_F not in out.stdout or "chip_failed" not in out.stdout:
+            tool_fail(out, "tools.explain --rescued R", stage.fail)
+        line["explain_r_head"] = out.stdout.splitlines()[0]
+        out = run_tool("rescue", "explain", "--rescued", d, "--url", base)
+        if out.returncode != 0 or "draining" not in out.stdout:
+            tool_fail(out, "tools.explain --rescued D", stage.fail)
+        st = subprocess.run([sys.executable, "-m", "k8s_device_plugin_tpu_torch.extender.rescue",
+                             "--self-test"], cwd=ROOT, capture_output=True, text=True,
+                            timeout=120)
+        line["self_test_rc"] = st.returncode
+        if st.returncode != 0:
+            stage.fail(f"extender.rescue --self-test: {st.stdout} {st.stderr}")
+
+        # 4. The audit and the shutdown.
+        line["audit"] = stage.audit_and_stop("rescue_vs_health")
+        line["phase_s"] = time.monotonic() - t_phase
+        emit({"rescue": line})
+    finally:
+        stage.close()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA "
@@ -4434,6 +5127,8 @@ def main() -> int:
     gang_launches = phase_gang(main_report)
     shard_launches = phase_shards(main_report)
     preempt_launches = phase_preemption(main_report)
+    defrag_launches = phase_defrag(main_report)
+    rescue_launches = phase_rescue(main_report)
     dist.destroy_process_group()
     path_launches = {name: (launches[name], steps) for name in FLASH}
     path_launches["rmsnorm"] = (norm_launches["rmsnorm"], norm_steps)
@@ -4442,7 +5137,8 @@ def main() -> int:
                "sharded": sharded_launches, "moe": moe_launches, "ring": ring_launches,
                "resume": resume_launches, "kv_sweep": sweep_launches,
                "plugin_pod": pod_launches, "dra_pod": dra_launches, "gang_pod": gang_launches,
-               "shard_pod": shard_launches, "preempt_pod": preempt_launches}
+               "shard_pod": shard_launches, "preempt_pod": preempt_launches,
+               "defrag_pod": defrag_launches, "rescue_pod": rescue_launches}
     emit({"tools": {"nvidia_smi": nvidia_smi(), "runs": [
         {k: r[k] for k in ("phase", "tool", "rc", "wall_s")}
         | {"verb": r["args"][0] if r["tool"] == "doctor" else ""} for r in TOOL_RUNS]}})

@@ -67,6 +67,20 @@ GANG_NAME_LABEL = "tpu.google.com/gang-name"
 # to an eviction, one an hour past its last save loses an hour of card time.
 CHECKPOINT_TS_ANNOTATION = "tpu.google.com/last-checkpoint"
 
+# The node taint of hardware maintenance (extender/rescue.py), the JAX
+# package's key. Any value takes the node out of placement and of the
+# eviction planes' targets; the value "drain" also makes the rescue plane
+# evacuate every resident gang. The drain verb sets it with
+# spec.unschedulable, so the intent survives an extender restart in the
+# cluster's state, not in a journal.
+MAINTENANCE_TAINT = "tpu.google.com/maintenance"
+DRAIN_TAINT_VALUE = "drain"
+
+# The node annotation stamped (epoch seconds) once a drain completes: no
+# resident gang pod and no reserved card left on the node, the operator's
+# "safe to power off". Removed on uncordon.
+DRAIN_COMPLETE_ANNOTATION = "tpu.google.com/drain-complete"
+
 # The container env the NVIDIA container runtime reads to inject the
 # allocated cards, the NVIDIA driver's libraries and the node-level
 # device nodes (the reference's server.go:196-198).

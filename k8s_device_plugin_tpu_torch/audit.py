@@ -33,10 +33,11 @@ A new critical finding dumps the flight ring to the flight dir
 
 The invariants ported are the three shared ones (``thread_liveness``,
 ``lock_order``, ``degraded_consistency``), the five of :class:`NodeAudit`
-and three of :class:`ExtenderAudit` (``reservation_vs_journal``,
-``reservation_vs_cluster``, ``gate_vs_hold``). The JAX ``loop_inventory``
-comes with the registry lint; the extender's ``placeable_recount`` and the
-invariants of its sharding, defrag and rescue planes come with those planes.
+and six of :class:`ExtenderAudit` (``reservation_vs_journal``,
+``reservation_vs_cluster``, ``gate_vs_hold``, ``reservation_shard_ownership``
+with sharding, ``defrag_vs_reservations`` and ``rescue_vs_health`` with
+those planes wired). The JAX ``loop_inventory`` comes with the registry
+lint; the extender's ``placeable_recount`` is not ported.
 """
 
 from __future__ import annotations
@@ -821,8 +822,10 @@ class ExtenderAudit:
     auditor of nothing would read clean). The engine is driven from the
     gang-admission loop, so the journal's read never races its one writer.
     With sharded admission (``shard_manager``) it also proves that every
-    hold lies on its own shard's nodes. The index's ``placeable_recount``
-    and the later planes' invariants come with those planes."""
+    hold lies on its own shard's nodes; with the defrag and rescue engines
+    on the admitter (and the journal), their two-phase contracts. The JAX
+    plane registers ``defrag_vs_reservations`` with any journal; the port
+    registers each plane's invariant only where its engine is wired."""
 
     def __init__(
         self,
@@ -884,6 +887,28 @@ class ExtenderAudit:
                 "GPU pods need a fence (or a lapse bar); a fully gated gang with a "
                 "standing hold is a release that failed wholesale",
                 _skippable(self.check_gate_vs_hold),
+            ))
+        if (self.journal is not None and self.reservations is not None
+                and getattr(self.gang, "defrag", None) is not None):
+            out.append(Invariant(
+                "defrag_vs_reservations",
+                ("journal", "reservations"),
+                "an open defrag_evicted journal phase must have either a standing fence "
+                "for the stranded gang or a journaled abort: the victims are already "
+                "evicted, so a fenceless round hands the freed cards to a scavenger and "
+                "leaves the stranded gang ungated and unfenced",
+                self.check_defrag_vs_reservations,
+            ))
+        if getattr(self.gang, "rescue", None) is not None:
+            out.append(Invariant(
+                "rescue_vs_health",
+                ("rescue", "journal", "reservations"),
+                "a RUNNING gang known to sit on failed or withdrawn capacity past the "
+                "rescue grace window must be accounted for (an open rescue round, a "
+                "RESCUE_PENDING parking, or a just-completed rescue), and an open "
+                "rescue_evicted journal phase must have a standing fence: its pods are "
+                "already evicted, so a fenceless round is a gang gone and unprotected",
+                self.check_rescue_vs_health,
             ))
         if self.shard_manager is not None:
             out.append(Invariant(
@@ -961,6 +986,103 @@ class ExtenderAudit:
         out = diff()
         return diff() if out else out
 
+    def check_defrag_vs_reservations(self) -> List[Finding]:
+        """The defrag plane's two-phase contract (extender/defrag.py), proven
+        again from the journal each sweep: once a round reaches
+        ``defrag_evicted`` its victims are gone, so the only safe states are
+        "the freed cards fenced under the stranded gang's key" and "round
+        closed" (``defrag_done``/``defrag_abort`` take it out of the
+        replay). An open evicted phase with no standing fence is CRITICAL; a
+        fence that no longer covers the journaled plan is a WARNING (drifted,
+        not unprotected). An open intent is safe (nothing irreversible
+        happened; recovery aborts it). A difference must survive a second
+        read after a fresh flush, as for reservation_vs_journal."""
+        def diff() -> List[Finding]:
+            self.journal.flush()
+            defragging = self.journal.replay_readonly().defragging
+            if not defragging:
+                return []
+            live = self.reservations.export_state()
+            out = []
+            for key, rec in sorted(defragging.items()):
+                if rec.get("phase") != "evicted":
+                    continue
+                planned = {str(h): int(n) for h, n in (rec.get("consumed") or {}).items()
+                           if int(n) > 0}
+                hold = live.get(key)
+                if hold is None:
+                    out.append(Finding.make(
+                        "defrag_vs_reservations", CRITICAL,
+                        f"gang {key[0]}/{key[1]} has an open defrag_evicted phase (victims "
+                        f"already migrated off {sorted(planned)}) but NO standing fence and "
+                        f"no journaled abort: the freed cards are up for grabs and the "
+                        f"stranded gang is unprotected",
+                        gang=f"{key[0]}/{key[1]}", planned=planned,
+                    ))
+                    continue
+                held = {h: int(n) for h, n in hold["hosts"].items() if n > 0}
+                if any(held.get(h, 0) < n for h, n in planned.items()):
+                    out.append(Finding.make(
+                        "defrag_vs_reservations", WARNING,
+                        f"gang {key[0]}/{key[1]}'s standing fence ({held}) no longer covers "
+                        f"its open defrag_evicted plan ({planned}): the fence drifted while "
+                        f"the round stayed open",
+                        gang=f"{key[0]}/{key[1]}", planned=planned, held=held,
+                    ))
+            return out
+
+        out = diff()
+        return diff() if out else out
+
+    def check_rescue_vs_health(self) -> List[Finding]:
+        """The rescue plane's two contracts (extender/rescue.py), proven
+        again each sweep. Liveness: a gang the engine itself sees degraded
+        strictly past the grace window must be in an open round, parked
+        RESCUE_PENDING or just rescued; one the plane lost track of is a job
+        burning on dead hardware, CRITICAL. Crash consistency, the defrag
+        twin: an open ``rescue_evicted`` phase means the gang's pods are
+        gone, so a round with no standing fence is CRITICAL. A finding must
+        survive a second read, as for the siblings."""
+        engine = self.gang.rescue
+
+        def diff() -> List[Finding]:
+            out = []
+            grace = int(getattr(engine, "grace_ticks", 1))
+            for key, st in sorted(engine.degraded_state().items()):
+                if int(st.get("ticks", 0)) <= grace or engine.tracked(key):
+                    continue
+                out.append(Finding.make(
+                    "rescue_vs_health", CRITICAL,
+                    f"gang {key[0]}/{key[1]} has been degraded on "
+                    f"{sorted(st.get('hosts') or {})} for {st.get('ticks')} tick(s) (grace "
+                    f"{grace}) with no open rescue round, no RESCUE_PENDING parking, and no "
+                    f"completed rescue: the job is burning on failed hardware and nothing is "
+                    f"moving it",
+                    gang=f"{key[0]}/{key[1]}", hosts=dict(st.get("hosts") or {}),
+                    ticks=int(st.get("ticks", 0)),
+                ))
+            if self.journal is not None and self.reservations is not None:
+                self.journal.flush()
+                rescuing = self.journal.replay_readonly().rescuing
+                live = self.reservations.export_state() if rescuing else {}
+                for key, rec in sorted(rescuing.items()):
+                    if rec.get("phase") != "evicted" or key in live:
+                        continue
+                    planned = {str(h): int(n) for h, n in (rec.get("consumed") or {}).items()
+                               if int(n) > 0}
+                    out.append(Finding.make(
+                        "rescue_vs_health", CRITICAL,
+                        f"gang {key[0]}/{key[1]} has an open rescue_evicted phase (its pods "
+                        f"were already evacuated) but NO standing fence on the planned "
+                        f"target {sorted(planned)} and no journaled abort: the target is up "
+                        f"for grabs and the rescued gang is unprotected",
+                        gang=f"{key[0]}/{key[1]}", planned=planned,
+                    ))
+            return out
+
+        out = diff()
+        return diff() if out else out
+
     def check_shard_ownership(self) -> List[Finding]:
         """Sharded admission's guarantee, proven again from scratch each
         sweep: each held host of every owned shard's table, hashed through
@@ -1014,9 +1136,14 @@ class ExtenderAudit:
         known_hosts: Optional[Set[str]] = None
         if self.index is not None and len(self.index):
             known_hosts = {e.hostname for e in self.index.entries() if e.hostname}
+        rescue = getattr(self.gang, "rescue", None)
         out = []
         for key, res in sorted(active.items()):
             if key not in gangs:
+                if rescue is not None and rescue.shield(key):
+                    # A rescued gang's pods were evicted and its replacements
+                    # are coming: the upkeep keeps this hold for them too.
+                    continue
                 out.append(Finding.make(
                     "reservation_vs_cluster", WARNING,
                     f"reservation held for gang {key[0]}/{key[1]} whose pods no longer "
@@ -1044,6 +1171,7 @@ class ExtenderAudit:
         # bars only at the next tick's drain; peek_lapsed() does not steal
         # the admitter's signal.
         lapsed = set(getattr(self.gang, "_lapsed_gangs", set())) | self.reservations.peek_lapsed()
+        rescue = getattr(self.gang, "rescue", None)
         out = []
         for key, gv in sorted(gangs.items()):
             gated = gv.gated
@@ -1062,7 +1190,11 @@ class ExtenderAudit:
                     f"window is open",
                     gang=f"{key[0]}/{key[1]}", pods=",".join(names),
                 ))
-            if gated and not gv.ungated_live and key in active:
+            if gated and not gv.ungated_live and key in active and not (
+                    rescue is not None and rescue.shield(key)):
+                # A rescued gang's gated replacements release against the
+                # standing fence at the next tick: that is the plan, not a
+                # failed release.
                 out.append(Finding.make(
                     "gate_vs_hold", WARNING,
                     f"gang {key[0]}/{key[1]} holds a reservation but every member is still "

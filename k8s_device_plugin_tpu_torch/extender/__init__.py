@@ -1,7 +1,8 @@
 """The GPU scheduler extender: the twin of the JAX package's ``extender/``,
 ported slice by slice. It holds the filter/score plane (``server``,
 ``index``, ``reservations``) and gang admission (``gang``) with its
-write-ahead journal (``journal``), its singleton lease (``leader``) and the
-priority tiers of ``preemption``; sharding, the rest of preemption,
-defragmentation, rescue and the simulator come with later slices. It imports
-neither ``torch`` nor ``jax``: a scheduler pod holds no card."""
+write-ahead journal (``journal``), its singleton lease (``leader``), sharded
+admission (``sharding``, ``holdscodec``) and the eviction planes:
+``preemption``, ``defrag`` and ``rescue``. The simulator comes with a later
+slice. It imports neither ``torch`` nor ``jax``: a scheduler pod holds no
+card."""

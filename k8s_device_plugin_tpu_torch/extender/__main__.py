@@ -17,18 +17,31 @@ journal under ``--journal-dir/shard-<k>``, takes over dead shards' leases
 unless ``--no-shard-takeover``, and serves /filter and /prioritize over
 every shard's holds.
 
-With ``--gang-admission`` preemption is on, as in JAX: complete gangs are
-evaluated in PriorityClass order, a capacity-blocked gang may evict running
-gangs of strictly lower priority (``preemption.py``: the minimal victim set,
-cheapest first, two-phase journaled), and ``/preemption`` answers the
-engine's dry run. Each admitter (the singleton, or each shard's) gets its own
-engine over the one resolver of the process. ``--no-preemption`` keeps every
-gang equal.
+With ``--gang-admission`` the three eviction planes are on, as in JAX:
+
+* preemption (``preemption.py``): complete gangs are evaluated in
+  PriorityClass order, a capacity-blocked gang may evict running gangs of
+  strictly lower priority (the minimal victim set, cheapest first, two-phase
+  journaled), and ``/preemption`` answers the engine's dry run;
+  ``--no-preemption`` keeps every gang equal;
+* defragmentation (``defrag.py``): a waiting gang whose demand is stranded
+  (enough free cards, no node that places its largest member) may, after
+  ``--defrag-stranded-ticks`` and within ``--defrag-max-evictions-per-hour``,
+  migrate lower-priority gangs off one node; ``--no-defrag`` turns it off;
+* rescue (``rescue.py``): a running gang on a withdrawn card, a NotReady node
+  or a draining node is evacuated onto healthy capacity after
+  ``--rescue-grace-ticks``; cordoned and tainted nodes leave placement, and
+  ``/drain`` serves ``tpu-doctor drain``; ``--no-rescue`` turns it off.
+
+Each admitter (the singleton, or each shard's) gets its own engines over the
+one PriorityClass resolver of the process; one node tracker per process
+follows the node cache's objects.
 
 The flags keep the JAX extender's names and defaults and are read from the
 command line only (no ``TPU_*`` environment alias). A flag of a plane this
 port does not have yet is refused with a message naming the slice that
-brings it, never accepted and then ignored.
+brings it, never accepted and then ignored; every flag of the JAX extender
+is taken now.
 """
 
 from __future__ import annotations
@@ -50,16 +63,9 @@ from ..utils.flightrecorder import RECORDER
 from .reservations import ReservationTable
 from .server import ExtenderHTTPServer, NodeAnnotationCache, ReadyStatus, TopologyExtender
 
-# The JAX extender's flags of planes that later slices of the port bring.
-_DEFRAG = "defragmentation and rescue"
-UNPORTED_FLAGS = {
-    "--no-defrag": _DEFRAG,
-    "--defrag-max-evictions-per-hour": _DEFRAG,
-    "--defrag-max-concurrent": _DEFRAG,
-    "--defrag-stranded-ticks": _DEFRAG,
-    "--no-rescue": _DEFRAG,
-    "--rescue-grace-ticks": _DEFRAG,
-}
+# The JAX extender's flags of planes that later slices of the port bring,
+# flag -> the slice: none left.
+UNPORTED_FLAGS: dict = {}
 
 
 class _Unported(argparse.Action):
@@ -142,6 +148,38 @@ def parse_args(argv) -> argparse.Namespace:
     p.add_argument("--preemption-rounds-per-tick", type=int, default=1,
                    help="max preemption rounds (one waiting gang's eviction wave) per "
                    "admission tick: the blast-radius budget")
+    p.add_argument("--no-defrag", action="store_true",
+                   help="disable active defragmentation (extender/defrag.py). By default "
+                   "(with --gang-admission) a capacity-waiting gang whose demand is STRANDED "
+                   "(enough free cards, but no node places its largest member) may, after "
+                   "hysteresis and within the eviction budget, migrate strictly-lower-priority "
+                   "running gangs (cheapest restart cost first, proven relocation target) off "
+                   "one node, two-phase journaled, fencing the freed cards for the stranded "
+                   "gang. With this flag fragmentation is only observed, never repacked")
+    p.add_argument("--defrag-max-evictions-per-hour", type=int, default=12,
+                   help="rolling-hour ceiling on victim-pod evictions the defrag engine may "
+                   "execute: the operator's blast-radius knob (0 closes the gate: stranded "
+                   "demand is still detected and exported, but no plan executes)")
+    p.add_argument("--defrag-max-concurrent", type=int, default=2,
+                   help="max victim GANGS one defrag plan may migrate; plans needing more "
+                   "victims are rejected as no_plan")
+    p.add_argument("--defrag-stranded-ticks", type=int, default=3,
+                   help="consecutive admission ticks a gang's demand must stay stranded before "
+                   "the planner is consulted: hysteresis so a transient release race never "
+                   "triggers a repack")
+    p.add_argument("--no-rescue", action="store_true",
+                   help="disable the hardware-failure rescue plane (extender/rescue.py). By "
+                   "default (with --gang-admission) a RUNNING gang bound to withdrawn cards, a "
+                   "NotReady node, or a draining node is evacuated through a journaled "
+                   "two-phase round onto proven healthy capacity (evicting strictly-lower-"
+                   "priority gangs under the shared defrag eviction budget) and re-admitted at "
+                   "the head of its tier; cordoned/tainted nodes are excluded from placement; "
+                   "the /drain verb serves tpu-doctor drain. With this flag gangs die where "
+                   "their hardware dies")
+    p.add_argument("--rescue-grace-ticks", type=int, default=2,
+                   help="consecutive admission ticks a gang must stay degraded before its "
+                   "evacuation executes: hysteresis so a health-check flap or node-condition "
+                   "blip never evacuates a live job")
     p.add_argument("--node-cache-interval-s", type=float, default=5.0,
                    help="node-annotation cache relist interval")
     p.add_argument("--no-node-watch", action="store_true",
@@ -256,6 +294,14 @@ def main(argv=None) -> int:
         status.degraded = degraded
         client.resilience = resilience.Resilience(metrics=resilience.extender_metrics(),
                                                   degraded=degraded)
+    # The rescue plane's node lifecycle: one tracker a process (a node's
+    # Ready, cordon and taint are the cluster's, not a shard's), fed by the
+    # node cache's tap from its first relist on, with no second node watch.
+    rescue_tracker = None
+    if a.gang_admission and not a.no_rescue:
+        from .rescue import NodeStateTracker
+
+        rescue_tracker = NodeStateTracker()
     if a.node_cache:
         node_cache = NodeAnnotationCache(
             client,
@@ -267,6 +313,14 @@ def main(argv=None) -> int:
             event_coalesce_s=a.node_event_coalesce_s,
         )
         node_cache.degraded = degraded
+        if rescue_tracker is not None:
+            def node_tap(etype, node, tracker=rescue_tracker):
+                if etype == "DELETED":
+                    tracker.remove_node((node.get("metadata") or {}).get("name", ""))
+                else:
+                    tracker.update_node(node)
+
+            node_cache.on_node_object = node_tap
         node_cache.start()
         status.warm_progress = node_cache.index.warm_progress
     # The parsed topologies alive at start leave the GC's scan set: a full
@@ -294,14 +348,12 @@ def main(argv=None) -> int:
             return cache.index.topologies()
         return topo_source
 
-    # Priority tiers and preemption (preemption.py): one PriorityClass
-    # resolver a process (it caches the class vocabulary), and an engine on
-    # each admitter, the singleton or every shard's, so a shard's rounds stay
-    # inside its own gangs and nodes. The JAX condition is "any eviction
-    # plane on"; the defrag and rescue planes join it, and wire_preemption
-    # gains their engines, with their slice.
+    # The eviction planes (preemption.py, defrag.py, rescue.py): one
+    # PriorityClass resolver a process (it caches the class vocabulary) while
+    # any of them is on, and each admitter's own engines, the singleton's or
+    # every shard's, so a shard's rounds stay inside its own gangs and nodes.
     preempt_resolver = None
-    if a.gang_admission and not a.no_preemption:
+    if a.gang_admission and not (a.no_preemption and a.no_defrag and a.no_rescue):
         from .preemption import PriorityResolver
 
         preempt_resolver = PriorityResolver(client)
@@ -309,13 +361,39 @@ def main(argv=None) -> int:
     def wire_preemption(adm) -> None:
         if preempt_resolver is None:
             return
-        from .preemption import PreemptionEngine
+        if not a.no_preemption:
+            from .preemption import PreemptionEngine
 
-        # The queue's priority order belongs to the preemption plane:
-        # --no-preemption keeps every gang equal.
-        adm.priority_resolver = preempt_resolver
-        adm.preemption = PreemptionEngine(adm, preempt_resolver,
-                                          rounds_per_tick=a.preemption_rounds_per_tick)
+            # The queue's priority order belongs to the preemption plane:
+            # --no-preemption keeps every gang equal, and defrag then reads
+            # every requestor as standard (0), so it migrates only batch
+            # (negative-priority) gangs.
+            adm.priority_resolver = preempt_resolver
+            adm.preemption = PreemptionEngine(adm, preempt_resolver,
+                                              rounds_per_tick=a.preemption_rounds_per_tick)
+        if not a.no_defrag:
+            from . import defrag as defrag_mod
+
+            # /debug/defrag serves it; the admitter's stop() takes it off
+            # (a shard handed back).
+            adm.defrag = defrag_mod.DefragEngine(
+                adm, preempt_resolver, stranded_ticks=a.defrag_stranded_ticks,
+                max_evictions_per_hour=a.defrag_max_evictions_per_hour,
+                max_concurrent=a.defrag_max_concurrent)
+            defrag_mod.install(adm.defrag)
+        if not a.no_rescue:
+            from . import rescue as rescue_mod
+
+            # Its detection joins only the admitter's own gangs and nodes;
+            # the tracker is the process's. With defrag wired it spends from
+            # defrag's window: one blast-radius budget for both planes.
+            adm.rescue = rescue_mod.RescueEngine(
+                adm, preempt_resolver, tracker=rescue_tracker,
+                grace_ticks=a.rescue_grace_ticks,
+                max_evictions_per_hour=a.defrag_max_evictions_per_hour)
+            adm.rescue.drain_coordinator = rescue_mod.DrainCoordinator(client, adm,
+                                                                       rescue_tracker)
+            rescue_mod.install(adm.rescue)
 
     manager = None
     reservations_view = reservations
@@ -374,7 +452,7 @@ def main(argv=None) -> int:
         status.shard_status = manager.status
         if node_cache is not None:
             node_cache.index.on_change = (
-                lambda name, slice_keys: manager.note_node_event(slice_keys))
+                lambda name, slice_keys: manager.note_node_event(slice_keys, node=name))
     # The singleton fence before anything serves: the reservation table is
     # this process's memory, so gang admission runs in exactly one live
     # replica. A second replica exits 1 here, loudly, and the holder is left
@@ -449,14 +527,17 @@ def main(argv=None) -> int:
         wire_preemption(gang)
         if node_cache is not None:
             # A node's annotation change wakes the capacity-waiting gangs.
-            node_cache.index.on_change = lambda name, slice_keys: gang.note_node_event(slice_keys)
+            node_cache.index.on_change = (
+                lambda name, slice_keys: gang.note_node_event(slice_keys, node=name))
         # Replay before the scheduler's calls are served or a tick runs: the
         # lease is held (the journal has one writer), and recover() never
         # raises. The index's warm pool runs beside it.
         gang.recover()
         gang.start()
     status.mark_replayed()
-    if preempt_resolver is not None:
+    if preempt_resolver is not None and not a.no_preemption:
+        # Only with the preemption plane: with defrag or rescue alone the
+        # verb answers 404, as without any plane, not an empty dry run.
         def preemption_verb(pod: dict) -> dict:
             # The dry run of the scheduler-extender verb (the scheduler that
             # calls it evicts); sharded, the home shard's engine answers.
@@ -468,6 +549,21 @@ def main(argv=None) -> int:
             return engine.dry_run(pod)
 
         srv.preemption_handler = preemption_verb
+    if rescue_tracker is not None:
+        def drain_verb(node: str, action: str) -> dict:
+            # Cordon and taint are the cluster's, and every shard's placement
+            # reads the one tracker: sharded, the home shard's plane answers.
+            adm = manager.home_admission() if manager is not None else gang
+            coord = getattr(getattr(adm, "rescue", None), "drain_coordinator", None)
+            if coord is None:
+                return {"error": "rescue plane not active on this replica"}
+            if action == "drain":
+                return coord.drain(node)
+            if action == "uncordon":
+                return coord.uncordon(node)
+            return coord.status(node)
+
+        srv.drain_handler = drain_verb
     if a.audit_interval_s > 0:
         from .. import audit
 

@@ -36,9 +36,9 @@ plugin's ``Allocate`` would take, so later gangs of the same tick see the
 cards that will really be gone.
 
 The priority, preemption, defrag and rescue planes of the JAX admitter hook
-in through ``priority_resolver``, ``preemption``, ``defrag`` and ``rescue``:
-the entry point wires the first two (``preemption.py``); the last two stay
-None until their slice comes. Sharded admission
+in through ``priority_resolver``, ``preemption``, ``defrag`` and ``rescue``
+(``preemption.py``, ``defrag.py``, ``rescue.py``); the entry point wires all
+four, and a None keeps its plane off. Sharded admission
 (``sharding.py``) builds one admitter per owned shard with ``shard_id``,
 ``gang_filter`` and ``topo_filter``: it then sees only its shard's gangs and
 places them only on its shard's nodes.
@@ -397,15 +397,20 @@ class GangAdmission:
         # members each fit on one node, so any node's change may unblock
         # any waiting gang (the JAX index's ANY_NODE dependency).
         self._waiting_gangs: Set[GangKey] = set()
+        # With the rescue plane wired: node -> the released gangs with a pod
+        # bound there, as the last ticks saw them (a full sweep rebuilds it),
+        # so a node's changed annotation (a card withdrawn) wakes the running
+        # gangs on it at the next resync, not at the full-sweep backstop.
+        self._bound_on: Dict[str, Set[GangKey]] = {}
         self._last_full_sweep = float("-inf")  # the loop's first tick is full
         # The extender's AuditEngine, wired by the entry point and driven
         # from _loop after each tick: this thread is the journal's one
         # writer, so the replay check never races an append.
         self.auditor = None
-        # The planes on the admitter: a priority resolver (priority-ordered
-        # queue) and preemption (preemption.py, wired by the entry point),
-        # defragmentation and rescue (a later slice). None keeps the FIFO
-        # admitter, bit for bit.
+        # The planes on the admitter, wired by the entry point: a priority
+        # resolver (priority-ordered queue), preemption (preemption.py),
+        # defragmentation (defrag.py) and rescue (rescue.py). None keeps the
+        # FIFO admitter, bit for bit.
         self.priority_resolver = None
         self.preemption = None
         self.defrag = None
@@ -710,13 +715,18 @@ class GangAdmission:
             self._dirty.add((info[0], info[1]))
         metrics.GANG_DIRTY_MARKS.inc(source="pod")
 
-    def note_node_event(self, slice_keys: Tuple[Tuple[str, ...], ...] = ()) -> int:
+    def note_node_event(self, slice_keys: Tuple[Tuple[str, ...], ...] = (),
+                        node: str = "") -> int:
         """A node's published availability changed: wake every capacity-
         waiting gang, since any node may now fit any of their members (GPU
-        nodes have no slices, so ``slice_keys`` narrows nothing). Returns how
-        many gangs were marked."""
+        nodes have no slices, so ``slice_keys`` narrows nothing), and, with
+        the rescue plane wired, the running gangs bound to ``node`` (its
+        withdrawn cards are theirs to leave). Returns how many gangs were
+        marked."""
         with self._dirty_lock:
             keys = set(self._waiting_gangs)
+            if node and self.rescue is not None:
+                keys |= self._bound_on.get(node, set())
             self._dirty |= keys
         if keys:
             metrics.GANG_DIRTY_MARKS.inc(len(keys), source="node")
@@ -1032,6 +1042,8 @@ class GangAdmission:
         standing = self.reservations.active()
         released: List[GangKey] = []
         prios = {key: self._priority_of(key, gv) for key, gv in gangs.items()}
+        if self.rescue is not None:
+            self._note_bound(gangs, full)
         # Within a tier a just-rescued gang goes first; with no rescue plane
         # every gang is equal and the order is the key's.
         boost = self.rescue.admit_boost if self.rescue is not None else (lambda _key: 1)
@@ -1198,6 +1210,25 @@ class GangAdmission:
             metrics.GANG_RESERVATIONS_LAPSED.inc(lapsed - self._lapsed_reported)
             self._lapsed_reported = lapsed
         return released
+
+    def _note_bound(self, gangs: Dict[GangKey, GangView], full: bool) -> None:
+        """Refresh the node -> bound released gangs map note_node_event
+        reads: rebuilt on a full sweep, extended on a dirty tick (a stale
+        entry costs one more evaluation of its gang, never a missed one)."""
+        bound: Dict[str, Set[GangKey]] = {}
+        for key, gv in gangs.items():
+            if gv.gated:
+                continue
+            for p in gv.live:
+                node = (p.get("spec") or {}).get("nodeName")
+                if node:
+                    bound.setdefault(node, set()).add(key)
+        with self._dirty_lock:
+            if full:
+                self._bound_on = bound
+            else:
+                for node, keys in bound.items():
+                    self._bound_on.setdefault(node, set()).update(keys)
 
     # -- reservations ------------------------------------------------------
 

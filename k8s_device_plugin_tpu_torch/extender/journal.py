@@ -52,7 +52,7 @@ log = get_logger(__name__)
 GangKey = Tuple[str, str]
 
 # Ops whose loss could double-book cards or void the age cap: pushed to the
-# OS before record() returns. The two-phase rounds of the later preemption,
+# OS before record() returns. The two-phase rounds of the preemption,
 # defrag and rescue planes are all critical: losing one could re-evict
 # evicted victims or leave freed cards unfenced through recovery.
 CRITICAL_OPS = frozenset({
@@ -93,8 +93,8 @@ class RehydratedState:
     dropped: int  # torn or corrupt journal lines discarded
     # Open two-phase rounds of the preemption, defrag and rescue planes,
     # keyed by the gang they are for: {"phase": intent|evicted, "victims",
-    # "consumed": {host: cards}, "demands", "priority", "ts"}. No plane of
-    # the port writes them yet; a journal of the JAX plane may hold them.
+    # "consumed": {host: cards}, "demands", "priority", "ts"}, written by
+    # preemption.py, defrag.py and rescue.py.
     preempting: Dict[GangKey, dict] = dataclasses.field(default_factory=dict)
     defragging: Dict[GangKey, dict] = dataclasses.field(default_factory=dict)
     rescuing: Dict[GangKey, dict] = dataclasses.field(default_factory=dict)

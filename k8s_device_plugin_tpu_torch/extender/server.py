@@ -654,6 +654,23 @@ class NodeAnnotationCache:
         # Optional utils/resilience.DegradedMode, attached by the entry
         # point: every successful sync marks it fresh.
         self.degraded = None
+        # Optional (etype, node) -> None tap, attached by the entry point:
+        # every whole node object the cache sees, watch events and relist
+        # items alike (the relist level-triggers what the watch missed).
+        # The rescue plane's NodeStateTracker (rescue.py) follows Ready
+        # conditions, cordons and maintenance taints through it, with no
+        # second node watch against the API server. An exception in the tap
+        # is logged, never raised into the cache.
+        self.on_node_object = None
+
+    def _offer_node_object(self, etype: str, node: dict) -> None:
+        tap = self.on_node_object
+        if tap is None:
+            return
+        try:
+            tap(etype, node)
+        except Exception:  # noqa: BLE001 - an advisory tap
+            log.exception("node object tap failed")
 
     @property
     def synced(self) -> bool:
@@ -882,6 +899,7 @@ class NodeAnnotationCache:
             meta = node.get("metadata") or {}
             ann = meta.get("annotations") or {}
             fresh[meta.get("name", "")] = ann.get(constants.TOPOLOGY_ANNOTATION)
+            self._offer_node_object("MODIFIED", node)
         with self._lock:
             removed = [n for n in self._raw if n not in fresh]
             self._raw = fresh
@@ -910,6 +928,7 @@ class NodeAnnotationCache:
             metrics.INDEX_EVENTS.inc(source="relist", kind=kind)
         for name in removed:
             metrics.INDEX_EVENTS.inc(source="relist", kind=self.index.remove(name))
+            self._offer_node_object("DELETED", {"metadata": {"name": name}})
         if pending is not None:
             if restored:
                 metrics.INDEX_SNAPSHOT_ENTRIES.inc(restored, source="restored")
@@ -954,6 +973,7 @@ class NodeAnnotationCache:
         name = meta.get("name", "")
         if not name or etype == "BOOKMARK":
             return "noop"
+        self._offer_node_object(etype, node)
         if etype == "DELETED":
             with self._lock:
                 self._raw.pop(name, None)
@@ -1128,17 +1148,23 @@ class ExtenderHTTPServer(BackgroundHTTPServer):
     'error'; HostPriority 'host'/'score').
 
     /preemption answers ``preemption_handler(pod)`` (the preemption
-    engine's dry run: the node -> victims map, never an eviction), and 404
-    when no engine is wired, as the JAX server does. /drain answers 404: the
-    rescue plane comes with a later slice."""
+    engine's dry run: the node -> victims map, never an eviction), and /drain
+    answers ``drain_handler(node, action)`` (the rescue plane's
+    ``DrainCoordinator``); each answers 404 when its plane is not wired, as
+    the JAX server does."""
 
     def __init__(self, extender: Optional[TopologyExtender] = None, host: str = "0.0.0.0",
                  port: int = 0, ready_check=None, ready_status=None, degraded=None,
-                 identity: str = "", preemption_handler=None):
+                 identity: str = "", preemption_handler=None, drain_handler=None):
         super().__init__(host, port)
         # The scheduler-extender preemption verb, (pod) -> dict: None answers
         # 404, so a deployment without the plane fails loudly, not emptily.
         self.preemption_handler = preemption_handler
+        # The drain verb (rescue.py DrainCoordinator, driven by
+        # tools/doctor.py): POST /drain {"node", "action":
+        # drain|status|uncordon} -> the node's drain status. None answers
+        # 404, as for /preemption.
+        self.drain_handler = drain_handler
         # The admitter identity holding the singleton lease (leader.py), ""
         # with the fence off: /reservations names it, so a reader can tell
         # a holder's table from a non-holder's.
@@ -1269,8 +1295,20 @@ class ExtenderHTTPServer(BackgroundHTTPServer):
                         # admission tick.
                         self._send(handler(pod))
                     elif self.path == "/drain":
-                        self._send({"error": "drain not enabled"}, 404)
-                        return
+                        handler = server.drain_handler
+                        if handler is None:
+                            self._send({"error": "drain not enabled"}, 404)
+                            return
+                        node = str(args.get("node") or "")
+                        action = str(args.get("action") or "status")
+                        if not node:
+                            self._send({"error": "node is required"}, 400)
+                            return
+                        if action not in ("drain", "status", "uncordon"):
+                            self._send({"error": f"unknown action {action}"}, 400)
+                            return
+                        # Idempotent: tools/doctor.py polls by POSTing again.
+                        self._send(handler(node, action))
                     else:
                         self._send({"error": f"unknown path {self.path}"}, 404)
                         return

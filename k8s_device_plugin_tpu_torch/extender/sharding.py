@@ -749,11 +749,11 @@ class ShardManager:
         with self._lock:
             return [s.admission for s in self._owned.values() if s.admission is not None]
 
-    def note_node_event(self, slice_keys) -> None:
+    def note_node_event(self, slice_keys, node: str = "") -> None:
         """Fan a node's change out to every owned shard's dirty marking (the
         index's on_change in the sharded entry point)."""
         for adm in self.ticked_admissions():
-            adm.note_node_event(slice_keys)
+            adm.note_node_event(slice_keys, node=node)
 
 
 # -- the self-test: two in-process shards, disjoint admission, one SIGKILLed

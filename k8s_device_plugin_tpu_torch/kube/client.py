@@ -11,8 +11,8 @@ Kubernetes REST API; kubeconfigs are read with PyYAML (so a JSON one
 reads too). Watches read with urllib3's ``HTTPResponse.read1``, which
 urllib3 has from 2.0: the package's ``requirements.txt`` pins
 ``urllib3>=2`` and importing this module refuses an older one. The lease
-listing only the doctor tool reads, and the priority classes and taints of
-the preemption and rescue planes, come with those.
+listing the doctor tool reads, the priority classes of the preemption
+plane, and the cordon and taints of the rescue plane are here too.
 
 Every call is routed through a shared resilience pipeline
 (utils/resilience.py): jittered exponential backoff, per-call
@@ -384,6 +384,28 @@ class KubeClient:
             f"/api/v1/nodes/{name}/status",
             {"status": {"conditions": [condition]}},
         )
+
+    def set_node_unschedulable(self, name: str, unschedulable: bool) -> dict:
+        """Cordon or uncordon: a patch of ``spec.unschedulable``, what
+        ``kubectl cordon`` does. A merge patch applied twice is applied
+        once, so the resilience layer may retry it."""
+        return self.patch(f"/api/v1/nodes/{name}",
+                          {"spec": {"unschedulable": bool(unschedulable)}})
+
+    def set_node_taint(self, name: str, key: str, value: str = "",
+                       effect: str = "NoSchedule", remove: bool = False) -> dict:
+        """Add or remove one taint by key: read ``spec.taints``, edit it and
+        write the whole list back with a merge patch (a merge patch cannot
+        delete one list entry). A concurrent edit of another taint between
+        the read and the write can be lost; the drain flow owns its one key
+        and runs from one extender."""
+        node = self.get_node(name)
+        taints = [t for t in ((node.get("spec") or {}).get("taints") or [])
+                  if t.get("key") != key]
+        if not remove:
+            taints.append({"key": key, "value": value, "effect": effect})
+        return self.patch(f"/api/v1/nodes/{name}", {"spec": {"taints": taints}},
+                          content_type=MERGE_PATCH)
 
     # -- pods --------------------------------------------------------------
 

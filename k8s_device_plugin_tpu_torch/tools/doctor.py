@@ -26,6 +26,12 @@ Usage::
     # InternalIP) in one health table:
     python -m k8s_device_plugin_tpu_torch.tools.doctor fleet --kubeconfig <file>
 
+    # Evacuate every resident gang off a node through the extender's
+    # rescue plane (cordon, maintenance taint, journaled rounds), polling
+    # until it is clear; --uncordon reverses it:
+    python -m k8s_device_plugin_tpu_torch.tools.doctor drain <node> \\
+        --url http://extender:12346 [--uncordon] [--no-wait]
+
     python -m k8s_device_plugin_tpu_torch.tools.doctor --self-test
 
 ``check`` exits 0 on a clean audit, 1 when findings are open, 2 when a
@@ -36,9 +42,9 @@ clean stop, 1 after a death mid-flight, 2 when nothing can be read.
 ``fleet`` exits 0 when every endpoint is healthy, 1 on findings, degraded
 mode or build skew, 2 when an endpoint is unreachable.
 
-``drain`` (the JAX tool's node evacuation over the extender's ``/drain``)
-needs the hardware-failure rescue plane, which the port's extender does not
-have yet: the parser refuses it with exit 2.
+``drain`` exits 0 once drained (or uncordoned), 1 when the poll times out,
+2 when the extender refuses or is unreachable; an extender without the
+rescue plane answers the verb 404, and the message names the plane.
 
 ``--self-test`` drives the port's pipeline in-process: a drifted engine,
 ``/debug/audit`` over a live ``MetricsServer``, this renderer, a bundle tar
@@ -71,6 +77,83 @@ def _fetch(url: str, path: str, timeout: float = 10.0) -> bytes:
         url.rstrip("/") + path, timeout=timeout
     ) as resp:
         return resp.read()
+
+
+def _post_drain(url: str, node: str, action: str, timeout: float = 30.0) -> dict:
+    """One POST of the drain verb: the coordinator's status, or
+    ``{"error": ...}`` when the extender refuses (the verb's own error body,
+    and for a 404 the plane that is missing)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        url.rstrip("/") + "/drain",
+        data=json.dumps({"node": node, "action": action}).encode(),
+        headers={"Content-Type": "application/json"}, method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        try:
+            message = json.loads(e.read() or b"{}").get("error") or str(e)
+        except ValueError:
+            message = str(e)
+        if e.code == 404:
+            message += (" (the extender's hardware-failure rescue plane is not active: it "
+                        "runs with --gang-admission and without --no-rescue)")
+        return {"error": message}
+
+
+def drain(url: str, node: str, uncordon: bool = False, wait: bool = True,
+          poll_s: float = 5.0, timeout_s: float = 1800.0, clock=time.time,
+          sleep=time.sleep) -> int:
+    """The drain verb: ask the extender's rescue plane to cordon and taint
+    the node and evacuate every resident gang (journaled two-phase rounds,
+    the path of a card failure), then poll until no resident gang pod and no
+    reserved card remain; the drain-complete annotation is the "safe to
+    power off" signal. Idempotent: running it again resumes the poll;
+    ``uncordon`` reverses everything. Exit 0 drained or uncordoned, 1 timed
+    out, 2 the extender refused or is unreachable."""
+    action = "uncordon" if uncordon else "drain"
+    try:
+        st = _post_drain(url, node, action)
+    except (OSError, ValueError) as e:
+        print(f"tpu-doctor drain: {e}", file=sys.stderr)
+        return 2
+    if st.get("error"):
+        print(f"tpu-doctor drain: {st['error']}", file=sys.stderr)
+        return 2
+    if uncordon:
+        print(f"node {node} uncordoned: placement may use it again")
+        return 0
+    deadline = clock() + timeout_s
+    while True:
+        if st.get("error"):
+            print(f"tpu-doctor drain: {st['error']}", file=sys.stderr)
+            return 2
+        residents = st.get("resident_gangs") or []
+        print(f"node {node}: draining={st.get('draining')} resident_gangs={len(residents)} "
+              f"held_chips={st.get('held_chips', 0)}"
+              + (f" [{', '.join(residents)}]" if residents else ""))
+        if st.get("done"):
+            print(f"node {node} drained: zero resident gang pods, zero reserved chips — safe "
+                  f"for maintenance (annotation stamped; `tpu-doctor drain --uncordon {node}` "
+                  f"to return it)")
+            return 0
+        if not wait:
+            return 1
+        if clock() >= deadline:
+            print(f"tpu-doctor drain: node {node} still has {len(residents)} resident gang(s) / "
+                  f"{st.get('held_chips', 0)} held chip(s) after {timeout_s:.0f}s — gangs may "
+                  f"be parked RESCUE_PENDING (no healthy capacity to move them to); see "
+                  f"/debug/rescue", file=sys.stderr)
+            return 1
+        sleep(poll_s)
+        try:
+            st = _post_drain(url, node, "status")
+        except (OSError, ValueError) as e:
+            print(f"tpu-doctor drain: {e}", file=sys.stderr)
+            return 2
 
 
 def _load_audit(source: str) -> dict:
@@ -930,15 +1013,34 @@ def main(argv: Optional[List[str]] = None) -> int:
     )
     pd = sub.add_parser(
         "drain",
-        help="not ported: the JAX tool's node evacuation through the "
-        "extender's rescue plane, which the port's extender does not have",
+        help="evacuate every resident gang off a node via the "
+        "extender's rescue plane (cordon + maintenance taint, "
+        "journaled two-phase evacuations), poll until zero resident "
+        "pods and zero reserved chips, then report it safe for "
+        "maintenance; --uncordon reverses",
     )
-    pd.add_argument("node", nargs="?", help="node name to drain")
-    pd.add_argument("--url", default="", help="extender base URL")
-    pd.add_argument("--uncordon", action="store_true")
-    pd.add_argument("--no-wait", action="store_true")
-    pd.add_argument("--poll-s", type=float, default=5.0)
-    pd.add_argument("--timeout-s", type=float, default=1800.0)
+    pd.add_argument("node", help="node name to drain")
+    pd.add_argument(
+        "--url", required=True,
+        help="extender base URL, e.g. http://extender:12346",
+    )
+    pd.add_argument(
+        "--uncordon", action="store_true",
+        help="reverse a drain: remove the cordon, taint, and "
+        "drain-complete annotation",
+    )
+    pd.add_argument(
+        "--no-wait", action="store_true",
+        help="start (or check) the drain and exit without polling",
+    )
+    pd.add_argument(
+        "--poll-s", type=float, default=5.0,
+        help="seconds between status polls (default 5)",
+    )
+    pd.add_argument(
+        "--timeout-s", type=float, default=1800.0,
+        help="give up polling after this many seconds (default 1800)",
+    )
     pf = sub.add_parser(
         "fleet",
         help="discover every extender shard (Leases) + plugin (node "
@@ -983,9 +1085,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             pc.error("at least one --url or audit.json file is required")
         return check(sources)
     if a.cmd == "drain":
-        # argparse's own refusal: the usage and the message on stderr, exit 2.
-        pd.error("drain is not ported yet: it comes with the slice of hardware-failure "
-                 "rescue (the extender's /drain)")
+        return drain(a.url, a.node, uncordon=a.uncordon, wait=not a.no_wait,
+                     poll_s=a.poll_s, timeout_s=a.timeout_s)
     if a.cmd == "postmortem":
         return postmortem(
             a.dir, minutes=a.minutes, service=a.service

@@ -31,9 +31,9 @@ Its selectors:
   it was collateral, its ``rescue_victim`` records joined with the
   degraded requestor's ``rescue`` rounds.
 
-The last three read the records of the preemption, defragmentation and
-rescue planes, which the port's extender does not record yet; the
-renderers are pure, and the self-test drives them.
+The last three read the records the extender's preemption, defragmentation
+and rescue planes write; the renderers are pure, and the self-test drives
+them too.
 
     python -m k8s_device_plugin_tpu_torch.tools.explain --pod my-pod \\
         --url http://extender:12346

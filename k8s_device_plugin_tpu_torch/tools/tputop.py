@@ -16,8 +16,9 @@ and renders:
 * a defragmentation footer (stranded sizes, eviction budget left,
   plan/migration/abort tallies) when the scrape holds the extender's
   ``tpu_extender_stranded_demand``/``tpu_extender_defrag_*`` families (cat
-  the extender's /metrics after the node daemon's). The port's extender
-  exports none of them yet; the parsing is the JAX tool's.
+  the extender's /metrics after the node daemon's, or point ``--url`` at
+  the extender). The port's extender exports them (``extender/defrag.py``);
+  the parsing is the JAX tool's.
 
 Usage::
 
@@ -312,8 +313,8 @@ def _self_test() -> str:
         # A plugin-only scrape carries no defrag footer.
         assert "defrag:" not in table, table
         # The footer over a merged scrape: the node daemon's text, then an
-        # extender's defrag families (the JAX extender's names; the port's
-        # extender exports none of them yet).
+        # extender's defrag families (the JAX extender's names, which the
+        # port's extender exports too).
         merged = render(metrics.REGISTRY.render() + "\n" + "\n".join((
             "# TYPE tpu_extender_stranded_demand gauge",
             'tpu_extender_stranded_demand{shard="",size="4"} 1',

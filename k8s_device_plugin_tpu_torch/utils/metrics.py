@@ -598,6 +598,76 @@ PREEMPTION_VICTIMS = EXTENDER_REGISTRY.counter(
     "critical/high share means high tiers are cannibalizing each "
     "other and the cluster needs capacity, not priorities",
 )
+# Defragmentation (extender/defrag.py) and hardware-failure rescue
+# (extender/rescue.py): the JAX families, names and help.
+STRANDED_DEMAND = EXTENDER_REGISTRY.gauge(
+    "tpu_extender_stranded_demand",
+    "Waiting gangs whose demand is STRANDED, by request size and "
+    "admitter shard (\"\" = the unsharded singleton; each engine "
+    "owns only its shard's series): enough free chips exist in the "
+    "shard but no contiguous box of that size is placeable anywhere "
+    "(emptied sizes prune their series; sum() over shards for the "
+    "cluster view) — the signal the defrag planner acts on",
+)
+DEFRAG_PLANS = EXTENDER_REGISTRY.counter(
+    "tpu_extender_defrag_plans_total",
+    "Defragmentation planning outcomes, by outcome (executed: the "
+    "migration ran and the target box was fenced; no_plan: no "
+    "strictly-lower-priority relocatable victim set frees a box — "
+    "counted once per stranded episode; deferred: execution held one "
+    "tick for an in-flight checkpoint; blocked_budget: a feasible "
+    "plan exceeded the remaining eviction budget)",
+)
+DEFRAG_MIGRATIONS = EXTENDER_REGISTRY.counter(
+    "tpu_extender_defrag_migrations_total",
+    "Victim gangs migrated (evicted with a proven relocation target) "
+    "by defragmentation, by the victim's tier — a growing share in "
+    "high tiers means the priority floor is misconfigured, not that "
+    "defrag is working harder",
+)
+DEFRAG_ABORTED = EXTENDER_REGISTRY.counter(
+    "tpu_extender_defrag_aborted_total",
+    "Defragmentation rounds aborted mid-flight, by reason "
+    "(eviction_blocked: a victim eviction was PDB/apiserver-refused "
+    "— cluster drift from the plan surfaces here too, the eviction "
+    "door is where drift is discovered; recovered: an open round was "
+    "aborted by crash recovery; gang_vanished: the stranded "
+    "requestor disappeared while its round was open)",
+)
+DEFRAG_BUDGET = EXTENDER_REGISTRY.gauge(
+    "tpu_extender_defrag_budget_remaining",
+    "Victim-pod evictions the defrag engine may still perform inside "
+    "the rolling hour (--defrag-max-evictions-per-hour minus the "
+    "evictions of the last 3600s), per admitter shard (\"\" = the "
+    "unsharded singleton — each engine budgets independently, so the "
+    "series would otherwise flap between shards); 0 = that shard's "
+    "budget gate is closed",
+)
+RESCUES = EXTENDER_REGISTRY.counter(
+    "tpu_extender_rescues_total",
+    "Hardware-rescue rounds for RUNNING gangs on degraded capacity, "
+    "by the rescued gang's tier and outcome (executed: the gang was "
+    "evacuated and a healthy target fenced under its key; pending: no "
+    "relocation target exists — the gang is parked RESCUE_PENDING and "
+    "its demand feeds the defrag plane, counted once per episode; "
+    "eviction_blocked: a victim or member eviction was PDB/apiserver-"
+    "refused and the round aborted for retry; recovered / "
+    "gang_vanished: an open round was closed by crash recovery)",
+)
+RESCUE_LATENCY = EXTENDER_REGISTRY.histogram(
+    "tpu_extender_rescue_latency_seconds",
+    "Seconds from first detecting a gang degraded (failed chip under "
+    "a bound pod, NotReady node, or drain) to its healthy target "
+    "being fenced — the time-to-rescue SLO; only executed rounds "
+    "observe",
+)
+NODE_CORDONED = EXTENDER_REGISTRY.gauge(
+    "tpu_node_cordoned",
+    "1 per node currently excluded from placement by the node "
+    "lifecycle plane (spec.unschedulable, the tpu.google.com/"
+    "maintenance taint, or NotReady), by node; placeable nodes prune "
+    "their series — sum() is the excluded-node count",
+)
 GANG_TICKS = EXTENDER_REGISTRY.counter(
     "tpu_gang_ticks_total",
     "Gang admission evaluation passes, by mode: full (every gang "
@@ -1010,6 +1080,23 @@ DEBUG_ENDPOINTS: Dict[str, str] = {
         "(extender: not configured when --shards is 1; node daemon: not "
         "configured)"
     ),
+    "/debug/defrag": (
+        "defragmentation what-if surface (extender/defrag.py): "
+        "current stranded demand with hysteresis progress, the plan "
+        "the planner would execute (victims, targets, per-victim "
+        "cost facts, projected placeability delta), eviction-budget "
+        "state, and the last round's outcome — per engine (one per "
+        "shard admitter); enabled: false when defrag is not wired"
+    ),
+    "/debug/rescue": (
+        "hardware-failure rescue plane (extender/rescue.py): node "
+        "lifecycle state (cordon/taint/NotReady/draining), degraded "
+        "gangs with grace-window progress, parked RESCUE_PENDING "
+        "episodes, open two-phase rounds, shared eviction-budget "
+        "state, and the last round's outcome — per engine (one per "
+        "shard admitter); enabled: false when the rescue plane is "
+        "not wired"
+    ),
     "/debug/readyz": (
         "readiness phase and index warm progress (extender: "
         "replaying|warming|ready with warm parsed/total, always 200; "
@@ -1074,6 +1161,14 @@ def debug_payload(path: str) -> Optional[bytes]:
                     "--shards > 1 installs it)",
                 }
             return SHARD_PROVIDER()
+        if parsed.path == "/debug/defrag":
+            from ..extender import defrag
+
+            return defrag.debug_snapshot()
+        if parsed.path == "/debug/rescue":
+            from ..extender import rescue
+
+            return rescue.debug_snapshot()
         if parsed.path == "/debug/profile":
             from . import profiling, stackprof
 

@@ -15,7 +15,9 @@ back to the durable prefix. The JAX file's three sharded cases (a shard's
 SIGKILL at 1,000 nodes until its takeover, a shard's split brain, a death in
 the middle of a takeover) and its two preemption kill-points (a death in the
 middle of the evictions, and one between the evictions and the fence) are
-here too; its defrag and rescue cases come with those planes.
+here too, and so are its two defrag kill-points (the same two windows of a
+migration); the rescue plane's kill-points are in tests/test_torch_rescue.py,
+as the JAX file keeps them in tests/test_rescue.py.
 """
 
 import importlib
@@ -341,6 +343,107 @@ def test_sigkill_between_evictions_and_fence_refences_on_recovery(plane, api, tm
     findings = eng.sweep_once()
     assert [f for f in findings if f.severity == plane.audit.CRITICAL] == []
     assert [f for f in findings if f.invariant == "gate_vs_hold"] == []
+    adm2.journal.close()
+
+
+def _defrag_cluster(plane, server):
+    """Two fragmented nodes (cards 0 and 2 free: free cards on each, room for
+    4 on neither); n1's other two cards are held by a cheap batch gang whose
+    migration onto n2's free pair frees n1 for a gated 4-card gang."""
+    for name in ("n1", "n2"):
+        server.add_node(name, plane.node(name, [0, 2]))
+    for i in range(2):
+        p = gang_pod(plane, f"frag-w{i}", "frag", 2, 1)
+        p["metadata"]["uid"] = f"uid-frag-w{i}"
+        p["metadata"]["annotations"] = {
+            plane.constants.CHECKPOINT_TS_ANNOTATION: str(time.time() - 5)}
+        p["spec"].update(schedulingGates=[], nodeName="n1", priority=-10)
+        server.add_pod(p)
+    server.add_pod(gang_pod(plane, "prod-w0", "prod", 1, 4))
+
+
+def _wire_defrag(plane, adm, client):
+    resolver = plane.preemption.PriorityResolver(client)
+    adm.priority_resolver = resolver
+    # No hysteresis wait in the kill-point cases (the victim saved 5 s ago,
+    # so no checkpoint deferral either).
+    adm.defrag = plane.defrag.DefragEngine(adm, resolver, stranded_ticks=1)
+
+
+def test_sigkill_mid_defrag_evictions_aborts_then_replans(plane, bare_api, tmp_path):
+    """After defrag_intent, one victim pod evicted and the other not:
+    recovery aborts the open intent (nothing was fenced, the stranded gang
+    is still gated, never gateless and unfenced), and the next tick plans
+    again from the cluster's truth and finishes the migration once."""
+    server, client = bare_api
+    gate = plane.gang.GATE_NAME
+    _defrag_cluster(plane, server)
+    adm1, _ = admission(plane, KillPointClient(client, "evict_pod", 1), tmp_path)
+    _wire_defrag(plane, adm1, client)
+    with pytest.raises(SigKill):
+        adm1.tick()
+    assert len(server.evictions) == 1  # the intent is durable, nothing reserved
+    adm2, table2 = admission(plane, client, tmp_path)
+    _wire_defrag(plane, adm2, client)
+    summary = adm2.recover()
+    assert (summary["defrag_aborted"], summary["defrag_refenced"]) == (1, 0)
+    assert table2.active() == {}
+    assert gate in gates_of(server, "default", "prod-w0")
+    # The node daemon frees the evicted pod's card and republishes: the next
+    # round migrates only the remaining victim pod and the gang admits.
+    server.add_node("n1", plane.node("n1", [0, 1, 2]))
+    assert adm2.tick() == [("default", "prod")]
+    assert len(server.evictions) == 2  # one more, not an eviction storm
+    assert gate not in gates_of(server, "default", "prod-w0")
+    assert table2.reserved_chips("n1") == 4  # the whole demand fenced
+    assert adm2.defrag.open_intents() == {}
+    adm2.journal.close()
+
+
+def test_sigkill_between_defrag_evictions_and_fence_refences(plane, bare_api, tmp_path):
+    """After defrag_evicted, before the reserve, the window where the freed
+    cards could go to a scavenger: recovery re-installs the planned fence
+    under the stranded gang's key before any tick, the release finishes
+    against the standing hold, and the audit, defrag_vs_reservations
+    included, sweeps clean."""
+    server, client = bare_api
+    gate = plane.gang.GATE_NAME
+    _defrag_cluster(plane, server)
+    adm1, table1 = admission(plane, client, tmp_path)
+    _wire_defrag(plane, adm1, client)
+
+    def die_on_reserve(*a, **kw):
+        raise SigKill("between defrag_evicted and reserve")
+
+    table1.reserve = die_on_reserve
+    with pytest.raises(SigKill):
+        adm1.tick()
+    assert len(server.evictions) == 2  # both victim pods gone, the phase durable
+    adm2, table2 = admission(plane, client, tmp_path)
+    _wire_defrag(plane, adm2, client)
+    summary = adm2.recover()
+    assert (summary["defrag_refenced"], summary["defrag_aborted"]) == (1, 0)
+    assert table2.reserved_chips("n1") == 4
+    assert ("default", "prod") in table2.active()
+    # The daemon republishes the freed cards: a competitor's /filter is
+    # shielded by the rehydrated fence.
+    fresh = plane.node("n1")
+    server.add_node("n1", fresh)
+    passing, failed = plane.server.TopologyExtender(reservations=table2).filter(
+        pod(plane, 2), [fresh])
+    assert passing == []
+    assert "reserved for a released gang" in failed["n1"]
+    assert adm2.tick() == [("default", "prod")]
+    assert gate not in gates_of(server, "default", "prod-w0")
+    assert table2.reserved_chips("n1") == 4
+    assert adm2.defrag.open_intents() == {}
+    eng = plane.audit.ExtenderAudit(reservations=table2, journal=adm2.journal,
+                                    gang=adm2).engine()
+    assert "defrag_vs_reservations" in {i.name for i in eng.invariants}
+    findings = eng.sweep_once()
+    assert [f for f in findings if f.severity == plane.audit.CRITICAL] == []
+    assert [f for f in findings
+            if f.invariant in ("gate_vs_hold", "defrag_vs_reservations")] == []
     adm2.journal.close()
 
 

@@ -570,6 +570,9 @@ def test_extender_imports_no_torch_or_jax_in_a_fresh_process():
             "import k8s_device_plugin_tpu_torch.extender.sharding; "
             "import k8s_device_plugin_tpu_torch.extender.holdscodec; "
             "import k8s_device_plugin_tpu_torch.extender.preemption; "
+            "import k8s_device_plugin_tpu_torch.extender.defrag; "
+            "import k8s_device_plugin_tpu_torch.extender.rescue; "
+            "import k8s_device_plugin_tpu_torch.tools.defrag; "
             "import k8s_device_plugin_tpu_torch.workload.beacon; "
             "import k8s_device_plugin_tpu_torch.audit; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax') "
@@ -610,6 +613,8 @@ def probe():
     print(sorted(n for n in ('k8s_device_plugin_tpu_torch.extender.gang',
                              'k8s_device_plugin_tpu_torch.extender.journal',
                              'k8s_device_plugin_tpu_torch.extender.leader',
+                             'k8s_device_plugin_tpu_torch.extender.defrag',
+                             'k8s_device_plugin_tpu_torch.extender.rescue',
                              'k8s_device_plugin_tpu_torch.audit') if n in sys.modules))
     sys.stdout.flush()
     os.kill(os.getpid(), signal.SIGTERM)
@@ -622,10 +627,13 @@ print(rc, os.path.exists({str(tmp_path / "journal" / "admission.snapshot.json")!
 """
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=ROOT, check=True).stdout.splitlines()
+    # Defragmentation and rescue are on by default with --gang-admission.
     assert out == ["[]", "['k8s_device_plugin_tpu_torch.audit', "
+                   "'k8s_device_plugin_tpu_torch.extender.defrag', "
                    "'k8s_device_plugin_tpu_torch.extender.gang', "
                    "'k8s_device_plugin_tpu_torch.extender.journal', "
-                   "'k8s_device_plugin_tpu_torch.extender.leader']", "0 True"]
+                   "'k8s_device_plugin_tpu_torch.extender.leader', "
+                   "'k8s_device_plugin_tpu_torch.extender.rescue']", "0 True"]
 
 
 def free_port() -> int:
@@ -641,13 +649,63 @@ def test_flags_of_planes_not_ported_are_refused_naming_their_slice(flag, capsys)
     assert "comes with the slice of" in capsys.readouterr().err
 
 
+def _jax_extender_parser():
+    """The JAX extender's argument parser, built by its main() and caught at
+    its parse_args (the JAX entry point builds it inline)."""
+    import argparse
+    from unittest import mock
+
+    from k8s_device_plugin_tpu.extender import __main__ as jax_main
+
+    class Built(Exception):
+        pass
+
+    def catch(parser, *args, **kwargs):
+        raise Built(parser)
+
+    with mock.patch.object(argparse.ArgumentParser, "parse_args", catch):
+        with pytest.raises(Built) as ei:
+            jax_main.main()
+    return ei.value.args[0]
+
+
 def test_only_the_sharding_preemption_and_defrag_flags_are_refused():
-    # The sharding and preemption flags are taken since those planes were
-    # ported (test_sharding_flags_are_taken, test_preemption_flags_are_taken);
-    # the defrag and rescue planes' six are not.
-    assert set(ext_main.UNPORTED_FLAGS) == {
-        "--no-defrag", "--defrag-max-evictions-per-hour", "--defrag-max-concurrent",
-        "--defrag-stranded-ticks", "--no-rescue", "--rescue-grace-ticks"}
+    """No flag is refused any more: every option of the JAX extender's
+    parser parses on the port's, each with a value of its type."""
+    assert ext_main.UNPORTED_FLAGS == {}
+    options = 0
+    for action in _jax_extender_parser()._actions:
+        flags = [f for f in action.option_strings if f.startswith("--") and f != "--help"]
+        if not flags:
+            continue
+        value = [] if action.nargs == 0 else [
+            str(action.default) if action.default not in (None, "") else
+            "1" if action.type in (int, float) else "x"]
+        ext_main.parse_args([flags[0], *value])
+        options += 1
+    assert options >= 44
+
+
+# The defragmentation and rescue planes' flags with a value each, and the
+# JAX defaults of the six.
+DEFRAG_RESCUE_FLAGS = {
+    "--no-defrag": ([], False), "--defrag-max-evictions-per-hour": (["4"], 12),
+    "--defrag-max-concurrent": (["1"], 2), "--defrag-stranded-ticks": (["5"], 3),
+    "--no-rescue": ([], False), "--rescue-grace-ticks": (["1"], 2),
+}
+
+
+@pytest.mark.parametrize("flag", sorted(DEFRAG_RESCUE_FLAGS))
+def test_defrag_and_rescue_flags_are_taken(flag, monkeypatch):
+    """The JAX names and defaults (both planes on), from the command line
+    only."""
+    values, default = DEFRAG_RESCUE_FLAGS[flag]
+    dest = flag.lstrip("-").replace("-", "_")
+    a = ext_main.parse_args([flag, *values])
+    assert getattr(a, dest) == (True if not values else int(values[0]))
+    monkeypatch.setenv("TPU_" + dest.upper(), "7")
+    assert getattr(ext_main.parse_args([]), dest) == default
+    assert getattr(_jax_extender_parser().parse_known_args([])[0], dest) == default
 
 
 PREEMPTION_FLAGS = {"--no-preemption": [], "--preemption-rounds-per-tick": ["3"]}

@@ -4,11 +4,12 @@ The extender cases of the JAX ``tests/test_audit.py`` that hold on the
 port's planes, parametrised over the two planes of
 tests/torch_extender_planes.py: a clean sweep and a leaked hold, a hold on a
 vanished node, a table the journal would not rehydrate, the gates against
-the holds (an undrained lapse included), and the admission loop driving the
-sweeps. ``placeable_recount`` and ``defrag_vs_reservations`` come with the
-port's planes that own them; the port's set is the three invariants of the
-gang plane and the shared three (the JAX ``loop_inventory`` comes with the
-registry lint).
+the holds (an undrained lapse included), the defrag plane's open
+``defrag_evicted`` phase against the fences, and the admission loop driving
+the sweeps. The port's set is the three invariants of the gang plane and the
+shared three; ``defrag_vs_reservations`` joins them where a defrag engine is
+wired (the JAX plane registers it with any journal), ``placeable_recount``
+is not ported, and the JAX ``loop_inventory`` comes with the registry lint.
 """
 
 import importlib
@@ -126,6 +127,44 @@ def test_extender_journal_divergence_fires_critical(plane, stack):
     assert names(findings) == {"reservation_vs_journal"}
     assert findings[0].severity == plane.audit.WARNING
     stack["reservations"].observer = stack["journal"].observe
+
+
+def test_extender_defrag_vs_reservations(plane, stack):
+    """An open defrag_evicted phase with no standing fence is critical (the
+    victims are gone and nothing protects the freed cards), a fence that no
+    longer covers the plan is a warning, and a closed round or an open
+    intent is clean."""
+    gang = stack["gang"]
+    gang.defrag = plane.defrag.DefragEngine(gang, plane.preemption.PriorityResolver())
+    engine = plane.audit.ExtenderAudit(reservations=stack["reservations"],
+                                       journal=stack["journal"], gang=gang).engine()
+    key = ("default", "stranded")
+    # The gang exists and is placed, so the cluster and gate invariants stay
+    # quiet and the defrag plane's is alone.
+    stack["add_gang_pod"]("stranded", "stranded-w0", node="node-a")
+    stack["add_gang_pod"]("stranded", "stranded-w1", node="node-a")
+    stack["journal"].record("defrag_evicted", key, victims=[["default", "frag"]],
+                            consumed={"node-a": 4}, demands=[2, 2])
+    findings = engine.sweep_once()
+    assert names(findings) == {"defrag_vs_reservations"}
+    (f,) = findings
+    assert f.severity == plane.audit.CRITICAL
+    assert f.gang == "default/stranded"
+    # The fence lands (the round's reserve): protected though still open.
+    stack["reservations"].reserve(key, {"node-a": 4}, demands=(2, 2))
+    assert engine.sweep_once() == []
+    # A fence that no longer covers the plan: drift, a warning.
+    stack["reservations"].drop(key)
+    stack["reservations"].reserve(key, {"node-a": 2}, demands=(2, 2))
+    findings = engine.sweep_once()
+    assert names(findings) == {"defrag_vs_reservations"}
+    assert findings[0].severity == plane.audit.WARNING
+    # The round closed, then a fresh intent: never a finding.
+    stack["reservations"].drop(key)
+    stack["journal"].record("defrag_done", key)
+    stack["journal"].record("defrag_intent", key, victims=[["default", "frag"]],
+                            consumed={"node-a": 4}, demands=[2, 2])
+    assert engine.sweep_once() == []
 
 
 def test_extender_gate_vs_hold(plane, stack):

@@ -193,10 +193,15 @@ def test_all_client_calls_flow_through_resilience(plane, api):
     # Gang admission's gate removal, which both clients have.
     server.pods[("default", "p2")]["spec"]["schedulingGates"] = [{"name": "g"}]
     client.remove_pod_scheduling_gate("default", "p2", "g", [{"name": "g"}])
+    # The rescue plane's cordon and maintenance taint, which both clients have.
+    client.set_node_unschedulable(NODE, True)
+    client.set_node_taint(NODE, "tpu.google.com/maintenance", value="drain")
+    client.set_node_taint(NODE, "tpu.google.com/maintenance", remove=True)
     if plane.name == "torch":
         client.delete_pod("default", "p2")
         called |= {"delete_pod", "list_nodes", "watch_nodes", "remove_pod_scheduling_gate",
-                   "list_leases", "list_priority_classes"}
+                   "list_leases", "list_priority_classes", "set_node_unschedulable",
+                   "set_node_taint"}
         public = {n for n in dir(client) if not n.startswith("_") and callable(getattr(client, n))}
         assert public - called == {"from_env", "from_kubeconfig", "in_cluster",
                                    "interrupt_watches"}

@@ -355,8 +355,10 @@ def test_extender_cluster_role_grants_exactly_what_the_plane_calls(tmp_path):
     waiting past the threshold (its Event), a critical gang's preemption round
     (the PriorityClass listing, an eviction the API server answers 405 and
     the plain delete it falls back to, the victim's Event), and the lease
-    taken at the start and released at SIGTERM. They are every call it
-    sends, and all the role grants."""
+    taken at the start and released at SIGTERM, and a drain of a node and
+    its uncordon through /drain (the cordon, the maintenance taint and the
+    drain-complete annotation: node patches). They are every call it sends,
+    and all the role grants."""
     from k8s_device_plugin_tpu_torch.extender import gang as gang_mod
 
     api = FakeApiServer()
@@ -425,6 +427,14 @@ def test_extender_cluster_role_grants_exactly_what_the_plane_calls(tmp_path):
                 and any(e["reason"] == "GPUGangPending" for e in api.events)
                 and ("", "watch", "nodes") in kube_calls(api.requests)):
             time.sleep(0.1)
+        # The drain of an empty node, which completes at once, and its
+        # uncordon.
+        drained = requests.post(f"{base}/drain", json={"node": "late", "action": "drain"},
+                                timeout=10).json()
+        assert drained["draining"] and drained["done"], drained
+        assert api.nodes["late"]["spec"]["unschedulable"] is True
+        requests.post(f"{base}/drain", json={"node": "late", "action": "uncordon"}, timeout=10)
+        assert not api.nodes["late"]["spec"]["unschedulable"]
     finally:
         if proc is not None:
             proc.terminate()
@@ -442,7 +452,7 @@ def test_extender_cluster_role_grants_exactly_what_the_plane_calls(tmp_path):
     granted = {(g, v, r) for rule in role["rules"] for g in rule["apiGroups"]
                for v in rule["verbs"] for r in rule["resources"]}
     assert calls == granted == {
-        ("", "get", "nodes"), ("", "list", "nodes"), ("", "watch", "nodes"),
+        ("", "get", "nodes"), ("", "list", "nodes"), ("", "watch", "nodes"), ("", "patch", "nodes"),
         ("", "get", "pods"), ("", "list", "pods"), ("", "watch", "pods"), ("", "patch", "pods"),
         ("", "delete", "pods"), ("", "create", "pods/eviction"), ("", "create", "events"),
         ("scheduling.k8s.io", "list", "priorityclasses"),

@@ -49,7 +49,8 @@ WAIT_S = 15
 # The surfaces the port serves; the extender's come with the extender.
 PORT_DEBUG = {"/debug/traces", "/debug/events", "/debug/decisions", "/debug/telemetry",
               "/debug/audit", "/debug/resilience", "/debug/profile", "/debug/lockdep",
-              "/debug/blackbox", "/debug/readyz", "/debug/shards"}
+              "/debug/blackbox", "/debug/readyz", "/debug/shards", "/debug/defrag",
+              "/debug/rescue"}
 
 
 @pytest.fixture(scope="module")

@@ -538,15 +538,57 @@ def test_tools_import_no_torch_jax_or_the_jax_package_in_a_fresh_process():
     assert out.stdout.split(None, 1) == [str(len(TOOLS)), "[]\n"]
 
 
-def test_doctor_drain_is_refused_naming_the_missing_plane():
-    """``tpu-doctor drain`` needs the extender's /drain, which comes with the
-    rescue plane: the port's parser refuses it with exit 2 and a message
-    naming that plane, whatever the JAX flags given."""
-    for args in (["drain", "n3", "--url", "http://127.0.0.1:1"],
-                 ["drain", "n3", "--uncordon", "--url", "http://127.0.0.1:1"], ["drain"]):
-        out = subprocess.run([sys.executable, "-m", "k8s_device_plugin_tpu_torch.tools.doctor",
-                              *args], capture_output=True, text=True, timeout=60, cwd=ROOT)
-        assert out.returncode == 2, out
-        assert ("drain is not ported yet: it comes with the slice of hardware-failure rescue"
-                in out.stderr), out.stderr
-        assert out.stdout == ""
+def test_doctor_drain_is_refused_naming_the_missing_plane(tmp_path):
+    """``tpu-doctor drain`` against an extender run with ``--no-rescue``
+    (its /drain answers 404): exit 2 and a message naming the inactive
+    rescue plane, for a drain and an uncordon alike; without a node or a
+    URL the parser refuses with exit 2."""
+    import signal
+    import socket
+
+    from tests.fake_apiserver import FakeApiServer
+
+    api = FakeApiServer()
+    url = api.start()
+    kc = tmp_path / "kc.json"
+    kc.write_text(json.dumps({
+        "apiVersion": "v1", "kind": "Config",
+        "clusters": [{"name": "c", "cluster": {"server": url}}],
+        "users": [{"name": "u", "user": {}}],
+        "contexts": [{"name": "x", "context": {"cluster": "c", "user": "u"}}],
+        "current-context": "x"}))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "k8s_device_plugin_tpu_torch.extender", "--host", "127.0.0.1",
+         "--port", str(port), "--kubeconfig", str(kc), "--node-cache", "--gang-admission",
+         "--no-rescue"], cwd=ROOT, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    base = f"http://127.0.0.1:{port}"
+    try:
+        import urllib.request
+
+        deadline = time.time() + 30
+        while True:
+            try:
+                if urllib.request.urlopen(f"{base}/readyz", timeout=2).status == 200:
+                    break
+            except OSError:
+                pass
+            assert time.time() < deadline and proc.poll() is None
+            time.sleep(0.05)
+        for args in (["drain", "n3", "--url", base], ["drain", "n3", "--uncordon", "--url", base],
+                     ["drain"], ["drain", "n3"]):
+            out = subprocess.run(
+                [sys.executable, "-m", "k8s_device_plugin_tpu_torch.tools.doctor", *args],
+                capture_output=True, text=True, timeout=60, cwd=ROOT)
+            assert out.returncode == 2, out
+            assert out.stdout == ""
+            if "--url" in args:
+                assert "drain not enabled" in out.stderr, out.stderr
+                assert "rescue plane is not active" in out.stderr, out.stderr
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=30)
+        api.stop()
+    assert rc == 0

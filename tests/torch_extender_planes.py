@@ -2,8 +2,9 @@
 (tests/test_torch_extender.py, tests/test_torch_topology_index.py,
 tests/test_torch_index_snapshot.py, tests/test_torch_reservations.py, gang
 admission's tests/test_torch_{gang,journal,leader,chaos_journal}.py,
-sharded admission's tests/test_torch_{sharding,holdscodec}.py, and
-preemption's tests/test_torch_preemption.py).
+sharded admission's tests/test_torch_{sharding,holdscodec}.py,
+preemption's tests/test_torch_preemption.py, and defragmentation's and
+rescue's tests/test_torch_{defrag,rescue}.py).
 
 The JAX plane publishes the ``google.com/tpu-topology`` annotation of a v5p
 host of 4 chips (tests/test_extender.py's ``make_node``); the port's plane
@@ -25,12 +26,14 @@ import pytest
 
 from k8s_device_plugin_tpu import audit as jax_audit
 from k8s_device_plugin_tpu.api import constants as jax_constants
+from k8s_device_plugin_tpu.extender import defrag as jax_defrag
 from k8s_device_plugin_tpu.extender import gang as jax_gang
 from k8s_device_plugin_tpu.extender import holdscodec as jax_holdscodec
 from k8s_device_plugin_tpu.extender import index as jax_index
 from k8s_device_plugin_tpu.extender import journal as jax_journal
 from k8s_device_plugin_tpu.extender import leader as jax_leader
 from k8s_device_plugin_tpu.extender import preemption as jax_preemption
+from k8s_device_plugin_tpu.extender import rescue as jax_rescue
 from k8s_device_plugin_tpu.extender import reservations as jax_reservations
 from k8s_device_plugin_tpu.extender import server as jax_server
 from k8s_device_plugin_tpu.extender import sharding as jax_sharding
@@ -41,12 +44,14 @@ from k8s_device_plugin_tpu.utils import statestore as jax_statestore
 from k8s_device_plugin_tpu_torch import audit
 from k8s_device_plugin_tpu_torch.api import constants
 from k8s_device_plugin_tpu_torch.discovery.scanner import NvmlInfo
+from k8s_device_plugin_tpu_torch.extender import defrag
 from k8s_device_plugin_tpu_torch.extender import gang
 from k8s_device_plugin_tpu_torch.extender import holdscodec
 from k8s_device_plugin_tpu_torch.extender import index
 from k8s_device_plugin_tpu_torch.extender import journal
 from k8s_device_plugin_tpu_torch.extender import leader
 from k8s_device_plugin_tpu_torch.extender import preemption
+from k8s_device_plugin_tpu_torch.extender import rescue
 from k8s_device_plugin_tpu_torch.extender import reservations
 from k8s_device_plugin_tpu_torch.extender import server
 from k8s_device_plugin_tpu_torch.extender import sharding
@@ -118,6 +123,8 @@ class JaxPlane:
     journal = jax_journal
     leader = jax_leader
     preemption = jax_preemption
+    defrag = jax_defrag
+    rescue = jax_rescue
     server = jax_server
     sharding = jax_sharding
     pick_key = staticmethod(jax_sharding._pick_key)
@@ -154,6 +161,8 @@ class TorchPlane:
     journal = journal
     leader = leader
     preemption = preemption
+    defrag = defrag
+    rescue = rescue
     server = server
     sharding = sharding
     pick_key = staticmethod(sharding.pick_key)
