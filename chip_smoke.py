@@ -6,6 +6,11 @@ Phases, in order; any failure exits non-zero and no phase's exception is
 caught while the run goes on:
 
 1. Device: the card's name, and its name and power limit from nvidia-smi.
+   Then the port's lint over this checkout, each run in its own process
+   and on its own line with its wall time: ``python -m
+   k8s_device_plugin_tpu_torch.tools.lint --self-test`` must exit 0 with
+   every rule proven, and ``--json`` must exit 0 with nothing new and no
+   stale baseline entry.
 2. Build: every CUDA kernel of the port from ``ops/csrc`` (nvcc, sm_90a),
    with ptxas' registers, spills and any serialised ``wgmma`` per kernel.
 3. Kernels vs plain: each hand-written kernel against its own plain
@@ -205,7 +210,8 @@ caught while the run goes on:
    controller thread left draining; before it, the audit must have swept 3
    times or more, every sweep clean (``tpu_audit_sweeps_total`` has no
    ``findings`` or ``error`` outcome, every polled ``/debug/audit`` lists
-   no finding and runs ``lock_order``) and
+   no finding and runs ``lock_order`` and ``loop_inventory``, so a loop
+   named where the lint's scanner cannot see it fails the phase) and
    ``tpu_audit_last_clean_sweep_timestamp`` must have advanced; no loop may
    have counted a stall and the black box no drop. After SIGTERM the flight
    dir must hold the ``shutdown`` dump, and the black box's segments must
@@ -235,7 +241,8 @@ caught while the run goes on:
    nvidia-smi's; the median of the 41 ``Allocate``s, the profiler's passes
    in its window against 19 Hz times the window, the bundle's bytes, the
    black box's records, bytes and rotations; and the card's name and power
-   limit.
+   limit, the first sweep's time (it builds the static loop inventory) and
+   the inventory's build time from the daemon's log.
 
 17. DRA claim → pod: a second daemon, ``python -m k8s_device_plugin_tpu_torch
    --dra`` with phase 16's evidence flags (``--profile-hz 19 --lockdep
@@ -318,7 +325,10 @@ caught while the run goes on:
    identity, kept across a container's restart; the extender's address). In order: (1) the
    times from its start to ``tpu_extender_lease_held`` 1 and to ``/readyz``
    200; a second extender of another HOSTNAME must exit nonzero and leave
-   the lease's ``holderIdentity`` as it was. (2) A gang of 2 gated pods,
+   the lease's ``holderIdentity`` as it was; the extender's log gives the
+   static loop inventory's build time (before ``/readyz``), and its first
+   audit sweep must be clean and run ``loop_inventory``, its time
+   printed. (2) A gang of 2 gated pods,
    each asking this node's card count, stays gated while the synthetic node
    has no free card: ``tpu_gang_waiting{tier="standard"}`` 1 and a
    ``gang_waiting`` record on ``/debug/decisions``. (3) The synthetic node's
@@ -337,8 +347,9 @@ caught while the run goes on:
    ``n_layers`` times a step (its own counts) and the RMSNorm kernel not at
    all. (6) Member 1 bound on the synthetic node: the hold drops
    (``tpu_gang_reservations`` 0) and the competitor passes there. (7) Two
-   audit sweeps or more, every one clean; SIGTERM ends the extender and the
-   daemon with code 0 and the lease's ``holderIdentity`` reads "". The
+   audit sweeps or more, every one clean and running ``loop_inventory``;
+   SIGTERM ends the extender and the daemon with code 0 and the lease's
+   ``holderIdentity`` reads "". The
    operator's tools, each in its own process: while the gang waits (2),
    ``tools.gang --kubeconfig --extender-url --json`` reports it blocked on
    GPU capacity, both members gated, and ``tools.explain --gang --url``
@@ -699,6 +710,40 @@ def nvidia_smi() -> str:
 def phase_device() -> None:
     print(f"device: {torch.cuda.get_device_name(0)}", flush=True)
     print(f"nvidia-smi: {nvidia_smi()}", flush=True)
+
+
+def phase_lint() -> None:
+    """The port's lint over this checkout: ``--self-test`` proves every rule
+    on the fixture corpus, ``--json`` finds nothing new and no stale
+    baseline entry. One line per run, with its wall time."""
+    from k8s_device_plugin_tpu_torch.analysis.rules import RULES_BY_ID
+
+    smi = nvidia_smi()
+    for mode in ("self_test", "json"):
+        t0 = time.monotonic()
+        out = subprocess.run([sys.executable, "-m", "k8s_device_plugin_tpu_torch.tools.lint",
+                              "--" + mode.replace("_", "-")],
+                             cwd=ROOT, capture_output=True, text=True, timeout=300)
+        wall = time.monotonic() - t0
+        try:
+            doc = json.loads(out.stdout)
+        except ValueError:
+            doc = {}
+        if mode == "self_test":
+            proven = doc.get("rules_proven") or []
+            got = {"corpus": doc.get("corpus"), "rules_proven": len(proven),
+                   "failures": doc.get("failures")}
+            ok = doc.get("lint_self_test") == "ok" and sorted(proven) == sorted(RULES_BY_ID)
+        else:
+            got = {"new": doc.get("new"), "stale_baseline": doc.get("stale_baseline"),
+                   "grandfathered": len(doc.get("grandfathered") or []),
+                   "unjustified": len(doc.get("unjustified_baseline") or [])}
+            ok = doc.get("new") == [] and doc.get("stale_baseline") == []
+        emit({"lint": {"mode": mode, "rc": out.returncode, "wall_s": wall, **got,
+                       "nvidia_smi": smi}})
+        if out.returncode != 0 or not ok:
+            print(out.stdout[-3000:], out.stderr[-3000:], file=sys.stderr, flush=True)
+            fail(f"tpu-lint --{mode.replace('_', '-')} exited {out.returncode}: {got}")
 
 
 def phase_build() -> None:
@@ -1786,6 +1831,15 @@ class Observer(threading.Thread):
             self.polls.append(poll)
 
 
+def loop_inventory_ms(log_path: Path):
+    """The time a daemon or extender logged for building the audit's static
+    loop inventory (one parse of the package), or None where it logged
+    none."""
+    m = re.search(r"static loop inventory: \d+ names, \d+ prefixes in (\d+) ms",
+                  log_path.read_text())
+    return int(m.group(1)) if m else None
+
+
 def card_series(samples, uuid: str) -> dict:
     """family → (labels, value) of the card's ``tpu_chip_*`` series (the
     links left out)."""
@@ -1968,6 +2022,9 @@ def observability(observer: Observer, t_start: float, n_cards: int, daemon_fail)
             daemon_fail(f"an audit sweep found {a.get('findings')} (errors {a.get('errors')})")
         if a.get("sweeps"):
             sweeps[a["last_sweep_ts"]] = a["last_duration_ms"]
+    # The first sweep parses the package for the static loop inventory.
+    first_sweep_ms = next((p["audit"]["last_duration_ms"] for p in observer.polls
+                           if p["audit"].get("sweeps") == 1), None)
     outcomes = {lab["outcome"]: v for n, lab, v in last if n == "tpu_audit_sweeps_total"}
     stamps = [sample_value(p["samples"], "tpu_audit_last_clean_sweep_timestamp") for p in polls]
     stamps = [v for v in stamps if v]
@@ -1982,6 +2039,7 @@ def observability(observer: Observer, t_start: float, n_cards: int, daemon_fail)
         "sampler_pass_ms_median": statistics.median(ms for _, ms in passes),
         "sampler_passes_seen": len(passes),
         "audit_sweep_ms_median": statistics.median(sweeps.values()),
+        "audit_first_sweep_ms": first_sweep_ms,
         "audit_sweeps": outcomes,
         "audit_sweep_seconds_mean": (
             sample_value(last, "tpu_audit_sweep_seconds_sum")
@@ -2280,8 +2338,10 @@ def evidence(observer: Observer, bb_live: dict, flight_dir: Path, blackbox_dir: 
         daemon_fail(f"the black box: segments {meta['segments']}, records {kinds}")
     invariants = [{i["name"] for i in p["audit"].get("invariants", [])} for p in observer.polls
                   if p["audit"].get("sweeps")]
-    if not invariants or not all("lock_order" in names for names in invariants):
-        daemon_fail(f"the audit's invariants {invariants[-1:]} lack lock_order")
+    if not invariants or not all({"lock_order", "loop_inventory"} <= names
+                                 for names in invariants):
+        daemon_fail(f"the audit's invariants {invariants[-1:]} lack lock_order or "
+                    f"loop_inventory")
     last = [p["samples"] for p in observer.polls if p["samples"] is not None][-1]
     aged = {lab["loop"] for n, lab, v in last
             if n == "tpu_thread_heartbeat_age_seconds" and "loop" in lab}
@@ -2679,6 +2739,9 @@ def phase_plugin_pod(main_report: dict) -> dict:
         line["tools"]["postmortem"] = postmortem_tool(blackbox_dir, daemon_fail)
         socket_left = (work / constants.PLUGIN_SOCKET_NAME).exists()
         draining = "still draining" in log_path.read_text()
+        line["loop_inventory_ms"] = loop_inventory_ms(log_path)
+        if line["loop_inventory_ms"] is None:
+            daemon_fail("the daemon logged no static loop inventory")
         line["daemon_rc"] = rc
         line["api_writes"]["total"] = writes()
         emit({"plugin_pod": line})
@@ -3493,6 +3556,18 @@ def phase_gang(main_report: dict) -> dict:
         t_ready, _ = until(lambda: http_get(base + "/readyz")[0] == 200, "/readyz 200")
         line["start_to_lease_s"] = t_lease - t_start
         line["start_to_readyz_s"] = t_ready - t_start
+        # The static loop inventory was built before /readyz; the first
+        # sweep (on the admission tick) runs loop_inventory over it.
+        _, first = until(lambda: (snap := json.loads(http_get(base + "/debug/audit")[1]))
+                         .get("sweeps", 0) >= 1 and snap, "the first audit sweep", every_s=0.05)
+        line["first_sweep"] = {"sweeps_seen": first["sweeps"],
+                               "ms": first["last_duration_ms"] if first["sweeps"] == 1 else None,
+                               "findings": first["findings"], "errors": first["errors"],
+                               "loop_inventory_ms": loop_inventory_ms(work / "extender.log")}
+        if (first["findings"] or first["errors"] or line["first_sweep"]["loop_inventory_ms"] is None
+                or "loop_inventory" not in {i["name"] for i in first["invariants"]}):
+            gang_fail(f"the first audit sweep: {line['first_sweep']}, invariants "
+                      f"{[i['name'] for i in first['invariants']]}")
         second = extender(GANG_SECOND, free_port(), "second.log")
         t0 = time.monotonic()
         second_rc = second.wait(timeout=PLUGIN_WAIT_S)
@@ -3598,9 +3673,11 @@ def phase_gang(main_report: dict) -> dict:
                     for o in ("clean", "findings", "error")}
         line["audit"] = {"sweeps": audit_snap["sweeps"], "outcomes": outcomes,
                          "findings": audit_snap["findings"], "errors": audit_snap["errors"],
-                         "invariants": [i["name"] for i in audit_snap["invariants"]]}
+                         "invariants": [i["name"] for i in audit_snap["invariants"]],
+                         "restart_loop_inventory_ms": loop_inventory_ms(work / "restarted.log")}
         if (audit_snap["findings"] or audit_snap["errors"] or outcomes["findings"]
-                or outcomes["error"] or (outcomes["clean"] or 0) < 2):
+                or outcomes["error"] or (outcomes["clean"] or 0) < 2
+                or "loop_inventory" not in line["audit"]["invariants"]):
             gang_fail(f"the audit: {line['audit']}")
         t0 = time.monotonic()
         ext.send_signal(signal.SIGTERM)
@@ -5573,6 +5650,7 @@ def main() -> int:
 
     resolve_device("cuda")  # also pins float32 matmuls to full float32
     phase_device()
+    phase_lint()
     phase_build()
     entries = phase_kernels()
     phase_model()

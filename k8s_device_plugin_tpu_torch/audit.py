@@ -31,13 +31,15 @@ racing them.
 A new critical finding dumps the flight ring to the flight dir
 (``audit_critical``), while the divergence's lead-up is still in it.
 
-The invariants ported are the three shared ones (``thread_liveness``,
-``lock_order``, ``degraded_consistency``), the five of :class:`NodeAudit`
-and seven of :class:`ExtenderAudit` (``reservation_vs_journal``,
-``reservation_vs_cluster``, ``gate_vs_hold``, ``reservation_shard_ownership``
-with sharding, ``defrag_vs_reservations`` and ``rescue_vs_health`` with
-those planes wired, and ``placeable_recount`` with the topology index). The
-JAX ``loop_inventory`` comes with the registry lint.
+The invariants are the four shared ones (``thread_liveness``,
+``lock_order``, ``loop_inventory``, ``degraded_consistency``), the five of
+:class:`NodeAudit` and seven of :class:`ExtenderAudit`
+(``reservation_vs_journal``, ``reservation_vs_cluster``, ``gate_vs_hold``,
+``reservation_shard_ownership`` with sharding, ``defrag_vs_reservations``
+and ``rescue_vs_health`` with those planes wired, and ``placeable_recount``
+with the topology index): every JAX invariant. ``loop_inventory`` matches
+the live heartbeats against the static loop inventory of the port's lint
+(``analysis/registry_scan.heartbeat_names``).
 """
 
 from __future__ import annotations
@@ -410,6 +412,67 @@ def lock_order_invariant() -> Invariant:
     )
 
 
+# The static loop inventory: one AST pass over the package, cached for the
+# process (the scanner tpu-lint uses is the source of truth).
+_STATIC_LOOPS: Optional[Tuple[Set[str], Set[str]]] = None
+
+
+def static_loop_inventory() -> Tuple[Set[str], Set[str]]:
+    """(exact names, prefixes), built on the first call (about a second of
+    parsing) and kept. The extender calls it at start-up, before
+    ``/readyz``, because its sweeps ride the gang-admission tick, which the
+    parse would otherwise stall; the daemon's first sweep builds it on the
+    auditor's own thread."""
+    global _STATIC_LOOPS
+    if _STATIC_LOOPS is None:
+        from .analysis import registry_scan
+
+        t0 = time.perf_counter()
+        _STATIC_LOOPS = registry_scan.heartbeat_names()
+        # Nothing in a daemon reads the trees again.
+        registry_scan.clear_cache()
+        log.info("static loop inventory: %d names, %d prefixes in %.0f ms",
+                 len(_STATIC_LOOPS[0]), len(_STATIC_LOOPS[1]),
+                 (time.perf_counter() - t0) * 1e3)
+    return _STATIC_LOOPS
+
+
+def check_loop_inventory() -> List[Finding]:
+    """Every heartbeat registered at runtime must be statically discoverable
+    (a literal or literal-prefixed loop name at a ``HEARTBEATS.register`` or
+    ``supervised`` call site). tpu-lint's loop-without-heartbeat rule can
+    only protect loops it can see, so a dynamically named loop the scanner
+    cannot attribute is a WARNING: name it with a literal (or a literal
+    prefix) so the linter, the watchdog gauge and the runbooks agree on what
+    the loop is called. The loop's name rides the ``chip`` slot."""
+    from .analysis import registry_scan
+
+    exact, prefixes = static_loop_inventory()
+    out: List[Finding] = []
+    for hb in profiling.HEARTBEATS.snapshot():
+        name = hb["name"]
+        if not registry_scan.loop_name_known(name, exact, prefixes):
+            out.append(Finding.make(
+                "loop_inventory", WARNING,
+                f"runtime heartbeat '{name}' is not in the static loop inventory (no "
+                f"literal name at any HEARTBEATS.register/supervised call site): "
+                f"tpu-lint cannot check a loop it cannot see",
+                chip=name, loop=name,
+            ))
+    return out
+
+
+def loop_inventory_invariant() -> Invariant:
+    return Invariant(
+        "loop_inventory",
+        ("threads", "heartbeats", "static-analysis"),
+        "every runtime-registered heartbeat must be statically discoverable by "
+        "the tpu-lint loop scanner (a literal or literal-prefixed name): a loop "
+        "the linter cannot see is a loop its supervision rules cannot protect",
+        check_loop_inventory,
+    )
+
+
 def check_degraded_consistency() -> List[Finding]:
     """No kube mutation may land while the circuit breaker is open. The
     resilience layer fails every call fast while it is, and the TRACKER
@@ -447,9 +510,9 @@ def degraded_consistency_invariant() -> Invariant:
 
 
 def shared_invariants() -> List[Invariant]:
-    """The process-health invariants the port has."""
+    """The process-health invariant set both daemons carry."""
     return [thread_liveness_invariant(), lock_order_invariant(),
-            degraded_consistency_invariant()]
+            loop_inventory_invariant(), degraded_consistency_invariant()]
 
 
 # ---------------------------------------------------------------------------

@@ -568,6 +568,9 @@ def main(argv=None) -> int:
     if a.audit_interval_s > 0:
         from .. import audit
 
+        # The sweeps ride the admission tick: parse the package for the
+        # static loop inventory now, before /readyz, not in the first tick.
+        audit.static_loop_inventory()
         auditor_lock = threading.Lock()
 
         def build_auditor(gang_obj):

@@ -276,7 +276,8 @@ def self_test() -> int:
         while not stop.is_set():
             sum(i * i for i in range(500))
 
-    # A self-test-local busy loop, joined below.
+    # A self-test-local busy loop, joined below: supervision would only
+    # add teardown noise.  # tpu-lint: disable=TPL001
     t = threading.Thread(
         target=_flame_selftest_spin, name="flame-selftest", daemon=True
     )

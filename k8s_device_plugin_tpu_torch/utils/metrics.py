@@ -283,6 +283,13 @@ RPC_LATENCY = REGISTRY.histogram(
     "tpu_plugin_rpc_latency_seconds",
     "Wall latency of device-plugin gRPC handlers, by method",
 )
+# Observability plane (utils/tracing.py + utils/flightrecorder.py):
+# constant 0 unless --trace enables it.
+TRACE_SPANS = REGISTRY.counter(
+    "tpu_plugin_trace_spans_total",
+    "Trace spans recorded by this process's collector "
+    "(utils/tracing.py; served at /debug/traces)",
+)
 FLIGHT_EVENTS = REGISTRY.counter(
     "tpu_plugin_flight_events_total",
     "Flight-recorder events captured, by kind (utils/flightrecorder.py)",
@@ -878,6 +885,11 @@ EXT_KUBE_WATCH_STREAMS = EXTENDER_REGISTRY.counter(
     "tpu_extender_kube_watch_streams_total",
     "Node watch stream recoveries by outcome: resumed (from the "
     "bookmarked resourceVersion after a drop) or relist (410 Gone)",
+)
+EXT_TRACE_SPANS = EXTENDER_REGISTRY.counter(
+    "tpu_extender_trace_spans_total",
+    "Trace spans recorded by this process's collector "
+    "(utils/tracing.py; served at /debug/traces)",
 )
 EXT_FLIGHT_EVENTS = EXTENDER_REGISTRY.counter(
     "tpu_extender_flight_events_total",

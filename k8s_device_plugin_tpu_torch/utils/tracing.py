@@ -27,6 +27,9 @@ from typing import Dict, List, Optional, Tuple
 _lock = threading.Lock()
 _enabled = False
 _service = ""
+# The service's span counter (``metrics.family("TRACE_SPANS", service)``),
+# set by enable(); None while tracing is off.
+_span_counter = None
 _tls = threading.local()
 
 
@@ -200,6 +203,9 @@ class Span:
             "error": self.error,
         }
         COLLECTOR.add(d)
+        counter = _span_counter
+        if counter is not None:
+            counter.inc()
         return d
 
 
@@ -245,18 +251,25 @@ def enabled() -> bool:
 
 
 def enable(service: str = "plugin") -> None:
-    """Turn tracing on for this process; ``service`` names the daemon in
-    the spans it records."""
-    global _enabled, _service
+    """Turn tracing on for this process. ``service`` names the daemon in
+    the spans it records and picks the span counter of the registry that
+    daemon serves (``tpu_plugin_trace_spans_total`` or
+    ``tpu_extender_trace_spans_total``), as the flight recorder picks its
+    own."""
+    global _enabled, _service, _span_counter
+    from . import metrics
+
     with _lock:
         _service = service
+        _span_counter = metrics.family("TRACE_SPANS", service)
         _enabled = True
 
 
 def disable() -> None:
-    global _enabled
+    global _enabled, _span_counter
     with _lock:
         _enabled = False
+        _span_counter = None
 
 
 def current() -> Optional[SpanContext]:

@@ -51,7 +51,8 @@ PLANES = {
 }
 NODE_INVARIANTS = {"checkpoint_vs_podresources", "annotation_vs_kubelet",
                    "attribution_vs_kubelet", "gauge_vs_state", "orphaned_chip",
-                   "thread_liveness", "lock_order", "degraded_consistency"}
+                   "thread_liveness", "lock_order", "loop_inventory",
+                   "degraded_consistency"}
 
 
 @pytest.fixture(scope="module")
@@ -310,9 +311,7 @@ def test_e2e_clean_cluster_zero_findings_across_two_sweeps(node_stack):
     snap = s.engine.snapshot()
     assert snap["errors"] == {}
     invariants = {i["name"] for i in snap["invariants"]}
-    # The JAX set adds loop_inventory, not ported yet.
-    assert invariants == (NODE_INVARIANTS if s.name == "torch"
-                          else NODE_INVARIANTS | {"loop_inventory"})
+    assert invariants == NODE_INVARIANTS
 
 
 def test_e2e_stale_annotation_fires_and_clears(node_stack):

@@ -9,10 +9,9 @@ the holds (an undrained lapse included), the defrag plane's open
 the sweeps, and the placeable recount over the index's aggregate (a seeded
 corrupt gauge, corrupt counts and a corrupt entry tuple each found, a clean
 index found clean). The port's set is the three invariants of the gang
-plane, ``placeable_recount`` with the index, and the shared three;
+plane, ``placeable_recount`` with the index, and the shared four;
 ``defrag_vs_reservations`` joins them where a defrag engine is wired (the
-JAX plane registers it with any journal), and the JAX ``loop_inventory``
-comes with the registry lint.
+JAX plane registers it with any journal).
 """
 
 import dataclasses
@@ -39,8 +38,8 @@ from tests.torch_extender_planes import (
 
 PORT_INVARIANTS = {"reservation_vs_journal", "reservation_vs_cluster", "gate_vs_hold",
                    "placeable_recount", "thread_liveness", "lock_order",
-                   "degraded_consistency"}
-JAX_ONLY = {"defrag_vs_reservations", "loop_inventory"}
+                   "loop_inventory", "degraded_consistency"}
+JAX_ONLY = {"defrag_vs_reservations"}
 
 
 @pytest.fixture(scope="module")

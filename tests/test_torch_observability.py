@@ -338,7 +338,7 @@ def test_cli_daemon_serves_the_observability_plane(tmp_path):
         assert audit["enabled"] and audit["findings"] == [] and audit["errors"] == {}
         assert {i["name"] for i in audit["invariants"]} == {
             "checkpoint_vs_podresources", "annotation_vs_kubelet", "attribution_vs_kubelet",
-            "gauge_vs_state", "orphaned_chip", "thread_liveness", "lock_order",
+            "gauge_vs_state", "orphaned_chip", "thread_liveness", "lock_order", "loop_inventory",
             "degraded_consistency"}
         assert len(tel["chips"]) == 2 and tel["node"]["free"] == 2
         assert set(get("/debug").json()["endpoints"]) == PORT_DEBUG

@@ -160,9 +160,9 @@ print(len(names), len(new), bad)
         [sys.executable, "-c", code], capture_output=True, text=True,
         timeout=120, cwd=ROOT, env=env, check=True,
     ).stdout.split()
-    # every module of the port was imported, the node daemon's and tools' 44 among them
-    # (the operator's six tools of PR 17 included, and tools/defrag.py)
-    assert int(out[0]) >= 75 and int(out[1]) == 44
+    # every module of the port was imported, the node daemon's and tools' 45 among them
+    # (the operator's six tools included, tools/defrag.py and tools/lint.py)
+    assert int(out[0]) >= 75 and int(out[1]) == 45
     assert out[2:] == ["[]"]
 
 
