@@ -356,8 +356,10 @@ caught while the run goes on:
    shows its ``gang_waiting`` record with the shortfall; once released (3),
    both report the release, ``tpu-doctor fleet --kubeconfig`` lists one row,
    the extender from its lease, at the holder's address (the fixed
-   HOSTNAME, ``127.0.0.1``), healthy, exit 0, and ``tpu-doctor bundle --url
-   --journal-dir`` holds the journal's metadata (clean). One line
+   HOSTNAME, ``127.0.0.1``), healthy, exit 0, ``tpu-doctor bundle --url
+   --journal-dir`` holds the journal's metadata (clean), and ``tpu-simreport
+   report --url`` prints the extender's ``/debug/simreport`` (no replay in
+   its process: ``enabled: false`` and the simulator's note). One line
    with every time beside the card's name and power limit; the times are
    the host CPU's except the pod's step, which stands beside phase 5's.
 20. Sharded gang admission (host code; a taken-over gang's member runs the
@@ -532,6 +534,18 @@ caught while the run goes on:
    Two clean sweeps of the restarted extender; SIGTERM ends it and the
    daemon with code 0. One line with every time beside the card's name and
    power limit.
+
+25. The scheduling-quality simulator (host code only; no card work): in
+   their own processes ``python -m k8s_device_plugin_tpu_torch.tools.simreport
+   --self-test`` (exit 0, a deterministic replay) and ``run --json`` over the
+   four canned traces, each scorecard's sha256 equal to the port's golden
+   (``extender/sim_traces/golden.json``, written on a CPU) and every delta
+   0: the replay is the same on this machine's interpreter. Then each
+   canned trace replayed in this process, timed, its bytes equal to the
+   CLI's, and ``hgx_su`` (one DGX SuperPOD scalable unit: 32 nodes of 8
+   cards, 480 ticks of 60 s) replayed twice, byte-identical. One line per
+   replay: trace, wall s, arrivals, admitted ratio, utilisation, evictions,
+   sha256, and the card's name and power limit.
 
 Then one ``{"tools": ...}`` line: the card's name and power limit, and
 each tool run of phases 16, 19 and 21 to 23 with its phase, exit code and
@@ -3415,8 +3429,16 @@ def extender_tools(base: str, kubeconfig: Path, journal_dir: Path, work: Path,
     if (journal.get("status") != "clean" or "admission.journal" not in journal.get("files", {})
             or journal.get("records_past_snapshot", 0) < 1):
         gang_fail(f"the doctor's bundle's journal metadata: {journal}")
+    # No replay ran in the extender's process: /debug/simreport says so.
+    from k8s_device_plugin_tpu_torch.extender import simulator
+
+    report = run_tool("gang", "simreport", "report", "--url", base)
+    note = simulator.debug_snapshot()["note"]
+    if report.returncode != 0 or report.stdout.strip() != f"simreport: {note}":
+        tool_fail(report, "tpu-simreport report --url", gang_fail)
     return {"fleet_row": rows[0], "journal": {k: journal[k] for k in (
-        "status", "seq", "records_past_snapshot", "has_snapshot")}}
+        "status", "seq", "records_past_snapshot", "has_snapshot")},
+        "simreport": report.stdout.strip()}
 
 
 def phase_gang(main_report: dict) -> dict:
@@ -5636,6 +5658,83 @@ def phase_brownout(main_report: dict) -> dict:
     return launches
 
 
+# The port's traces: the four canned ones its golden covers, and hgx_su.
+SIM_TRACES = PACKAGE / "extender" / "sim_traces"
+
+
+def phase_simulator() -> None:
+    """Phase 25: ``tpu-simreport --self-test`` and ``run --json`` in their own
+    processes, every canned scorecard's sha256 against the port's golden;
+    then each canned trace and ``hgx_su`` (twice) replayed in this process,
+    timed. One line per run, the card's name and power limit on each."""
+    import hashlib
+    import logging
+
+    from k8s_device_plugin_tpu_torch.extender import simulator
+
+    smi = nvidia_smi()
+    cli = [sys.executable, "-m", "k8s_device_plugin_tpu_torch.tools.simreport"]
+    t0 = time.monotonic()
+    out = subprocess.run(cli + ["--self-test"], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    wall = time.monotonic() - t0
+    lines = out.stdout.strip().splitlines()
+    verdict = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else {}
+    emit({"simulator": {"run": "self_test", "rc": out.returncode, "wall_s": wall, **verdict,
+                        "nvidia_smi": smi}})
+    if out.returncode != 0 or verdict.get("simulator_self_test") != "ok":
+        fail(f"tpu-simreport --self-test exited {out.returncode}:\n{out.stdout[-3000:]}\n"
+             f"{out.stderr[-3000:]}")
+    golden = simulator.load_golden()
+    if golden is None or set(golden["traces"]) != set(simulator.CANNED_TRACES):
+        fail(f"the port's golden {simulator.golden_path()} is missing or incomplete")
+    t0 = time.monotonic()
+    out = subprocess.run(cli + ["run", "--json"], cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    wall = time.monotonic() - t0
+    cards = [json.loads(line) for line in out.stdout.splitlines() if line.startswith("{")]
+    shas = {c["scorecard"]["trace"]: hashlib.sha256(
+        simulator.canonical_json(c["scorecard"]).encode()).hexdigest() for c in cards}
+    bad = {c["scorecard"]["trace"]: c["deltas"] for c in cards
+           if any(v != 0 for v in c["deltas"].values()) or not c["deltas"]}
+    mismatch = sorted(name for name in simulator.CANNED_TRACES
+                      if shas.get(name) != golden["traces"][name]["sha256"])
+    emit({"simulator": {"run": "run_json", "rc": out.returncode, "wall_s": wall,
+                        "traces": sorted(shas), "golden_mismatch": mismatch, "deltas_nonzero": bad,
+                        "nvidia_smi": smi}})
+    if out.returncode != 0 or mismatch or bad:
+        fail(f"tpu-simreport run --json: rc {out.returncode}, golden mismatch {mismatch}, "
+             f"deltas {bad}\n{out.stderr[-3000:]}")
+
+    def replay(name: str) -> tuple[dict, str]:
+        t0 = time.monotonic()
+        logging.disable(logging.WARNING)  # every round logs a line
+        try:
+            card = simulator.run_trace(str(SIM_TRACES / f"{name}.json"))
+        finally:
+            logging.disable(logging.NOTSET)
+        wall = time.monotonic() - t0
+        sha = hashlib.sha256(simulator.canonical_json(card).encode()).hexdigest()
+        score = card["score"]
+        emit({"simulator": {"trace": name, "wall_s": wall, "arrivals": card["arrivals"],
+                            "admitted_ratio": score["admitted_ratio"],
+                            "utilization": score["utilization"],
+                            "evictions": score["evictions_total"], "sha256": sha,
+                            "nvidia_smi": smi}})
+        return card, sha
+
+    for name in simulator.CANNED_TRACES:
+        _card, sha = replay(name)
+        if sha != shas[name]:
+            fail(f"{name} replayed in this process reads {sha}, the CLI's {shas[name]}")
+    first, sha_a = replay("hgx_su")
+    _again, sha_b = replay("hgx_su")
+    if sha_a != sha_b:
+        fail(f"hgx_su's two replays differ: {sha_a} and {sha_b}")
+    if first["arrivals"]["admitted"] <= 0:
+        fail(f"hgx_su admitted nothing: {first['arrivals']}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA "
@@ -5675,6 +5774,7 @@ def main() -> int:
     defrag_launches = phase_defrag(main_report)
     rescue_launches = phase_rescue(main_report)
     brownout_launches = phase_brownout(main_report)
+    phase_simulator()
     dist.destroy_process_group()
     path_launches = {name: (launches[name], steps) for name in FLASH}
     path_launches["rmsnorm"] = (norm_launches["rmsnorm"], norm_steps)

@@ -2,7 +2,8 @@
 ported slice by slice. It holds the filter/score plane (``server``,
 ``index``, ``reservations``) and gang admission (``gang``) with its
 write-ahead journal (``journal``), its singleton lease (``leader``), sharded
-admission (``sharding``, ``holdscodec``) and the eviction planes:
-``preemption``, ``defrag`` and ``rescue``. The simulator comes with a later
-slice. It imports neither ``torch`` nor ``jax``: a scheduler pod holds no
-card."""
+admission (``sharding``, ``holdscodec``), the eviction planes
+(``preemption``, ``defrag`` and ``rescue``) and the scheduling-quality
+simulator that replays traces through them (``simulator``, its traces in
+``sim_traces/``). The scale bench comes with a later slice. It imports
+neither ``torch`` nor ``jax``: a scheduler pod holds no card."""

@@ -32,7 +32,8 @@ three layers.
 
 * **Execution.** :class:`DefragEngine` coordinates with the checkpoint
   beacon (``workload/beacon.py``: a plan whose victims lack a fresh save is
-  held one tick, ``CHECKPOINT_WAIT_TICKS``, so a save in flight can land),
+  held ``checkpoint_wait_ticks``, one by default, so a save in flight can
+  land),
   evicts through the preemption plane's one door (``evict_gang_pod``), and
   journals the round in two phases: ``defrag_intent``, the evictions,
   ``defrag_evicted``, the freed cards fenced under the stranded gang's key,
@@ -70,7 +71,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from ..api import constants
 from ..topology.placement import placeable_sizes
@@ -155,8 +156,9 @@ class StrandedDemandDetector:
     which an HTTP handler thread reads."""
 
     def __init__(self, stranded_ticks: int = DEFAULT_STRANDED_TICKS,
-                 shard: Optional[int] = None):
+                 shard: Optional[int] = None, *, clock: Callable[[], float] = time.time):
         self.stranded_ticks = max(1, stranded_ticks)
+        self._clock = clock
         self._lock = threading.Lock()
         # The gauge is process-wide and one detector runs per admitter: its
         # series carry the shard ("" unsharded), so a detector prunes only
@@ -173,7 +175,7 @@ class StrandedDemandDetector:
         with self._lock:
             st = self._state.get(key)
             if st is None or st["size"] != size:
-                st = {"size": size, "ticks": 0, "since": time.time()}
+                st = {"size": size, "ticks": 0, "since": self._clock()}
                 self._state[key] = st
             st["ticks"] += 1
             return st["ticks"]
@@ -202,7 +204,7 @@ class StrandedDemandDetector:
             metrics.STRANDED_DEMAND.set(count, size=size, shard=self._shard)
 
     def snapshot(self) -> List[dict]:
-        now = time.time()
+        now = self._clock()
         with self._lock:
             items = sorted((k, dict(st)) for k, st in self._state.items())
         return [{"namespace": k[0], "gang": k[1], "size": st["size"], "ticks": st["ticks"],
@@ -371,7 +373,7 @@ class DefragPlanner(PreemptionPlanner):
                 consumed=dict(consumed), relocation=dict(relocation),
                 placeable_before=list(placeable_sizes(topology, target.available)),
                 placeable_after=list(placeable_sizes(topology, after.available)),
-                created_ts=time.time())
+                created_ts=self._clock())
         return None
 
 
@@ -396,16 +398,25 @@ class DefragEngine:
         stranded_ticks: int = DEFAULT_STRANDED_TICKS,
         max_evictions_per_hour: int = DEFAULT_MAX_EVICTIONS_PER_HOUR,
         max_concurrent: int = DEFAULT_MAX_CONCURRENT,
+        *,
+        planner: Optional[DefragPlanner] = None,
+        checkpoint_wait_ticks: int = CHECKPOINT_WAIT_TICKS,
+        clock: Callable[[], float] = time.time,
     ):
         self.admission = admission
-        self.planner = DefragPlanner(resolver, resource_name=admission.resource_name)
+        self.planner = planner or DefragPlanner(resolver, resource_name=admission.resource_name)
         shard = getattr(admission, "shard_id", None)
         # "" is the unsharded singleton; per-shard series keep several
         # engines on one registry from overwriting each other.
         self._shard_label = "" if shard is None else str(shard)
-        self.detector = StrandedDemandDetector(stranded_ticks, shard=shard)
+        self.detector = StrandedDemandDetector(stranded_ticks, shard=shard, clock=clock)
         self.max_evictions_per_hour = max(0, max_evictions_per_hour)
         self.max_concurrent = max(1, max_concurrent)
+        # The extender's entry point passes none of the three keyword options:
+        # only the simulator (extender/simulator.py) replays a trace's wait,
+        # its own planner and its virtual clock.
+        self.checkpoint_wait_ticks = max(0, checkpoint_wait_ticks)
+        self._clock = clock
         # Guards _evictions and _open: the tick thread mutates them, the
         # /debug/defrag snapshot reads them from an HTTP thread (an unlocked
         # prune racing a spend could drop a stamp and overrun the budget).
@@ -445,7 +456,7 @@ class DefragEngine:
         self._budget_reported.discard(key)
 
     def budget_remaining(self) -> int:
-        now = time.time()
+        now = self._clock()
         with self._lock:
             self._evictions = [t for t in self._evictions if now - t < BUDGET_WINDOW_S]
             return max(0, self.max_evictions_per_hour - len(self._evictions))
@@ -453,7 +464,7 @@ class DefragEngine:
     def spend_window(self) -> List[float]:
         """The budget window, for the compaction snapshot (gang.py
         ``_journal_state``)."""
-        now = time.time()
+        now = self._clock()
         with self._lock:
             return [t for t in self._evictions if now - t < BUDGET_WINDOW_S]
 
@@ -469,14 +480,14 @@ class DefragEngine:
         engine): a crash-looping extender must not grant itself a fresh
         budget each restart. A plain merge, not a set union: two evictions at
         one clock reading are two stamps."""
-        now = time.time()
+        now = self._clock()
         with self._lock:
             self._evictions = sorted(
                 self._evictions + [float(t) for t in stamps if now - float(t) < BUDGET_WINDOW_S])
 
     def _outcome(self, outcome: str) -> None:
         self.last_outcome = outcome
-        self.last_outcome_ts = time.time()
+        self.last_outcome_ts = self._clock()
 
     # -- the round ---------------------------------------------------------
 
@@ -550,12 +561,12 @@ class DefragEngine:
             self.admission.mark_dirty(key, source="defrag")
             return None
         # Checkpoint coordination: with a victim past its fresh save, hold
-        # the plan (up to CHECKPOINT_WAIT_TICKS an episode) so a save in
+        # the plan (up to checkpoint_wait_ticks an episode) so a save in
         # flight can land; each plan again reads the newer recency.
         stale = [v for v in plan.victims
                  if v.checkpoint_age_s is None or v.checkpoint_age_s > CHECKPOINT_FRESH_S]
         waited = self._ckpt_waits.get(key, 0)
-        if stale and waited < CHECKPOINT_WAIT_TICKS:
+        if stale and waited < self.checkpoint_wait_ticks:
             self._ckpt_waits[key] = waited + 1
             self.admission.mark_dirty(key, source="defrag")  # one resync, not one sweep
             metrics.DEFRAG_PLANS.inc(outcome="deferred")
@@ -577,7 +588,7 @@ class DefragEngine:
         journal = self.admission.journal
         payload = {"phase": "intent", "victims": plan.victim_keys(),
                    "consumed": dict(plan.consumed), "demands": list(plan.demands),
-                   "priority": plan.priority, "ts": time.time()}
+                   "priority": plan.priority, "ts": self._clock()}
         # Phase 1: the intent is durable before anything irreversible.
         with self._lock:
             self._open[key] = payload
@@ -599,7 +610,7 @@ class DefragEngine:
                     break
                 # Every executed eviction spends, a blocked round's partial
                 # victim's too: those pods are gone.
-                spent.append(time.time())
+                spent.append(self._clock())
                 with self._lock:
                     self._evictions.append(spent[-1])
             if blocked:
@@ -638,7 +649,7 @@ class DefragEngine:
                           "apiserver); round aborted, re-planned next tick", gang=gang_key)
             self._outcome("aborted")
             return None
-        payload = dict(payload, phase="evicted", ts=time.time())
+        payload = dict(payload, phase="evicted", ts=self._clock())
         with self._lock:
             self._open[key] = payload
         if journal is not None:
@@ -709,7 +720,7 @@ class DefragEngine:
                        "max_concurrent": self.max_concurrent,
                        "window_s": BUDGET_WINDOW_S},
             "checkpoint": {"fresh_s": CHECKPOINT_FRESH_S,
-                           "wait_ticks": CHECKPOINT_WAIT_TICKS},
+                           "wait_ticks": self.checkpoint_wait_ticks},
             "open_rounds": [{"requestor": f"{k[0]}/{k[1]}", "phase": p.get("phase"),
                              "consumed": dict(p.get("consumed") or {})}
                             for k, p in sorted(self.open_intents().items())],
@@ -816,9 +827,9 @@ def self_test() -> int:
     import shutil
     import tempfile
 
+    from ..topology.schema import hgx_topology
     from .gang import GANG_SIZE_LABEL, GATE_NAME, GangAdmission
     from .journal import AdmissionJournal
-    from .preemption import _hgx_topology
     from .reservations import ReservationTable
 
     class FakeClient:
@@ -880,7 +891,7 @@ def self_test() -> int:
         client = FakeClient()
         topos = []
         for name in ("n1", "n2"):
-            t = _hgx_topology(name)
+            t = hgx_topology(name, 4)
             topos.append(dataclasses.replace(t, available=[t.chips[0].id, t.chips[2].id]))
         now = time.time()
         # The victim: a batch gang that saved 5 s ago, on n1's other two

@@ -346,12 +346,16 @@ class PreemptionPlanner:
         resolver: PriorityResolver,
         resource_name: str = constants.RESOURCE_NAME,
         duty_source: Optional[Callable[[], Dict[str, float]]] = None,
+        clock: Callable[[], float] = time.time,
     ):
         self.resolver = resolver
         self.resource_name = resource_name
         # () -> {gang label or "ns/name" -> mean duty %}; by default this
         # process's telemetry sampler (empty off the node).
         self.duty_source = duty_source or telemetry_duty_source
+        # The checkpoint ages' "now": the wall clock, or a replay's virtual
+        # one (extender/simulator.py).
+        self._clock = clock
 
     # -- victim discovery --------------------------------------------------
 
@@ -366,7 +370,7 @@ class PreemptionPlanner:
         except Exception:  # noqa: BLE001 - cost telemetry is advisory
             log.exception("preemption duty source failed")
             duty = {}
-        now = time.time()
+        now = self._clock()
         out: List[Victim] = []
         for key, gv in gangs.items():
             if key == exclude:
@@ -470,11 +474,18 @@ class PreemptionEngine:
     journaled round). Budgeted per tick, so one starved high-tier gang
     cannot evict the cluster in one pass."""
 
-    def __init__(self, admission, resolver: PriorityResolver, rounds_per_tick: int = 1):
+    def __init__(self, admission, resolver: PriorityResolver, rounds_per_tick: int = 1, *,
+                 planner: Optional[PreemptionPlanner] = None,
+                 min_preemptor_priority: int = MIN_PREEMPTOR_PRIORITY):
         self.admission = admission
         self.resolver = resolver
-        self.planner = PreemptionPlanner(resolver, resource_name=admission.resource_name)
+        self.planner = planner or PreemptionPlanner(resolver,
+                                                    resource_name=admission.resource_name)
         self.rounds_per_tick = rounds_per_tick
+        # The extender's entry point passes neither: only the simulator
+        # (extender/simulator.py) replays another floor or its own planner on
+        # the virtual clock.
+        self.min_preemptor_priority = min_preemptor_priority
         self._rounds_left = rounds_per_tick
         # Open two-phase rounds, preemptor -> plan payload: what the
         # compaction snapshot carries (gang._journal_state reads it through
@@ -518,7 +529,7 @@ class PreemptionEngine:
             demands = [gpu_request(pod, resource)]
             priority = self.resolver.pod_priority(pod)
         demands = [d for d in demands if d > 0]
-        if not demands or priority < MIN_PREEMPTOR_PRIORITY:
+        if not demands or priority < self.min_preemptor_priority:
             return {"nodeNameToMetaVictims": {}}
         topos = self.admission._node_topologies()
         self.admission.reservations.apply(topos)
@@ -540,7 +551,7 @@ class PreemptionEngine:
         is the caller's complete gang map when it has one (a full sweep), so
         victim discovery costs no further LIST; None (a dirty tick) collects
         it here, only after the cheap entitlement checks passed."""
-        if priority < MIN_PREEMPTOR_PRIORITY:
+        if priority < self.min_preemptor_priority:
             return None
         if self._rounds_left <= 0:
             return None
@@ -680,29 +691,6 @@ def post_victim_event(client, victim: Victim, reason: str, message: str) -> None
 # -- self-test ---------------------------------------------------------------
 
 
-class _HgxLinks:
-    """The link backend of a synthetic HGX board: every pair NV18 through
-    NVSwitches."""
-
-    @staticmethod
-    def pair_link(a: int, b: int):
-        return (18, None)
-
-
-def _hgx_topology(name: str, cards: int = 4):
-    """A synthetic HGX node of ``cards`` H100s as its daemon would publish
-    it with every card held."""
-    from ..discovery.chips import GpuChip
-    from ..topology.links import LinkTopology
-    from ..topology.schema import NodeTopology
-
-    chips = [GpuChip(index=i, uuid=f"GPU-{name}-{i}", name="NVIDIA H100 80GB HBM3",
-                     dev_path=f"/dev/nvidia{i}", pci_addr="", numa_node=0, chip_type="H100",
-                     hbm_bytes=80 * 2 ** 30) for i in range(cards)]
-    return NodeTopology.from_topology(LinkTopology(chips, _HgxLinks()), hostname=name,
-                                      available=[])
-
-
 def self_test() -> int:
     """One round end to end: two 4-card HGX nodes held by two batch gangs,
     a critical gang arrives gated; one tick plans, evicts the cheaper
@@ -713,6 +701,7 @@ def self_test() -> int:
     import shutil
     import tempfile
 
+    from ..topology.schema import hgx_topology
     from ..utils import statestore
     from .gang import GANG_SIZE_LABEL, GATE_NAME, GangAdmission
     from .journal import AdmissionJournal
@@ -783,7 +772,7 @@ def self_test() -> int:
     try:
         client = FakeClient()
         # Two 4-card HGX nodes, every card held by two batch gangs.
-        topos = [_hgx_topology(n) for n in ("n1", "n2")]
+        topos = [hgx_topology(n, 4, available=[]) for n in ("n1", "n2")]
         now = time.time()
         for gang, node, ckpt in (("batch-a", "n1", now - 5),       # saved 5 s ago
                                  ("batch-b", "n2", now - 3000)):   # 50 min unsaved

@@ -117,7 +117,8 @@ class NodeStateTracker:
 
     _STATE_KEYS = ("ready", "unschedulable", "maintenance", "draining")
 
-    def __init__(self):
+    def __init__(self, clock: Callable[[], float] = time.time):
+        self._clock = clock
         self._lock = threading.Lock()
         # name -> {"ready", "unschedulable", "maintenance", "draining", "since"}
         self._nodes: Dict[str, dict] = {}
@@ -146,7 +147,7 @@ class NodeStateTracker:
         with self._lock:
             prev = self._nodes.get(name)
             same = prev is not None and all(prev[k] == st[k] for k in self._STATE_KEYS)
-            st["since"] = prev["since"] if same else time.time()
+            st["since"] = prev["since"] if same else self._clock()
             self._nodes[name] = st
         self._publish(name, st)
 
@@ -184,7 +185,7 @@ class NodeStateTracker:
             return st is not None and st["draining"]
 
     def snapshot(self) -> List[dict]:
-        now = time.time()
+        now = self._clock()
         with self._lock:
             items = sorted((n, dict(st)) for n, st in self._nodes.items())
         return [{"node": n, "ready": st["ready"], "unschedulable": st["unschedulable"],
@@ -211,15 +212,23 @@ class RescueEngine:
         tracker: Optional[NodeStateTracker] = None,
         grace_ticks: int = DEFAULT_GRACE_TICKS,
         max_evictions_per_hour: int = DEFAULT_MAX_EVICTIONS_PER_HOUR,
+        *,
+        planner: Optional[PreemptionPlanner] = None,
+        clock: Callable[[], float] = time.time,
     ):
         self.admission = admission
         # The target proof and the victims are the preemption planner's (the
         # same Victim, cost ranking and minimal-set search): the three
         # eviction planes' "cheapest" must agree.
-        self.planner = PreemptionPlanner(resolver, resource_name=admission.resource_name)
+        self.planner = planner or PreemptionPlanner(resolver,
+                                                    resource_name=admission.resource_name)
         self.tracker = tracker
         self.grace_ticks = max(1, grace_ticks)
         self.max_evictions_per_hour = max(0, max_evictions_per_hour)
+        # The extender's entry point passes neither keyword option: only the
+        # simulator (extender/simulator.py) replays with its own planner and
+        # its virtual clock.
+        self._clock = clock
         # Guards _open, _evictions, _degraded, _pending and _rescued_at: the
         # tick thread writes them, /debug/rescue and the auditor read them.
         self._lock = threading.Lock()
@@ -260,7 +269,7 @@ class RescueEngine:
         upkeep keeps the pod-less hold until the replacements release
         against it, and the gang keeps its place across the crash."""
         with self._lock:
-            self._rescued_at[key] = time.time()
+            self._rescued_at[key] = self._clock()
 
     def note_admitted(self, key: GangKey) -> None:
         """The gang's episode ended (rescued, healed, vanished, reshaped):
@@ -275,7 +284,7 @@ class RescueEngine:
         episodes of vanished gangs go. A just-rescued gang has no pods until
         its controller recreates them and its entry is the shield of its
         fence, so _rescued_at is pruned only by the boost window's end."""
-        now = time.time()
+        now = self._clock()
         with self._lock:
             for k in list(self._degraded):
                 if k not in live_keys:
@@ -296,7 +305,7 @@ class RescueEngine:
             if key in self._open:
                 return True
             ts = self._rescued_at.get(key)
-            return ts is not None and time.time() - ts <= BOOST_WINDOW_S
+            return ts is not None and self._clock() - ts <= BOOST_WINDOW_S
 
     def admit_boost(self, key: GangKey) -> int:
         """The tick's order within a tier: 0 (first) for a gang rescued
@@ -305,7 +314,7 @@ class RescueEngine:
             ts = self._rescued_at.get(key)
             if ts is None:
                 return 1
-            if time.time() - ts > BOOST_WINDOW_S:
+            if self._clock() - ts > BOOST_WINDOW_S:
                 self._rescued_at.pop(key, None)
                 return 1
             return 0
@@ -319,7 +328,7 @@ class RescueEngine:
         defrag = getattr(self.admission, "defrag", None)
         if defrag is not None:
             return defrag.budget_remaining()
-        now = time.time()
+        now = self._clock()
         with self._lock:
             self._evictions = [t for t in self._evictions if now - t < BUDGET_WINDOW_S]
             return max(0, self.max_evictions_per_hour - len(self._evictions))
@@ -336,14 +345,14 @@ class RescueEngine:
         """Rehydrate the window on recovery when this engine owns it (no
         defrag engine wired; otherwise gang.recover seeds defrag's, which
         budget_remaining reads). The same plain merge as defrag's."""
-        now = time.time()
+        now = self._clock()
         with self._lock:
             self._evictions = sorted(
                 self._evictions + [float(t) for t in stamps if now - float(t) < BUDGET_WINDOW_S])
 
     def _outcome(self, outcome: str) -> None:
         self.last_outcome = outcome
-        self.last_outcome_ts = time.time()
+        self.last_outcome_ts = self._clock()
 
     # -- detection ---------------------------------------------------------
 
@@ -441,7 +450,7 @@ class RescueEngine:
         with self._lock:
             st = self._degraded.get(key)
             if st is None or set(st["hosts"]) != set(degraded):
-                st = {"hosts": dict(degraded), "ticks": 0, "since": time.time()}
+                st = {"hosts": dict(degraded), "ticks": 0, "since": self._clock()}
                 self._degraded[key] = st
             st["ticks"] += 1
             ticks, since = st["ticks"], st["since"]
@@ -531,7 +540,7 @@ class RescueEngine:
         with self._lock:
             st = self._pending.get(key)
             if st is None:
-                st = self._pending[key] = {"since": time.time(), "reason": reason}
+                st = self._pending[key] = {"since": self._clock(), "reason": reason}
             st["reason"] = reason
         if key not in self._pending_reported:
             self._pending_reported.add(key)
@@ -551,7 +560,7 @@ class RescueEngine:
         journal = self.admission.journal
         payload = {"phase": "intent", "victims": [[v.key[0], v.key[1]] for v in victims],
                    "consumed": dict(consumed), "demands": sorted(int(d) for d in demands),
-                   "priority": priority, "ts": time.time()}
+                   "priority": priority, "ts": self._clock()}
         # Phase 1: the intent is durable before anything irreversible.
         with self._lock:
             self._open[key] = payload
@@ -571,7 +580,7 @@ class RescueEngine:
                                       p.get("name", "")):
                     blocked = True
                     break
-                spent.append(time.time())
+                spent.append(self._clock())
                 self._spend(spent[-1])
             if blocked:
                 break
@@ -583,8 +592,8 @@ class RescueEngine:
                           victim_tier=v.tier, victim_priority=v.priority, chips=v.total_chips)
             post_victim_event(
                 self.admission.client, v, reason=VICTIM_EVENT_REASON,
-                message=(f"gang {v.key[0]}/{v.key[1]} evicted to free a relocation target for "
-                         f"gang {gang_key}, whose GPU hardware failed"))
+                message=(f"gang {v.key[0]}/{v.key[1]} evicted to free a relocation target "
+                         f"for gang {gang_key}, whose GPU hardware failed"))
         if spent and journal is not None:
             # The shared budget's spend survives a restart through the op
             # defrag uses: the replay folds both planes' stamps into one
@@ -610,7 +619,7 @@ class RescueEngine:
                           "rescue aborted, re-planned next tick", gang=gang_key)
             self._outcome("eviction_blocked")
             return None
-        payload = dict(payload, phase="evicted", ts=time.time())
+        payload = dict(payload, phase="evicted", ts=self._clock())
         with self._lock:
             self._open[key] = payload
         if journal is not None:
@@ -628,11 +637,11 @@ class RescueEngine:
             self._open.pop(key, None)
             for h in degraded:
                 self._tick_evacuated[h] = self._tick_evacuated.get(h, 0) + bound.get(h, 0)
-            self._rescued_at[key] = time.time()
+            self._rescued_at[key] = self._clock()
         if journal is not None:
             journal.record("rescue_done", key)
         self.note_admitted(key)
-        latency = max(0.0, time.time() - since)
+        latency = max(0.0, self._clock() - since)
         metrics.RESCUES.inc(outcome="executed", tier=tier_label(priority))
         metrics.RESCUE_LATENCY.observe(latency)
         reasons = ",".join(f"{h}:{r}" for h, r in sorted(degraded.items()))
@@ -667,7 +676,7 @@ class RescueEngine:
 
     def snapshot(self) -> dict:
         """This engine's /debug/rescue payload."""
-        now = time.time()
+        now = self._clock()
         with self._lock:
             degraded = [{"gang": f"{k[0]}/{k[1]}", "hosts": dict(st["hosts"]),
                          "ticks": st["ticks"], "grace_ticks": self.grace_ticks,
@@ -822,9 +831,9 @@ def self_test() -> int:
     import shutil
     import tempfile
 
+    from ..topology.schema import hgx_topology
     from .gang import GANG_SIZE_LABEL, GATE_NAME, GangAdmission
     from .journal import AdmissionJournal
-    from .preemption import _hgx_topology
     from .reservations import ReservationTable
 
     class FakeClient:
@@ -883,7 +892,7 @@ def self_test() -> int:
     d = tempfile.mkdtemp(prefix="gpu-rescue-selftest-")
     try:
         client = FakeClient()
-        base = {n: _hgx_topology(n) for n in ("n1", "n2")}
+        base = {n: hgx_topology(n, 4, available=[]) for n in ("n1", "n2")}
         # A full cluster; the cells let the withdrawal below reach every
         # later tick.
         failed: Dict[str, List[str]] = {"n1": [], "n2": []}

@@ -829,22 +829,6 @@ def pick_key(ring: ShardRing, shard: int, template: str) -> str:
     raise RuntimeError("keyspace search failed")
 
 
-def _hgx_topology(host: str, cards: int):
-    """A node of ``cards`` H100s, every pair NV18, all free."""
-    from ..topology.links import score_for
-    from ..topology.schema import SCHEMA_VERSION, CardInfo, NodeTopology, PairInfo
-
-    chips = [CardInfo(id=f"GPU-{host}-{i}", index=i, minor=i, dev_path=f"/dev/nvidia{i}",
-                      pci_addr="", numa_node=0, hbm_bytes=80 << 30,
-                      name="NVIDIA H100 80GB HBM3") for i in range(cards)]
-    return NodeTopology(
-        version=SCHEMA_VERSION, hostname=host, chip_type="H100",
-        product="NVIDIA H100 80GB HBM3", chip_count=cards, numa_nodes=1, chips=chips,
-        pairs=[PairInfo(a=a.id, b=b.id, link="NV18", score=score_for(18, None))
-               for i, a in enumerate(chips) for b in chips[i + 1:]],
-        available=[c.id for c in chips])
-
-
 def self_test() -> int:
     """Two in-process shards over a fake API server: each admits only its
     own gang onto its own node; one is SIGKILLed mid-release, and the
@@ -855,6 +839,7 @@ def self_test() -> int:
     import tempfile
 
     from ..api import constants
+    from ..topology.schema import hgx_topology
     from .gang import GANG_NAME_LABEL, GANG_SIZE_LABEL, GATE_NAME, GangAdmission
     from .journal import AdmissionJournal
     from .reservations import ReservationTable
@@ -869,7 +854,7 @@ def self_test() -> int:
              for s in (0, 1)]
     for host in hosts:
         kube.nodes[host] = {"metadata": {"name": host, "annotations": {
-            constants.TOPOLOGY_ANNOTATION: _hgx_topology(host, 4).to_json()}}}
+            constants.TOPOLOGY_ANNOTATION: hgx_topology(host, 4).to_json()}}}
 
     def add_gang(gang: str) -> None:
         for i in range(2):

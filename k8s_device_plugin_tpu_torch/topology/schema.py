@@ -25,7 +25,7 @@ import platform
 from typing import List, Optional
 
 from ..discovery.chips import GpuChip
-from .links import PCIE_CLASSES, LinkTopology
+from .links import PCIE_CLASSES, LinkTopology, score_for
 
 SCHEMA_VERSION = 1
 
@@ -174,6 +174,23 @@ class _PublishedLinks:
 
     def pair_link(self, a: int, b: int):
         return self._links.get(frozenset((a, b)), (0, None))
+
+
+def hgx_topology(host: str, cards: int, available: Optional[List[str]] = None) -> NodeTopology:
+    """A synthetic HGX node of ``cards`` H100s as its daemon would publish
+    it: card ids ``GPU-<host>-<i>``, every pair NV18 through NVSwitches;
+    ``available`` its free card ids in the order given (every card when
+    None). The one builder of such nodes: the eviction planes' and
+    sharding's self-tests and the simulator's cluster."""
+    chips = [CardInfo(id=f"GPU-{host}-{i}", index=i, minor=i, dev_path=f"/dev/nvidia{i}",
+                      pci_addr="", numa_node=0, hbm_bytes=80 << 30,
+                      name="NVIDIA H100 80GB HBM3") for i in range(cards)]
+    return NodeTopology(
+        version=SCHEMA_VERSION, hostname=host, chip_type="H100",
+        product="NVIDIA H100 80GB HBM3", chip_count=cards, numa_nodes=1, chips=chips,
+        pairs=[PairInfo(a=a.id, b=b.id, link="NV18", score=score_for(18, None))
+               for a, b in itertools.combinations(chips, 2)],
+        available=[c.id for c in chips] if available is None else list(available))
 
 
 def _known(cls, d: dict) -> dict:

@@ -650,6 +650,60 @@ DEFRAG_BUDGET = EXTENDER_REGISTRY.gauge(
     "series would otherwise flap between shards); 0 = that shard's "
     "budget gate is closed",
 )
+# The scheduling-quality simulator (extender/simulator.py): decision quality
+# scored by trace replay through the real admission, preemption, defrag and
+# rescue stack. The families describe the last completed run of a named
+# trace (labelled by trace), not this process's live scheduling;
+# simulator.prune_metrics() drops them after a reader consumes a run. A
+# run's own event counters live on a run-local registry, never here: tpu-lint
+# TPL011 keeps a local registry from minting a production tpu_* name.
+SIM_RUNS = EXTENDER_REGISTRY.counter(
+    "tpu_sim_runs_total",
+    "Simulator trace replays completed in this process, by trace and "
+    "outcome (ok) — bench.py's scheduling_quality probe and "
+    "tpu-simreport both count here",
+)
+SIM_TIME_TO_ADMIT = EXTENDER_REGISTRY.gauge(
+    "tpu_sim_time_to_admit_seconds",
+    "Virtual seconds from gang arrival to admission in the last "
+    "replay of a trace, by trace, priority tier, and quantile "
+    "(p50/p99); warmup arrivals are excluded — tier inversion here "
+    "(batch admitted faster than critical under pressure) is the "
+    "regression the CI bounds catch",
+)
+SIM_UTILIZATION = EXTENDER_REGISTRY.gauge(
+    "tpu_sim_utilization_ratio",
+    "Bound chip-seconds over live capacity chip-seconds across the "
+    "whole replay, by trace (failed chips leave the denominator) — "
+    "the did-we-waste-the-cluster score",
+)
+SIM_FRAGMENTATION = EXTENDER_REGISTRY.gauge(
+    "tpu_sim_fragmentation_avg",
+    "Replay-average fragmentation, by trace: per tick, mean over "
+    "nodes with free chips of 1 - largest placeable box / free chips "
+    "(the stranded-demand precursor the defrag plane acts on)",
+)
+SIM_PREEMPTION_CHURN = EXTENDER_REGISTRY.gauge(
+    "tpu_sim_preemption_churn_cost",
+    "Total victim restart cost actually paid to preemption during "
+    "the replay, by trace (the PR-13 Victim.restart_cost model: duty "
+    "cycle + checkpoint staleness at eviction time) — cheap evictions "
+    "are the policy working, expensive ones are churn",
+)
+SIM_DEFRAG_EFFICIENCY = EXTENDER_REGISTRY.gauge(
+    "tpu_sim_defrag_efficiency_chips_per_eviction",
+    "Stranded-box chips made placeable per defrag eviction spent in "
+    "the replay, by trace (partial aborted rounds still count their "
+    "spend) — the value-per-disruption score of the defrag planner",
+)
+SIM_BASELINE_DELTA = EXTENDER_REGISTRY.gauge(
+    "tpu_sim_baseline_delta",
+    "Last replay's flat score minus the checked-in golden baseline "
+    "(extender/sim_traces/golden.json), by trace and score metric — "
+    "nonzero means the scheduling policy decided differently than "
+    "the baseline build; alert on the sign that hurts (see "
+    "docs/observability.md, Scheduling quality)",
+)
 RESCUES = EXTENDER_REGISTRY.counter(
     "tpu_extender_rescues_total",
     "Hardware-rescue rounds for RUNNING gangs on degraded capacity, "
@@ -1109,6 +1163,15 @@ DEBUG_ENDPOINTS: Dict[str, str] = {
         "shard admitter); enabled: false when the rescue plane is "
         "not wired"
     ),
+    "/debug/simreport": (
+        "scheduling-quality simulator scorecards "
+        "(extender/simulator.py): the last replay of each trace "
+        "completed in THIS process — scorecard, golden-baseline "
+        "deltas, and the canonical-JSON sha256 that proves replay "
+        "determinism; enabled: false until a run completes (the "
+        "bench scheduling_quality probe or tpu-simreport populate "
+        "it; a bare GET never runs a simulation)"
+    ),
     "/debug/readyz": (
         "readiness phase and index warm progress (extender: "
         "replaying|warming|ready with warm parsed/total, always 200; "
@@ -1181,6 +1244,10 @@ def debug_payload(path: str) -> Optional[bytes]:
             from ..extender import rescue
 
             return rescue.debug_snapshot()
+        if parsed.path == "/debug/simreport":
+            from ..extender import simulator
+
+            return simulator.debug_snapshot()
         if parsed.path == "/debug/profile":
             from . import profiling, stackprof
 

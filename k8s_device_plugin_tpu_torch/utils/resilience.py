@@ -958,11 +958,76 @@ def load_chaos_plan(path: str) -> dict:
     return plan
 
 
+# A chaos plan's fault keys: the fields of tests/fake_apiserver.py's Fault.
+FAULT_KEYS = frozenset(("kind", "status", "times", "method", "path_re", "token", "delay_s",
+                        "message", "retry_after_s", "duration_s", "after_events"))
+# Of those, the windows this reader does not act on: ``duration_s`` (expire
+# so many wall seconds after the first match) and ``after_events`` (drop a
+# watch after so many events). A non-zero value is refused, where it would
+# otherwise be a fault that never expires.
+WINDOW_KEYS = frozenset(("duration_s", "after_events"))
+
+
+class FaultPlan:
+    """The package's one reader of the chaos-plan shape (``{"name",
+    "faults": [...]}``), with its matcher: the hostile API server below and
+    the simulator's client (``extender/simulator.py``) both inject through
+    it. ``load`` refuses an unknown fault key, as the fake API server's
+    ``FaultInjector.load_plan`` does, so a typo fails loudly instead of
+    injecting nothing; it also refuses a window (``WINDOW_KEYS``). ``pick`` returns the first live fault whose
+    ``method`` and ``path_re`` match a request and consumes one of its
+    ``times`` (-1: until cleared). A fault naming a bearer ``token`` or a
+    ``watch_*`` kind never matches: neither reader serves a token or a
+    watch. Thread-safe: handler threads pick concurrently."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._faults: List[dict] = []
+
+    def load(self, plan: dict) -> None:
+        """Install ``plan``'s faults in place of any loaded before."""
+        faults = []
+        for spec in plan.get("faults") or []:
+            unknown = set(spec) - FAULT_KEYS
+            if unknown:
+                raise ValueError(f"chaos plan {plan.get('name', '?')!r}: unknown fault keys "
+                                 f"{sorted(unknown)}")
+            windows = sorted(k for k in WINDOW_KEYS if spec.get(k))
+            if windows:
+                raise ValueError(f"chaos plan {plan.get('name', '?')!r}: fault windows "
+                                 f"{windows} are not supported here")
+            faults.append(dict(spec))
+        with self._lock:
+            self._faults = faults
+
+    def clear(self) -> None:
+        with self._lock:
+            self._faults = []
+
+    def pick(self, method: str, path: str) -> Optional[dict]:
+        import re
+
+        with self._lock:
+            for f in self._faults:
+                if f.get("times", 1) == 0 or f.get("token"):
+                    continue
+                if str(f.get("kind", "status")).startswith("watch_"):
+                    continue
+                if f.get("method") and f["method"] != method:
+                    continue
+                if f.get("path_re") and not re.search(f["path_re"], path):
+                    continue
+                if f.get("times", 1) > 0:
+                    f["times"] = f.get("times", 1) - 1
+                return f
+        return None
+
+
 class _HostileApiServer:
     """Just enough apiserver for the resilience smoke: node list/get
-    (with topology annotations) and node PATCH, behind a fault plan
-    implementing the {status, reset, delay} subset of the chaos-plan
-    schema (retry_after_s adds the Retry-After header)."""
+    (with topology annotations) and node PATCH, behind a ``FaultPlan``
+    whose faults it acts on as {status, reset, delay} (retry_after_s adds
+    the Retry-After header)."""
 
     def __init__(self, nodes: List[dict]):
         import urllib.parse
@@ -971,7 +1036,7 @@ class _HostileApiServer:
         self.nodes = {n["metadata"]["name"]: n for n in nodes}
         self.node_patches: List[Tuple[str, dict]] = []
         self._lock = threading.Lock()
-        self._faults: List[dict] = []
+        self.plan = FaultPlan()
         outer = self
 
         class Handler(BaseHTTPRequestHandler):
@@ -989,7 +1054,7 @@ class _HostileApiServer:
                 self.wfile.write(data)
 
             def _fault(self, method: str) -> bool:
-                f = outer._pick(method, self.path)
+                f = outer.plan.pick(method, self.path)
                 if f is None:
                     return False
                 kind = f.get("kind", "status")
@@ -1068,28 +1133,10 @@ class _HostileApiServer:
         self._thread.join(timeout=5)
 
     def load_plan(self, plan: dict) -> None:
-        with self._lock:
-            self._faults = [dict(f) for f in plan.get("faults", [])]
+        self.plan.load(plan)
 
     def clear_faults(self) -> None:
-        with self._lock:
-            self._faults = []
-
-    def _pick(self, method: str, path: str) -> Optional[dict]:
-        import re
-
-        with self._lock:
-            for f in self._faults:
-                if f.get("times", 1) == 0:
-                    continue
-                if f.get("method") and f["method"] != method:
-                    continue
-                if f.get("path_re") and not re.search(f["path_re"], path):
-                    continue
-                if f.get("times", 1) > 0:
-                    f["times"] -= 1
-                return f
-        return None
+        self.plan.clear()
 
 
 class _SelfTestLinks:

@@ -368,26 +368,25 @@ def test_repo_scan_is_clean_modulo_baseline():
 
 
 def test_baseline_holds_exactly_the_decided_entries():
-    """The port's baseline: the statestore's two deliberate holds, a ghost
-    for each family with no twin by decision, and one for each simulator
-    family until the simulator lands. None covers a span counter: both are
-    registered."""
+    """The port's baseline: the statestore's two deliberate holds and a
+    ghost for each family with no twin by decision. The simulator's seven
+    families are registered (extender/simulator.py), so none of them has an
+    entry; none covers a span counter either: both are registered."""
     baseline = rules.load_baseline()
     keys = {(e["rule"], e["path"], e["key"]) for e in baseline}
-    assert len(keys) == len(baseline) == 14
+    assert len(keys) == len(baseline) == 7
     store = "k8s_device_plugin_tpu_torch/utils/statestore.py"
     assert keys == ({("TPL006", store, "lock:self._lock->os.fsync"),
                      ("TPL006", store, "lock:self._lock->open")}
-                    | {("TPL003", "docs/metrics.md", f"ghost:{fam}") for fam in NO_TWIN | SIMULATOR})
+                    | {("TPL003", "docs/metrics.md", f"ghost:{fam}") for fam in NO_TWIN})
     for e in baseline:
         fam = e["key"].removeprefix("ghost:")
         if fam in NO_TWIN:
             assert "no twin, by decision" in e["justification"]
-        if fam in SIMULATOR:
-            assert "extender/simulator.py" in e["justification"]
-        assert "trace_spans" not in e["key"]
+        assert "trace_spans" not in e["key"] and "tpu_sim_" not in e["key"]
     static = {v for v, _p, _l in scan.metric_family_sites()}
     assert {"tpu_plugin_trace_spans_total", "tpu_extender_trace_spans_total"} <= static
+    assert SIMULATOR <= static
 
 
 def test_scanner_static_metrics_equal_runtime_registries():

@@ -24,7 +24,7 @@ import time
 import pytest
 
 from k8s_device_plugin_tpu.tools import tputop as jax_tputop
-from k8s_device_plugin_tpu_torch.extender.preemption import _hgx_topology
+from k8s_device_plugin_tpu_torch.topology.schema import hgx_topology
 from k8s_device_plugin_tpu_torch.tools import tputop
 from tests import torch_fake_nvml as fk
 from tests.torch_extender_planes import (
@@ -521,7 +521,7 @@ def test_budget_window_survives_restart(plane, tmp_path):
 
 def hgx(name, free):
     """A synthetic 8-card HGX node with its first ``free`` cards free."""
-    t = _hgx_topology(name, cards=8)
+    t = hgx_topology(name, 8)
     return dataclasses.replace(t, available=[c.id for c in t.chips[:free]])
 
 

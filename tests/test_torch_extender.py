@@ -572,7 +572,9 @@ def test_extender_imports_no_torch_or_jax_in_a_fresh_process():
             "import k8s_device_plugin_tpu_torch.extender.preemption; "
             "import k8s_device_plugin_tpu_torch.extender.defrag; "
             "import k8s_device_plugin_tpu_torch.extender.rescue; "
+            "import k8s_device_plugin_tpu_torch.extender.simulator; "
             "import k8s_device_plugin_tpu_torch.tools.defrag; "
+            "import k8s_device_plugin_tpu_torch.tools.simreport; "
             "import k8s_device_plugin_tpu_torch.workload.beacon; "
             "import k8s_device_plugin_tpu_torch.audit; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax') "

@@ -7,7 +7,7 @@ torn tails and corruption (fuzzed), compaction's atomicity, the replay's
 semantics, the reservation table's observer and age-keeping restore, gang
 admission's recovery and the /readyz gate. 40 of the JAX file's 41 tests
 have a case; ``test_journal_overhead_probe_schema`` has none, since the
-scale bench it reads comes with the port's simulator slice.
+scale bench it reads is not ported yet.
 ``test_crash_recovery_docs_in_lockstep`` holds the port's own documents and
 manifest.
 

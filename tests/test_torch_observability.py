@@ -46,11 +46,11 @@ from tests.torch_kube_planes import stop_in_background
 
 ROOT = Path(__file__).resolve().parents[1]
 WAIT_S = 15
-# The surfaces the port serves; the extender's come with the extender.
+# The surfaces the port serves.
 PORT_DEBUG = {"/debug/traces", "/debug/events", "/debug/decisions", "/debug/telemetry",
               "/debug/audit", "/debug/resilience", "/debug/profile", "/debug/lockdep",
               "/debug/blackbox", "/debug/readyz", "/debug/shards", "/debug/defrag",
-              "/debug/rescue"}
+              "/debug/rescue", "/debug/simreport"}
 
 
 @pytest.fixture(scope="module")
@@ -177,7 +177,8 @@ def test_debug_index_lists_the_port_surfaces_and_404s_others():
     try:
         idx = requests.get(f"{url}/debug", timeout=5).json()
         assert set(idx["endpoints"]) == PORT_DEBUG
-        assert set(idx["endpoints"]) < set(jax_metrics.DEBUG_ENDPOINTS)
+        # With the simulator's /debug/simreport every JAX surface has its twin.
+        assert set(idx["endpoints"]) == set(jax_metrics.DEBUG_ENDPOINTS)
         for path in sorted(PORT_DEBUG):
             r = requests.get(f"{url}{path}", timeout=5)
             assert r.status_code == 200 and r.headers["Content-Type"] == "application/json"

@@ -160,9 +160,10 @@ print(len(names), len(new), bad)
         [sys.executable, "-c", code], capture_output=True, text=True,
         timeout=120, cwd=ROOT, env=env, check=True,
     ).stdout.split()
-    # every module of the port was imported, the node daemon's and tools' 45 among them
-    # (the operator's six tools included, tools/defrag.py and tools/lint.py)
-    assert int(out[0]) >= 75 and int(out[1]) == 45
+    # every module of the port was imported, the node daemon's and tools' 46 among them
+    # (the operator's six tools included, tools/defrag.py, tools/lint.py and
+    # tools/simreport.py)
+    assert int(out[0]) >= 75 and int(out[1]) == 46
     assert out[2:] == ["[]"]
 
 

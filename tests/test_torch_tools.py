@@ -520,13 +520,15 @@ def test_tputop_footer_renders_the_same_from_a_merged_scrape():
 
 
 def test_tools_import_no_torch_jax_or_the_jax_package_in_a_fresh_process():
-    """An operator runs the tools from a laptop: importing the tools package
-    and all six tools loads no torch, no jax and nothing of the JAX package
-    (its name is a prefix of the port's)."""
+    """An operator runs the tools from a laptop: importing the tools package,
+    all six tools and ``tpu-simreport`` (with the simulator behind it) loads
+    no torch, no jax and nothing of the JAX package (its name is a prefix of
+    the port's)."""
+    pinned = TOOLS + ("simreport",)
     code = (
         "import re, sys\n"
         "import k8s_device_plugin_tpu_torch.tools\n"
-        + "".join(f"import k8s_device_plugin_tpu_torch.tools.{t}\n" for t in TOOLS)
+        + "".join(f"import k8s_device_plugin_tpu_torch.tools.{t}\n" for t in pinned)
         + "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('torch', 'jax', 'jaxlib')"
         " or re.match(r'k8s_device_plugin_tpu(?!_torch)', m))\n"
         "print(len([m for m in sys.modules if m.startswith('k8s_device_plugin_tpu_torch.tools.')]),"
@@ -535,7 +537,7 @@ def test_tools_import_no_torch_jax_or_the_jax_package_in_a_fresh_process():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split(None, 1) == [str(len(TOOLS)), "[]\n"]
+    assert out.stdout.split(None, 1) == [str(len(pinned)), "[]\n"]
 
 
 def test_doctor_drain_is_refused_naming_the_missing_plane(tmp_path):
