@@ -508,7 +508,9 @@ caught while the run goes on:
    as the control. (2) Just after a lease renewal,
    ``tests/chaos_plans/brownout.json`` is loaded into the fake API server
    for W = 10 s (under the 20 s renew budget, no longer than the breaker's
-   10 s reset), and G's member is bound inside it. Timed from the load, on
+   10 s reset), and G's member is bound inside it (its PodResources entry
+   recorded with the bind, as a kubelet records a pod bound to its node).
+   Timed from the load, on
    each process's own ``/metrics``: both ``*_kube_circuit_state`` open and
    both ``*_kube_degraded_mode`` at 1. Inside W, polled every second: the
    name-only ``/filter`` for a new one-card pod answers as before W,
@@ -546,6 +548,22 @@ caught while the run goes on:
    cards, 480 ticks of 60 s) replayed twice, byte-identical. One line per
    replay: trace, wall s, arrivals, admitted ratio, utilisation, evictions,
    sha256, and the card's name and power limit.
+26. The control-plane scale bench (host code only; no card work):
+   ``python -m k8s_device_plugin_tpu_torch.extender.scale_bench`` with
+   ``--cold-start-self-test``, ``--profile-self-test`` and
+   ``--placement-self-test``, each in its own process, must exit 0 with its
+   JSON line, and ``--placement-kernel`` (no twin: the TPU box kernel's
+   probe) must exit 2 with one line on stderr naming it. Then, in this
+   process, at the tier-1 tests' sizes and held to their bounds (the JAX
+   ``tests/test_scale_bench.py``'s, copied into ``SCALE_BENCH_BOUNDS``),
+   each with the suite's one full re-run: ``run(1000, 100, 20, 2)``,
+   ``shard_scaling(300, 30, 3, 20)``, ``defrag_planning(1000, samples=20)``,
+   ``cold_start(1000, 101, 7)``, and the telemetry, audit, profiler and
+   black-box overhead probes at 60 nodes and 101 samples and the resilience
+   probe at 101 calls of 50, each arm within 1.05x + 0.3 ms of its control.
+   One line per probe with its key numbers and the card's name and power
+   limit, then the phase's wall time, which must stay under 60 s. The 5,000
+   and 50,000-node runs are not made here.
 
 Then one ``{"tools": ...}`` line: the card's name and power limit, and
 each tool run of phases 16, 19 and 21 to 23 with its phase, exit code and
@@ -3747,8 +3765,9 @@ AGE_SLACK_S = 0.5  # a hold's age_s is rounded to 0.1 s and read over HTTP
 def allocate_and_bind(stub, podres, bind, member: str, node: str, ids) -> dict:
     """A released gang member's admission on this card: the stand-in
     kubelet's ``Allocate`` of ``ids`` through the daemon, its PodResources
-    entry, the member bound to ``node``. Returns its container's env: the
-    response's, with ``CUDA_VISIBLE_DEVICES`` from ``NVIDIA_VISIBLE_DEVICES``."""
+    entry (none with ``podres`` None: the caller records it), the member
+    bound to ``node``. Returns its container's env: the response's, with
+    ``CUDA_VISIBLE_DEVICES`` from ``NVIDIA_VISIBLE_DEVICES``."""
     from k8s_device_plugin_tpu_torch.api import constants
     from k8s_device_plugin_tpu_torch.api import deviceplugin_pb2 as pb
 
@@ -3756,7 +3775,8 @@ def allocate_and_bind(stub, podres, bind, member: str, node: str, ids) -> dict:
     areq.container_requests.add(devicesIDs=ids)
     resp = stub.Allocate(areq, timeout=PLUGIN_WAIT_S).container_responses[0]
     env = dict(resp.envs)
-    podres.set("default", member, ids)
+    if podres is not None:
+        podres.set("default", member, ids)
     bind(member, node)
     pod_env = dict(os.environ, **env)
     pod_env["CUDA_VISIBLE_DEVICES"] = env[constants.NVIDIA_VISIBLE_DEVICES]
@@ -5416,8 +5436,11 @@ def phase_brownout(main_report: dict) -> dict:
         g, gm = "g", "g-0"
         api.add_pod(stage.gpu_pod(gm, g, count))
         stage.until(lambda: not stage.gated(gm), "G's gate removed")
-        env = allocate_and_bind(stage.stub, stage.podres, lambda *_: None, gm, BROWNOUT_NODE,
-                                ids)
+        # G's kubelet record comes with its bind: a record of a pod that no
+        # relist of this node carries yet is pruned at the daemon's next
+        # relist (every 2 s) whenever G's gate-removal event reaches the
+        # controller after the record, which frees the card under the pod.
+        env = allocate_and_bind(stage.stub, None, lambda *_: None, gm, BROWNOUT_NODE, ids)
         with open(stage.work / "g.log", "w") as log_file:
             pod_proc = subprocess.Popen([sys.executable, *BROWNOUT_POD_ARGS], cwd=ROOT, env=env,
                                         text=True, stdout=subprocess.PIPE, stderr=log_file)
@@ -5468,6 +5491,7 @@ def phase_brownout(main_report: dict) -> dict:
         t_load = time.monotonic()
         api.faults.load_plan(plan)
         marks = {"load": mutations()}
+        stage.podres.set("default", gm, ids)
         stage.bind(gm, BROWNOUT_NODE)  # the pod watch open now may still carry it
         queued_max = [0]
 
@@ -5735,6 +5759,201 @@ def phase_simulator() -> None:
         fail(f"hgx_su admitted nothing: {first['arrivals']}")
 
 
+# The bounds of the JAX tests/test_scale_bench.py, which phase 26 holds the
+# port's bench to at the same sizes (this script imports nothing of JAX's).
+SCALE_BENCH_BOUNDS = {
+    "warm_p50_ms": {"filter": 25, "prioritize": 30, "filter_objects": 60,
+                    "prioritize_objects": 70, "gang_tick_steady": 100, "gang_tick_full": 250,
+                    "gang_tick_dirty": 100, "gang_tick_idle": 20},
+    "warm_spike_ratio": 3.0,
+    "warm_spike_floor_ms": 30.0,
+    "cold_ms": 2000.0,
+    "overhead_ratio": 1.05,
+    "overhead_floor_ms": 0.3,
+    "phase_s": 60.0,
+}
+
+
+def scale_bench_run_problems(r: dict) -> list:
+    """``run``'s bounds: warm p50s, the p99 spike guard of the RPC paths and
+    the cold first call."""
+    b = SCALE_BENCH_BOUNDS
+    out = [f"{k} p50 {r[k]['p50_ms']}ms >= {v}ms"
+           for k, v in b["warm_p50_ms"].items() if r[k]["p50_ms"] >= v]
+    for k in ("filter", "prioritize", "filter_objects", "prioritize_objects"):
+        limit = max(b["warm_spike_ratio"] * r[k]["p50_ms"], b["warm_spike_floor_ms"])
+        if r[k]["p99_ms"] >= limit:
+            out.append(f"{k} warm p99 {r[k]['p99_ms']}ms >= {limit:.0f}ms")
+    out += [f"cold {k} {r['cold_first_call'][k]}ms >= {b['cold_ms']}ms"
+            for k in ("filter_ms", "prioritize_ms", "index_build_ms")
+            if r["cold_first_call"][k] >= b["cold_ms"]]
+    return out
+
+
+def scale_bench_ratio(r: dict, control: str, arm: str, paths) -> list:
+    """An overhead probe's bound: each path's arm p99 within 1.05x + 0.3 ms
+    of its control's."""
+    b = SCALE_BENCH_BOUNDS
+    return [f"{path}: {arm} p99 {r[arm][path]['p99_ms']}ms vs {control} "
+            f"{r[control][path]['p99_ms']}ms"
+            for path in paths
+            if r[arm][path]["p99_ms"] > b["overhead_ratio"] * r[control][path]["p99_ms"]
+            + b["overhead_floor_ms"]]
+
+
+def phase_scale_bench() -> None:
+    """Phase 26: the bench's self-tests and refusal in their own processes,
+    then each tier-1-size probe in this process, held to the tests' bounds
+    with one full re-run. One line per probe, then the phase's wall time."""
+    import logging
+
+    from k8s_device_plugin_tpu_torch.extender import scale_bench as sb
+
+    smi = nvidia_smi()
+    t_phase = time.monotonic()
+    cli = [sys.executable, "-m", "k8s_device_plugin_tpu_torch.extender.scale_bench"]
+    for flag in ("--cold-start-self-test", "--profile-self-test", "--placement-self-test"):
+        key = flag[2:].replace("-", "_")
+        t0 = time.monotonic()
+        out = subprocess.run(cli + [flag], cwd=ROOT, capture_output=True, text=True,
+                             timeout=120)
+        wall = time.monotonic() - t0
+        lines = [line for line in out.stdout.splitlines() if line.startswith("{")]
+        verdict = json.loads(lines[-1]) if lines else {}
+        emit({"scale_bench": {"run": key, "rc": out.returncode, "wall_s": wall, **verdict,
+                              "nvidia_smi": smi}})
+        if out.returncode != 0 or verdict.get(key) != "ok":
+            fail(f"scale_bench {flag} exited {out.returncode}:\n{out.stdout[-3000:]}\n"
+                 f"{out.stderr[-3000:]}")
+    out = subprocess.run(cli + ["--placement-kernel"], cwd=ROOT, capture_output=True, text=True,
+                         timeout=60)
+    refusal = out.stderr.strip().splitlines()
+    emit({"scale_bench": {"run": "placement_kernel", "rc": out.returncode,
+                          "stderr": refusal, "nvidia_smi": smi}})
+    if (out.returncode != 2 or out.stdout or len(refusal) != 1
+            or "--placement-kernel" not in refusal[0]):
+        fail(f"scale_bench --placement-kernel: rc {out.returncode}, stdout {out.stdout!r}, "
+             f"stderr {out.stderr!r}")
+
+    def held(name: str, probe, problems, summary) -> dict:
+        """The probe, and once more if a bound failed (the suite's host
+        contention re-run); fails the phase if the second run fails too."""
+        for attempt in (1, 2):
+            t0 = time.monotonic()
+            r = probe()
+            wall = time.monotonic() - t0
+            found = problems(r)
+            emit({"scale_bench": {"probe": name, "attempt": attempt, "wall_s": wall,
+                                  **summary(r), "problems": found, "nvidia_smi": smi}})
+            if not found:
+                return r
+        fail(f"scale_bench {name}: {found}")
+
+    def pctls(r: dict, *paths) -> dict:
+        out = {}
+        for path in paths:
+            node = r
+            for k in path.split("."):
+                node = node[k]
+            out[path] = [node["p50_ms"], node["p99_ms"]]
+        return out
+
+    logging.disable(logging.WARNING)  # the relists and sweeps log per node
+    try:
+        held("run", lambda: sb.run(n_nodes=1000, n_gangs=100, filter_calls=20, tick_rounds=2),
+             scale_bench_run_problems,
+             lambda r: {"p50_p99_ms": pctls(r, "filter", "prioritize", "filter_objects",
+                                            "prioritize_objects", "gang_tick_full",
+                                            "gang_tick_steady", "gang_tick_dirty",
+                                            "gang_tick_idle"),
+                        "index_build_ms": r["cold_first_call"]["index_build_ms"],
+                        "cold_filter_ms": r["cold_first_call"]["filter_ms"]})
+
+        def shard_problems(r):
+            peer = r["sharded"]["filter_peer_overlay"]["p99_ms"]
+            single = r["single"]["filter"]["p99_ms"]
+            out = []
+            if sum(v["gangs"] for v in r["sharded"]["per_shard"].values()) != 30:
+                out.append(f"shards admitted {r['sharded']['per_shard']}, not 30 gangs")
+            if peer >= max(1.1 * single, single + 2.0):
+                out.append(f"peer-overlay /filter p99 {peer}ms vs single {single}ms")
+            return out
+
+        held("shard_scaling",
+             lambda: sb.shard_scaling(n_nodes=300, n_gangs=30, shards=3, filter_calls=20),
+             shard_problems,
+             lambda r: {"p50_p99_ms": pctls(r, "single.filter", "sharded.filter_local",
+                                            "sharded.filter_peer_overlay"),
+                        "gangs_per_s": r["single"]["gangs_per_s"],
+                        "gangs_per_s_parallel": r["sharded"]["gangs_per_s_parallel"]})
+
+        def defrag_problems(r):
+            out = []
+            if r["plan_victims"] != 1 or 4 not in r["placeable_after"]:
+                out.append(f"plan {r['plan_victims']} victims, after {r['placeable_after']}")
+            if r["plan"]["p99_ms"] >= 50.0:
+                out.append(f"plan p99 {r['plan']['p99_ms']}ms >= 50ms")
+            if r["detect"]["p99_ms"] >= 25.0:
+                out.append(f"detect p99 {r['detect']['p99_ms']}ms >= 25ms")
+            return out
+
+        held("defrag_planning", lambda: sb.defrag_planning(n_nodes=1000, samples=20),
+             defrag_problems,
+             lambda r: {"p50_p99_ms": pctls(r, "detect", "plan"),
+                        "plan_victims": r["plan_victims"],
+                        "placeable_after": r["placeable_after"]})
+
+        def cold_problems(r):
+            full = r["full_parse"]["time_to_ready"]["p50_ms"]
+            snap = r["snapshot_warm"]["time_to_ready"]["p50_ms"]
+            stale = r["snapshot_stale"]["time_to_ready"]["p50_ms"]
+            out = []
+            if snap * 5 > full:
+                out.append(f"snapshot time to ready p50 {snap}ms not 5x under {full}ms")
+            if stale > 1.05 * full + 2.0:
+                out.append(f"stale fallback p50 {stale}ms over 1.05x {full}ms + 2ms")
+            if r["snapshot_warm"]["restored_per_start"] != 1000:
+                out.append(f"restored {r['snapshot_warm']['restored_per_start']} per start")
+            return out
+
+        held("cold_start",
+             lambda: sb.cold_start(n_nodes=1000, ready_samples=101, slow_samples=7),
+             cold_problems,
+             lambda r: {"p50_p99_ms": pctls(r, "full_parse.time_to_ready",
+                                            "snapshot_warm.time_to_ready",
+                                            "snapshot_stale.time_to_ready",
+                                            "snapshot_warm.cold_first_call",
+                                            "snapshot_warm.warm_drain"),
+                        "ready_speedup_p50": r["ready_speedup_p50"],
+                        "stale_overhead_pct": r["stale_overhead_pct"]})
+        for name, probe, control, arm, paths in (
+                ("telemetry_overhead",
+                 lambda: sb.telemetry_overhead(n_nodes=60, filter_calls=101, tick_rounds=101,
+                                               sampler_rounds=5),
+                 "control", "tracked", ("filter", "prioritize", "tick_dirty")),
+                ("audit_overhead",
+                 lambda: sb.audit_overhead(n_nodes=60, n_holds=10, filter_calls=101,
+                                           sweep_every=10, sweep_rounds=5),
+                 "control", "audited", ("filter",)),
+                ("profiler_overhead", lambda: sb.profiler_overhead(n_nodes=60, filter_calls=101),
+                 "control", "profiled", ("filter",)),
+                ("blackbox_overhead", lambda: sb.blackbox_overhead(n_nodes=60, filter_calls=101),
+                 "control", "blackbox", ("filter",)),
+                ("resilience_overhead", lambda: sb.resilience_overhead(calls=101, batch=50),
+                 "control", "wrapped", ("call",))):
+            held(name, probe,
+                 lambda r, c=control, a=arm, p=paths: scale_bench_ratio(r, c, a, p),
+                 lambda r, c=control, a=arm, p=paths: {
+                     "p50_p99_ms": pctls(r, *(f"{x}.{path}" for x in (c, a) for path in p))})
+    finally:
+        logging.disable(logging.NOTSET)
+    wall = time.monotonic() - t_phase
+    emit({"scale_bench": {"phase_wall_s": wall, "limit_s": SCALE_BENCH_BOUNDS["phase_s"],
+                          "nvidia_smi": smi}})
+    if wall >= SCALE_BENCH_BOUNDS["phase_s"]:
+        fail(f"phase 26 took {wall:.1f} s, not under {SCALE_BENCH_BOUNDS['phase_s']} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs an NVIDIA "
@@ -5775,6 +5994,7 @@ def main() -> int:
     rescue_launches = phase_rescue(main_report)
     brownout_launches = phase_brownout(main_report)
     phase_simulator()
+    phase_scale_bench()
     dist.destroy_process_group()
     path_launches = {name: (launches[name], steps) for name in FLASH}
     path_launches["rmsnorm"] = (norm_launches["rmsnorm"], norm_steps)

@@ -890,8 +890,9 @@ class ExtenderAudit:
     on the admitter (and the journal), their two-phase contracts. The JAX
     plane registers ``defrag_vs_reservations`` with any journal; the port
     registers each plane's invariant only where its engine is wired. With
-    the topology index it recounts the index's placeable aggregate; the
-    port keeps that aggregate always on, so the recount always runs."""
+    the topology index it recounts the index's placeable aggregate, and
+    finds nothing where the index keeps none (``track_placeable=False``,
+    the scale bench's control arm), as JAX does."""
 
     # The from-scratch placeable recount is the one check that is not O(1):
     # each sweep re-derives a rotating sample of entries, so every entry is
@@ -1286,6 +1287,8 @@ class ExtenderAudit:
         return out
 
     def check_placeable_recount(self) -> List[Finding]:
+        if not self.index.track_placeable:
+            return []  # an index that keeps no aggregate has none to recount
         # The aggregate comparison reads the entries, the counts and the
         # gauge at three instants while the watch or relist thread can
         # rebuild entries in between: a diff is recomputed once before it

@@ -179,7 +179,8 @@ class ColumnPlane:
 class TopologyIndex:
     """name -> IndexEntry, maintained incrementally per node."""
 
-    def __init__(self, on_change: Optional[Callable[[str, Tuple[SliceKey, ...]], None]] = None):
+    def __init__(self, on_change: Optional[Callable[[str, Tuple[SliceKey, ...]], None]] = None,
+                 track_placeable: bool = True):
         # Called after an entry really changed, with the node's name and
         # every slice key involved, old and new (always none on GPU nodes):
         # gang admission's dirty marking hangs off it.
@@ -195,7 +196,10 @@ class TopologyIndex:
         # "topology_index"}.
         self._lock = profiling.TimedLock("topology_index", metrics.EXT_LOCK_WAIT)
         # Cluster capacity aggregate: size -> nodes whose entry places that
-        # size, kept incrementally as entries change.
+        # size, kept incrementally as entries change. ``track_placeable=False``
+        # keeps none of it: the scale bench's control arm
+        # (scale_bench.telemetry_overhead).
+        self.track_placeable = track_placeable
         self._placeable_counts: Dict[int, int] = {}
         # Installed entries whose parse is deferred: the warm pool's queue.
         self._deferred: Set[str] = set()
@@ -213,6 +217,8 @@ class TopologyIndex:
     # -- capacity aggregate ------------------------------------------------
 
     def _placeable_for(self, topo: NodeTopology) -> Tuple[int, ...]:
+        if not self.track_placeable:
+            return ()
         try:
             return placeable_sizes(topo.to_topology(), topo.available)
         except Exception:  # noqa: BLE001 - an odd annotation costs its own term only
@@ -313,7 +319,7 @@ class TopologyIndex:
         if topo is None:
             _derived_store(h, {"bad": True})
             return IndexEntry(name=name, raw=raw, topo=None)
-        if rec is not None and "placeable" in rec:
+        if rec is not None and (not self.track_placeable or "placeable" in rec):
             metrics.PARSE_AVOIDED.inc(reason="derived_memo")
             return self._entry_from_record(name, raw, topo, rec)
         entry = IndexEntry(
@@ -325,7 +331,11 @@ class TopologyIndex:
             hostname=topo.hostname,
             placeable=self._placeable_for(topo),
         )
-        _derived_store(h, entry.derived_record())
+        if self.track_placeable:
+            # Only a tracking index publishes to the shared memo: a record
+            # without the placeable term, trusted by a tracking index of the
+            # same process, would poison its aggregate.
+            _derived_store(h, entry.derived_record())
         return entry
 
     def _entry_from_record(self, name: str, raw: str, topo: Optional[NodeTopology],
@@ -338,7 +348,8 @@ class TopologyIndex:
             chip_count=int(rec.get("chips", 0)),
             hostname=str(rec.get("host", "")),
             slice_key=tuple(rec["slice"]) if rec.get("slice") else None,
-            placeable=tuple(int(n) for n in rec.get("placeable", ())),
+            placeable=(tuple(int(n) for n in rec.get("placeable", ()))
+                       if self.track_placeable else ()),
             deferred=deferred,
         )
 
@@ -390,7 +401,8 @@ class TopologyIndex:
             # No generation bump: a restore installs what the snapshot
             # already holds, so a pure-restore start skips its rewrite.
             self._publish_placeable_locked(self._adjust_placeable_locked(None, entry))
-        _derived_store(h or annotation_hash(raw), dict(rec))
+        if self.track_placeable or rec.get("bad"):
+            _derived_store(h or annotation_hash(raw), dict(rec))
         return True
 
     def ensure_parsed(self, name: str) -> Optional[IndexEntry]:

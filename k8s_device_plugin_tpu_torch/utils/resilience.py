@@ -594,6 +594,7 @@ class Resilience:
         clock: Callable[[], float] = time.monotonic,
         sleep: Callable[[float], None] = time.sleep,
         degraded: Optional[DegradedMode] = None,
+        tracker: Optional[ResilienceTracker] = None,
     ):
         self.policy = policy or RetryPolicy()
         self.metrics = metrics if metrics is not None else plugin_metrics()
@@ -613,6 +614,10 @@ class Resilience:
         # Consumer-facing degraded state driven by this breaker
         # (entrypoints wire one; None = nobody to flip).
         self.degraded = degraded
+        # Where this pipeline's outcomes go: the process-wide TRACKER unless
+        # a caller keeps its own (the scale bench's resilience probe, which
+        # must leave the chaos tests' evidence untouched).
+        self.tracker = tracker if tracker is not None else TRACKER
 
     def _budget_for(self, verb: str) -> RetryBudget:
         if not verb:
@@ -633,7 +638,7 @@ class Resilience:
         transition, and on a move to OPEN the ring's dump to the flight
         dir (``circuit-break``)."""
         self.metrics.circuit_state.set(state)
-        TRACKER.record_circuit(state)
+        self.tracker.record_circuit(state)
         from .flightrecorder import RECORDER
         from .decisions import LEDGER
 
@@ -661,7 +666,7 @@ class Resilience:
                              name="flight-dump", daemon=True).start()
 
     def _outcome(self, verb: str, outcome: str) -> None:
-        TRACKER.record_outcome(verb, outcome)
+        self.tracker.record_outcome(verb, outcome)
         if self.metrics.outcomes is not None:
             self.metrics.outcomes.inc(verb=verb or "call", outcome=outcome)
 
@@ -683,8 +688,9 @@ class Resilience:
         ``idempotent=False`` marks a mutation that must NEVER blind-
         retry (Eviction): one attempt, breaker-gated, every failure
         surfaces to the caller. ``mutating=True`` records each SUCCESS in
-        :data:`TRACKER`, so the ``degraded_consistency`` audit invariant
-        can prove no mutation landed while the breaker was open. A 429/503
+        the tracker (:data:`TRACKER` by default), so the
+        ``degraded_consistency`` audit invariant can prove no mutation
+        landed while the breaker was open. A 429/503
         carrying Retry-After is (for idempotent calls)
         retried no sooner than the server asked, capped at
         ``RETRY_AFTER_CAP_S`` and the call deadline.
@@ -811,7 +817,7 @@ class Resilience:
                     self.breaker.record_success()
                     self._outcome(verb, "ok")
                     if mutating:
-                        TRACKER.record_mutation(verb)
+                        self.tracker.record_mutation(verb)
                     return result
         finally:
             _ACTIVE.depth -= 1
@@ -830,7 +836,7 @@ class Resilience:
         self.metrics.retries.inc(verb=verb)
         self._outcome(verb, reason)
         if reason == "retry_after":
-            TRACKER.record_retry_after()
+            self.tracker.record_retry_after()
         RECORDER.record(
             "kube_retry",
             f"kube {verb or 'call'} retrying in {delay * 1000:.0f}ms",
@@ -1139,44 +1145,6 @@ class _HostileApiServer:
         self.plan.clear()
 
 
-class _SelfTestLinks:
-    """The one call ``LinkTopology`` makes of its NVML backend, over four
-    fixed cards: two NVLinks join 0-1, 0-2, 1-3 and 2-3 and nothing joins
-    the others (``tools/tputop``'s self-test layout)."""
-
-    LINKED = {(0, 1), (0, 2), (1, 3), (2, 3)}
-
-    def pair_link(self, a: int, b: int):
-        return (2 if (min(a, b), max(a, b)) in self.LINKED else 0), None
-
-
-def _node(name: str, n_chips: int = 4, available: Optional[List[str]] = None) -> dict:
-    """A node object carrying the ``nvidia.com/gpu-topology`` annotation
-    of ``n_chips`` H100 cards (``n_chips`` <= 4) over the fixed link
-    table above; ``available`` is the free card ids (default: all)."""
-    from ..api import constants
-    from ..discovery.chips import GpuChip
-    from ..topology.links import LinkTopology
-    from ..topology.schema import NodeTopology
-
-    chips = [GpuChip(index=i, uuid=f"GPU-{name}-{i}", name="NVIDIA H100 80GB HBM3",
-                     dev_path=f"/dev/nvidia{i}", pci_addr=f"0000:0{i}:00.0", numa_node=0,
-                     chip_type="h100", hbm_bytes=80 << 30) for i in range(n_chips)]
-    topo = NodeTopology.from_topology(LinkTopology(chips, _SelfTestLinks()), hostname=name,
-                                      available=available)
-    return {"metadata": {"name": name,
-                         "annotations": {constants.TOPOLOGY_ANNOTATION: topo.to_json()}}}
-
-
-def _plain_pod(chips: int) -> dict:
-    """A gang-less pod asking ``chips`` of ``nvidia.com/gpu``."""
-    from ..api import constants
-
-    return {"metadata": {"name": "bench", "namespace": "default"},
-            "spec": {"containers": [{"name": "main", "resources": {
-                "requests": {constants.RESOURCE_NAME: str(chips)}}}]}}
-
-
 def self_test(chaos_plan: Optional[dict] = None) -> int:
     """The hostile apiserver above runs the chaos plan against a real
     KubeClient + Resilience + DegradedMode + node cache + TopologyExtender
@@ -1185,6 +1153,7 @@ def self_test(chaos_plan: Optional[dict] = None) -> int:
     staleness cap, ZERO mutations land while the breaker is open, and
     recovery closes the loop (probe -> closed -> degraded exit)."""
     from ..extender.index import TopologyIndex
+    from ..extender.scale_bench import _node, _plain_pod
     from ..extender.server import NodeAnnotationCache, TopologyExtender
     from ..kube.client import KubeClient, KubeError
 

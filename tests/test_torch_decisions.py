@@ -22,8 +22,9 @@ port's (``term_nvlink_pairs``).
 
 ``test_decisions_doc_in_lockstep_with_code`` holds the port's recorded kinds
 to the port's README (the JAX test reads the JAX docs through the registry
-lint, which the port has not ported). ``test_ledger_overhead_probe_schema_
-and_restore`` waits for the port's scale bench. ``test_explain_cli_self_test``,
+lint). ``test_ledger_overhead_probe_schema_and_restore`` runs each plane's
+scale bench, and each plane's admitters are served by its own bench's
+in-memory client. ``test_explain_cli_self_test``,
 ``test_explain_cli_node_and_gang_views`` and ``test_explain_renders_full_chain``
 are in tests/test_torch_tools.py.
 """
@@ -40,7 +41,6 @@ import time
 import pytest
 import requests
 
-from k8s_device_plugin_tpu.extender import scale_bench
 from tests import torch_fake_nvml as fk
 from tests.fake_apiserver import FakeApiServer
 from tests.torch_extender_planes import JaxPlane, TorchPlane, gang_pod, read_layouts
@@ -110,7 +110,9 @@ def traced(plane):
 def node(plane, name):
     """A whole node: the JAX ``scale_bench._node`` (v5e, 4 chips), or the
     port's 4-card host."""
-    return scale_bench._node(name) if plane.name == "jax" else plane.node(name)
+    if plane.name == "jax":
+        return mod(plane, "extender.scale_bench")._node(name)
+    return plane.node(name)
 
 
 def starve(plane, node_obj, keep):
@@ -126,10 +128,9 @@ def plain_pod(plane, n):
                                      "resources": {"requests": {plane.resource: str(n)}}}]}}
 
 
-def stub(nodes, pods):
-    """The JAX scale bench's in-memory client: it serves both planes, since
-    both admitters make the same list calls and the same gate patch."""
-    return scale_bench._StubClient(nodes, pods)
+def stub(plane, nodes, pods):
+    """The plane's own scale bench's in-memory client."""
+    return mod(plane, "extender.scale_bench")._StubClient(nodes, pods)
 
 
 # -- the ledger --------------------------------------------------------------
@@ -208,7 +209,7 @@ def test_reject_reasons_identical_on_object_and_indexed_paths(plane, ledger):
     table.reserve(("default", "other-gang"), {"reserved-node": 3}, demands=(3,))
     for n_chips in (2, 8):
         ext_obj = plane.server.TopologyExtender(reservations=table)
-        cache = plane.server.NodeAnnotationCache(stub(nodes, []), interval_s=3600)
+        cache = plane.server.NodeAnnotationCache(stub(plane, nodes, []), interval_s=3600)
         cache.refresh()
         ext_idx = plane.server.TopologyExtender(reservations=table, node_cache=cache)
         p = plain_pod(plane, n_chips)
@@ -232,7 +233,7 @@ def test_reject_reasons_identical_on_object_and_indexed_paths(plane, ledger):
 def test_prioritize_records_top_k_with_term_breakdown(plane, ledger):
     nodes = [node(plane, f"n{i}") for i in range(3)]
     names = [f"n{i}" for i in range(3)]
-    cache = plane.server.NodeAnnotationCache(stub(nodes, []), interval_s=3600)
+    cache = plane.server.NodeAnnotationCache(stub(plane, nodes, []), interval_s=3600)
     cache.refresh()
     ext = plane.server.TopologyExtender(reservations=plane.reservations.ReservationTable(),
                                         node_cache=cache)
@@ -283,7 +284,7 @@ def test_capacity_pool_diagnoses_single_host_shortfall(plane):
 def test_gang_waiting_record_once_per_state_and_on_demand_edit(plane, ledger):
     nodes = [starve(plane, node(plane, "n1"), 1)]
     pods = [gang_pod(plane, f"w{i}", "g", 2, 2) for i in range(2)]
-    adm = plane.gang.GangAdmission(stub(nodes, pods),
+    adm = plane.gang.GangAdmission(stub(plane, nodes, pods),
                                    reservations=plane.reservations.ReservationTable())
     assert adm.tick() == []
     assert adm.tick() == []
@@ -304,7 +305,7 @@ def test_gang_waiting_record_once_per_state_and_on_demand_edit(plane, ledger):
 def test_gang_admitted_clears_waiting_and_observes_slo(plane, ledger):
     nodes = [starve(plane, node(plane, "n1"), 1)]
     pods = [gang_pod(plane, f"w{i}", "g", 2, 2) for i in range(2)]
-    client = stub(nodes, pods)
+    client = stub(plane, nodes, pods)
     adm = plane.gang.GangAdmission(client, reservations=plane.reservations.ReservationTable())
     before = plane.metrics.GANG_TIME_TO_ADMIT.count()
     assert adm.tick() == []
@@ -325,7 +326,7 @@ def test_release_with_plane_off_makes_no_extra_patch(plane):
     gate patches alone: no admission-stamp patch per pod."""
     assert not plane.LEDGER.enabled and not plane.tracing.enabled()
     pods = [gang_pod(plane, f"off-w{i}", "off-g", 2, 2) for i in range(2)]
-    client = stub([node(plane, "n1")], pods)
+    client = stub(plane, [node(plane, "n1")], pods)
     patches = []
     client.patch_pod_annotations = lambda ns, name, ann: patches.append((ns, name, ann))
     adm = plane.gang.GangAdmission(client, reservations=plane.reservations.ReservationTable())
@@ -554,6 +555,25 @@ def test_e2e_decision_chain_one_trace(plane, api, ledger, traced, fake, tmp_path
         kubelet.stop()
         daemon.close()
         shutil.rmtree(short, ignore_errors=True)
+
+
+# -- bench probe ---------------------------------------------------------------
+
+
+def test_ledger_overhead_probe_schema_and_restore(plane):
+    """The plane's ledger-overhead probe at toy scale: both arms measured,
+    records collected in the enabled arm only, and the process ledger
+    disabled and cleared afterwards (the tier-1 suite shares one
+    process)."""
+    r = mod(plane, "extender.scale_bench").ledger_overhead(n_nodes=30, filter_calls=4)
+    assert r["nodes"] == 30
+    assert r["disabled"]["filter"]["samples"] == 4
+    assert r["enabled"]["filter"]["samples"] == 4
+    # One filter summary and one prioritize record per enabled call.
+    assert r["records_collected"] == 8
+    assert "filter_p99_overhead_pct" in r
+    assert not plane.LEDGER.enabled
+    assert len(plane.LEDGER) == 0
 
 
 # -- the docs ------------------------------------------------------------------

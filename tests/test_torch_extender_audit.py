@@ -8,7 +8,7 @@ the holds (an undrained lapse included), the defrag plane's open
 ``defrag_evicted`` phase against the fences, and the admission loop driving
 the sweeps, and the placeable recount over the index's aggregate (a seeded
 corrupt gauge, corrupt counts and a corrupt entry tuple each found, a clean
-index found clean). The port's set is the three invariants of the gang
+index found clean, an index that keeps no aggregate never recounted). The port's set is the three invariants of the gang
 plane, ``placeable_recount`` with the index, and the shared four;
 ``defrag_vs_reservations`` joins them where a defrag engine is wired (the
 JAX plane registers it with any journal).
@@ -298,6 +298,22 @@ def test_placeable_recount_samples_a_rotating_window(plane):
         (f,) = ext_audit.check_placeable_recount()
         assert f.invariant == "placeable_recount" and f.node == good.name
         assert dict(f.details)["recompute"] == str(list(good.placeable))
+    finally:
+        plane.metrics.EXT_PLACEABLE_NODES.remove_matching()
+
+
+def test_placeable_recount_reads_clean_on_an_index_that_tracks_nothing(plane):
+    """An index built with ``track_placeable=False`` (the scale bench's
+    control arm) keeps no aggregate, so the recount has none to hold to its
+    entries: it finds nothing, even beside a gauge another index wrote."""
+    plane.metrics.EXT_PLACEABLE_NODES.remove_matching()
+    index = plane.index.TopologyIndex(track_placeable=False)
+    for i in range(4):
+        index.update(f"n{i:03d}", plane.raw(f"n{i:03d}"))
+    try:
+        assert [e.placeable for e in index.entries()] == [()] * 4
+        plane.metrics.EXT_PLACEABLE_NODES.set(7, size="1")
+        assert plane.audit.ExtenderAudit(index=index).check_placeable_recount() == []
     finally:
         plane.metrics.EXT_PLACEABLE_NODES.remove_matching()
 

@@ -5,9 +5,9 @@ The scenarios of the JAX ``tests/test_journal.py`` are tests parametrised
 over the two planes of tests/torch_extender_planes.py: the store's format,
 torn tails and corruption (fuzzed), compaction's atomicity, the replay's
 semantics, the reservation table's observer and age-keeping restore, gang
-admission's recovery and the /readyz gate. 40 of the JAX file's 41 tests
-have a case; ``test_journal_overhead_probe_schema`` has none, since the
-scale bench it reads is not ported yet.
+admission's recovery and the /readyz gate. Each of the JAX file's 41
+tests has a case; ``test_journal_overhead_probe_schema`` runs the port's
+scale bench (extender/scale_bench.py) under the JAX bounds, and
 ``test_crash_recovery_docs_in_lockstep`` holds the port's own documents and
 manifest.
 
@@ -637,6 +637,21 @@ def test_default_server_is_ready_immediately(plane):
         assert requests.get(f"{url}/readyz", timeout=5).status_code == 200
     finally:
         srv.stop()
+
+
+def test_journal_overhead_probe_schema():
+    from k8s_device_plugin_tpu_torch.extender import scale_bench
+
+    r = scale_bench.journal_overhead(n_nodes=30, n_gangs=5, tick_rounds=6)
+    assert r["nodes"] == 30 and r["gangs"] == 5
+    assert r["unjournaled"]["samples"] == 6
+    assert r["journaled"]["samples"] == 6
+    assert r["journal_bytes"] > 0
+    assert "tick_p99_overhead_pct" in r
+    # The JAX bound: journaled p99 <= 1.1x, with an absolute slack floor at
+    # toy scale against a shared host's scheduler noise.
+    assert r["journaled"]["p99_ms"] <= max(1.1 * r["unjournaled"]["p99_ms"],
+                                           r["unjournaled"]["p99_ms"] + 2.0)
 
 
 def test_crash_recovery_docs_in_lockstep():

@@ -12,8 +12,8 @@ tests have a case here.
 forms no multi-host slice, so each node's capacity key is its hostname. In
 its place ``test_audit_resolves_every_held_host_by_its_hostname`` holds
 every held host to its own hostname's shard. The docs test checks the
-port's README section and manifest, without the JAX clause on
-``--shard-scaling``, which comes with the port's scale bench.
+port's README section and manifest, the JAX clause on ``--shard-scaling``
+against the port's scale bench.
 
 Beside them: the ring agrees with the JAX ring key for key, the port's
 lease names, and the entry point run sharded over a fake API server.
@@ -717,6 +717,7 @@ def test_sharding_docs_in_lockstep():
     for word in ("--shards", "--shard-index", "--no-shard-takeover",
                  torch_sharding.HOLDS_ANNOTATION, "shard-<k>",
                  "k8s_device_plugin_tpu_torch.extender.sharding --shard-self-test",
+                 "k8s_device_plugin_tpu_torch.extender.scale_bench --shard-scaling",
                  "/debug/shards", "tpu_extender_shard_owned", "StatefulSet"):
         assert word in port, word
     manifest = open(os.path.join(ROOT, "deploy", "nvidia-extender-torch.yml")).read()

@@ -517,8 +517,9 @@ def test_index_maintains_placeable_aggregate(plane_name, fake, tmp_path):
     fragmented to two scattered free cards, the other removed. The JAX host
     is a v5e of 8 chips (boxes 1, 2, 4, 8); the port's is an HGX of 8 cards,
     where any n <= free cards places. The aggregate, the gauge and the
-    /debug/telemetry cluster panel move together. The JAX index's
-    ``track_placeable=False`` control arm comes with the port's scale bench."""
+    /debug/telemetry cluster panel move together; an index built with
+    ``track_placeable=False`` (the scale bench's control arm) keeps none of
+    it."""
     from k8s_device_plugin_tpu.extender.index import TopologyIndex as JaxIndex
     from k8s_device_plugin_tpu_torch.extender.index import TopologyIndex
     from k8s_device_plugin_tpu_torch.topology.schema import NodeTopology
@@ -560,5 +561,12 @@ def test_index_maintains_placeable_aggregate(plane_name, fake, tmp_path):
         assert not [s for s in m.EXT_PLACEABLE_NODES.series() if s[0].get("size") == "8"]
         assert m.EXT_PLACEABLE_NODES.get(size="1") == 1
         assert tel.debug_snapshot()["cluster"]["placeable_nodes"] == {str(n): 1 for n in frag}
+        # The scale bench's control arm: tracking off maintains nothing, not
+        # even from the derived record the tracking index left in the memo.
+        off = (JaxIndex if plane_name == "jax" else TopologyIndex)(track_placeable=False)
+        off.update("node-c", raw_b)
+        assert off.get("node-c").placeable == ()
+        assert off.placeable_snapshot()["placeable_nodes"] == {}
+        assert m.EXT_PLACEABLE_NODES.get(size="1") == 1
     finally:
         m.EXT_PLACEABLE_NODES.remove_matching()
