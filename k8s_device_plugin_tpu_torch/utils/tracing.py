@@ -9,7 +9,11 @@ collector's OTLP/JSON export that ``/debug/traces`` serves, and ``RECENT``,
 through which the scheduler extender's /prioritize joins the trace its
 /filter opened for the same pod. The daemon's and the extender's
 ``--trace`` turn tracing on. Writing carriers comes with the extender's gang
-admission, the one writer.
+admission, the one writer. The training step (``workload/train.train_step``)
+records its own spans too, of service ``workload``: ``train.step`` around
+the call, and inside it ``train.forward``, ``train.backward`` and
+``train.optimizer``, which the benchmark's readers place on the card's
+trace.
 
 **Exact no-op when disabled** (the default): every entry point checks one
 module-level bool first, and ``span()`` then returns a shared no-op that

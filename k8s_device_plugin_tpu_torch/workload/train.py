@@ -39,6 +39,7 @@ from ..parallel.mesh import (
     axis_sizes,
 )
 from ..parallel.pipeline import stack_stages
+from ..utils import tracing
 from .model import Block, ElsewhereStage, ModelConfig, TransformerLM, init_model, param_axes, unembed
 
 # optax.adamw(lr)'s defaults, which the JAX step uses (train.py:104):
@@ -318,9 +319,26 @@ def train_step(
     xent_chunk: int | None = None,
 ) -> torch.Tensor:
     """One optimizer step on this rank's rows ``tokens``; returns the
-    (detached) loss of the global batch before the update."""
-    optimizer.zero_grad(set_to_none=True)
-    return _global_mean(model, _loss_and_update(model, optimizer, tokens, xent_chunk))
+    (detached) loss of the global batch before the update.
+
+    With tracing on (``utils.tracing``) the step records the span
+    ``train.step`` around the whole call and, inside it, ``train.forward``
+    (the loss), ``train.backward`` and ``train.optimizer``
+    (``optimizer.step()``), all of service ``workload``; off, each is one
+    bool check. A graph's capture (``GraphedTrainStep``) runs
+    ``_loss_and_update``, which records none."""
+    with tracing.span("train.step", service="workload"):
+        optimizer.zero_grad(set_to_none=True)
+        with tracing.span("train.forward", service="workload"):
+            loss = loss_fn(model, tokens, xent_chunk)
+        with tracing.span("train.backward", service="workload"):
+            loss.backward()
+        with tracing.span("train.optimizer", service="workload"):
+            optimizer.step()
+        # Dropping the autograd graph here, and not on return, keeps its
+        # teardown (milliseconds at 48 layers) inside train.step.
+        loss = loss.detach()
+        return _global_mean(model, loss)
 
 
 def make_multi_train_step(

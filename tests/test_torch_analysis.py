@@ -178,8 +178,14 @@ def test_doc_side_reads_the_shared_doc_and_the_addendum():
     rows = set(re.findall(r"^\| `(tpu_[a-z0-9_]+)` \|", addendum, re.M))
     assert rows == {"tpu_node_best_set_score"}
     assert scan.documented_metric_families() == jax_scan.documented_metric_families() | rows
+    addendum = open(os.path.join(REPO, "docs", "torch", "observability.md")).read()
+    spans = set(re.findall(r"^\| `([a-z][a-z0-9_.]*)` \|", addendum, re.M))
+    assert spans == {"train.step", "train.forward", "train.backward", "train.optimizer"}
     assert (scan.documented_backticked("observability.md")
-            == jax_scan.documented_backticked("observability.md"))
+            == jax_scan.documented_backticked("observability.md") | spans)
+    assert scan.doc_line_of("observability.md", "`train.step`") == 0
+    path, line = scan.doc_site("observability.md", "`train.step`")
+    assert path == "docs/torch/observability.md" and line > 0
     for family in ("tpu_build_info", "tpu_plugin_trace_spans_total"):
         line = jax_scan.doc_line_of("metrics.md", f"`{family}`")
         assert line and scan.doc_line_of("metrics.md", f"`{family}`") == line
