@@ -25,20 +25,30 @@ caught while the run goes on:
    forward's line carries its own ratio to SDPA's forward).
    The RMSNorm kernel at the bench model's (16384, 2048) with an f32 scale,
    the microbench's (8192, 4096) with a bf16 scale, and a ragged
-   (300, 2048), bf16 x; rrms within relative 1e-5. One JSON line per kernel
-   and shape: errors, tolerance, and at the full shapes kernel, plain and
-   library times (CUDA events, median) beside the bound.
+   (300, 2048), bf16 x; rrms within relative 1e-5. The LM head's GEMM
+   (``ops/head.py``, 3xTF32) in its three layouts (logits X E^T, dX = G E,
+   dE = G^T X) at the two full-logits cells' (rows, d, vocab): the bench
+   model's (16384, 2048, 32768) and gpt2-xl's (8192, 1600, 50257), whose G
+   rows are not 16-byte aligned. The kernel and its plain version (the same
+   three TF32 passes as PyTorch products) are each held to an f64 product
+   of the same inputs: RMS error at most 2x, largest at most 4x, those of
+   ``torch.matmul`` in f32 with TF32 off. One JSON line per kernel
+   and shape: errors, tolerance, and at the full shapes (the head's at the
+   bench model's) kernel, plain and library times (CUDA events, median)
+   beside the bound.
 4. Model: the flash and the dense attention paths of a small model on the
    card agree on the same weights and tokens.
 5. Main path: ``run_smoke`` at ``ModelConfig.bench()`` (10 timed AdamW
    steps, batch 8), with every launch count set to 0 just before and read
-   just after; each flash kernel must have launched, and the RMSNorm
-   kernel (off in this config) not at all. Like every ``run_smoke`` below,
+   just after; each flash kernel must have launched ``n_layers`` times a
+   step, the head's GEMM 3 (the logits, dX, dE), and the RMSNorm kernel
+   (off in this config) not at all. Like every ``run_smoke`` below,
    it brings up (the first time) a one-rank NCCL process group and trains
    through a size-1 six-axis mesh, which leaves the model unsharded.
 6. Norm path: the same at ``ModelConfig.bench()`` with
    ``use_pallas_norm=True``: the RMSNorm kernel must launch 9 times per
-   step (two norms per block and the final one) and each flash kernel 4.
+   step (two norms per block and the final one), each flash kernel 4 and
+   the head's GEMM 3.
    Its step time, tokens/s and MFU are printed beside phase 5's.
 7. Multi-step path: ``run_smoke`` at ``ModelConfig.bench()`` as the JAX
    bench leg drives it, cut to 24 steps (batch 4, ``inner_steps`` 8, so
@@ -46,7 +56,9 @@ caught while the run goes on:
    chunk 4096 on a second graph), counts set to 0 just before and read
    just after. It must report ok with ``ab.vs_plain_step`` and no
    ``ab.error``, and each flash kernel must have launched ``n_layers``
-   times per step actually run (main and A/B, replays included). Then,
+   times per step actually run (main and A/B, replays included), the LM
+   head's GEMM (``ops/head.py``) three times per full-logits step and none
+   in the A/B's chunked steps. Then,
    from one seed and one stack, 8 graphed steps against 8 eager steps:
    every loss within 1e-6 relative. Its line
    carries the gaps, the capture times, the peak device memory, and the
@@ -55,10 +67,12 @@ caught while the run goes on:
 8. Generation: ``run_generation_smoke`` at ``ModelConfig.bench()`` widths,
    batch 8, prompt 256, 32 new tokens, counts set to 0 around each call:
    (a) dense attention, whose KV decoder must be ok (prefill logits within
-   0.1 of the full forward's) with no flash launch; (b) flash attention
+   0.1 of the full forward's) with no flash launch, and the head's GEMM
+   once a full forward (its 16384 and 2048 rows reach ``ops/head.py``'s
+   ``MIN_ROWS``; the KV decoder's 8 do not); (b) flash attention
    with ``use_pallas_norm``, forward only: ``flash_fwd`` exactly
-   ``n_layers`` x 32 launches, ``rmsnorm`` (2 ``n_layers`` + 1) x 32, no
-   backward kernel, the prompt preserved. Tokens/s of each decoder.
+   ``n_layers`` x 32 launches, ``rmsnorm`` (2 ``n_layers`` + 1) x 32, the
+   head's GEMM 32, no backward kernel, the prompt preserved. Tokens/s of each decoder.
 9. Microbench: ``run_microbench(tier="full")`` at its defaults (attention
    seq 8192 and 2048, chunked CE 8192 x 2048 x 32768 with chunk 4096,
    RMSNorm (8192, 4096), matmul 4096). It must report ok, no suspect
@@ -72,7 +86,8 @@ caught while the run goes on:
    reduce-scatter over NCCL, the tensor-parallel sums around the flash
    kernels on local tensors) train 5 steps after 1 on the same tokens:
    every loss within 1e-5 relative of the unsharded loop's, each flash
-   kernel and delta launched exactly ``n_layers`` x 6 times, with counts set
+   kernel and delta launched exactly ``n_layers`` x 6 times and the head's
+   GEMM 3 x 6 (FSDP2 hands the loss whole parameters), with counts set
    to 0 just before and read just after. Its line carries both step times,
    the peak device memory and the group's bring-up.
 
@@ -81,7 +96,8 @@ caught while the run goes on:
    (top-2, capacity factor 2.0), batch 8, 6 timed steps after 1, counts
    set to 0 just before and read just after: ok (first loss sane, loss
    falling, finite), each flash kernel and delta launched exactly
-   ``n_layers`` x 7 times, the RMSNorm kernel not at all; one line with
+   ``n_layers`` x 7 times, the head's GEMM 3 x 7, the RMSNorm kernel not
+   at all; one line with
    the step time, MFU (the MoE FLOP count), peak memory and the aux loss
    of the first batch at the seed's weights (within [n_layers, n_layers x
    e]). (b) Ring attention over the size-1 ``seq`` axis: first the ring
@@ -93,8 +109,9 @@ caught while the run goes on:
    model's on the same weights (max |diff| < 0.15, mean < 0.02, the JAX
    ring test's bounds), then 2 train steps each: the chunked first loss
    within 1e-5 relative of the unchunked one, the loss falling in both,
-   and no kernel launched (counts set to 0 before the ring's op check and
-   read after its last step). The second losses' gap is reported, not
+   and no kernel launched but the head's GEMM, once for each logits
+   forward and three times a train step (counts set to 0 before the ring's
+   op check and read after its last step). The second losses' gap is reported, not
    held: the chunked backward sums dK/dV in another order, and Adam's
    first update magnifies that rounding (1.3e-5 on an NVIDIA H100 80GB
    HBM3 at 700 W).
@@ -104,7 +121,8 @@ caught while the run goes on:
    (``save_every`` 100, so steps 0 and 2 are saved), then 6 steps on the
    same directory, which must resume at step 3. The stitched losses must
    equal the uninterrupted ones within 1e-6 relative, and each flash kernel
-   and delta must launch ``n_layers`` times per resumed step (counts set
+   and delta must launch ``n_layers`` times per resumed step and the head's
+   GEMM 3 (counts set
    to 0 just before the resumed call and read just after). One line with
    the save and restore seconds, the bytes of a checkpoint, the time from
    the restart to the first resumed step, the loop's step time beside
@@ -129,7 +147,8 @@ caught while the run goes on:
    all six (forward, backward) ring depths at the JAX tool's defaults
    (heads 8, head_dim 128, batch by its rule), counts set to 0 just before
    and read just after: every row printed, a timing or a recorded error,
-   each seq's winner beside the default (4, 2) row; the report ok, both
+   each seq's winner beside the default (4, 2) row (no RMSNorm or head
+   launch); the report ok, both
    winners' agreements ok (the dense oracle and the plain version). The
    default row at seq 2048 is printed beside phase 3's K1 + K2 + K3 +
    delta at the bench shape scaled by b*h (a sanity print: the sweep times
@@ -569,7 +588,8 @@ Then one ``{"tools": ...}`` line: the card's name and power limit, and
 each tool run of phases 16, 19 and 21 to 23 with its phase, exit code and
 wall time.
 Then one ``{"kernels": [...]}`` line (each kernel's launches from the path
-that runs it: K1-K3 from phase 5, K4 from phase 6; every path's counts
+that runs it: K1-K3 and the head's GEMM (K5) from phase 5, K4 from
+phase 6; every path's counts
 under ``launches_by_path``, phase 10's as ``sharded``, phase 11's as
 ``moe`` and ``ring``, phase 12's as ``resume``, phase 14's as
 ``kv_sweep``, phase 16's, from the pod's report, as ``plugin_pod``,
@@ -643,8 +663,38 @@ KERNELS = {
     "flash_bwd_delta": ("ops/csrc/flash_bwd.cu",
                         "k8s_device_plugin_tpu/ops/attention.py:197,249"),
     "rmsnorm": ("ops/csrc/rmsnorm.cu", "k8s_device_plugin_tpu/ops/rmsnorm.py:41"),
+    # none: the JAX unembed's f32 einsum, which XLA compiles
+    "head_gemm": ("ops/csrc/head_gemm.cu", "k8s_device_plugin_tpu/workload/model.py:378-380"),
 }
 FLASH = ("flash_fwd", "flash_dq", "flash_dkv", "flash_bwd_delta")
+# The LM head's GEMM (ops/head.py) launches a full-logits training step:
+# the logits, dX and dE. Every step and full forward here has 2048 rows or
+# more, which take the kernel; a forward without gradients launches one.
+HEAD_A_STEP = 3
+
+
+def step_launches(cfg, steps: int, full_logits_steps: int | None = None,
+                  forwards: int = 0) -> dict:
+    """Each kernel's launches over ``steps`` training steps of ``cfg`` (all
+    full-logits unless ``full_logits_steps`` says how many are) and
+    ``forwards`` full forwards without gradients: the flash kernels once a
+    layer a step where ``cfg`` takes them, the RMSNorm kernel at each
+    block's two norms and the final one where ``use_pallas_norm``, the
+    head's GEMM three times a full-logits step and once a forward."""
+    flash = cfg.n_layers * steps if cfg.use_flash_attention else 0
+    want = {name: flash for name in FLASH}
+    want["rmsnorm"] = (2 * cfg.n_layers + 1) * steps if cfg.use_pallas_norm else 0
+    full = steps if full_logits_steps is None else full_logits_steps
+    want["head_gemm"] = HEAD_A_STEP * full + forwards
+    return want
+
+
+def bench_pod_launches(steps: int) -> dict:
+    """A ``smoke --bench`` pod's kernel launches over its ``steps`` eager
+    full-logits steps."""
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
+
+    return step_launches(ModelConfig.bench(), steps)
 
 
 def fail(msg: str) -> None:
@@ -900,6 +950,7 @@ def phase_kernels() -> dict:
         del q, k, v, do, o_p, lse_p, bwd, delta, runs
         torch.cuda.empty_cache()
     entries["rmsnorm"] = phase_norm_kernel()
+    entries["head_gemm"] = phase_head_kernel()
     return entries
 
 
@@ -957,6 +1008,123 @@ def phase_norm_kernel() -> dict:
             fail(f"rmsnorm at {shape} disagrees with its plain version: {line}")
         del x, scale, y, rrms, y_p, rrms_p
         torch.cuda.empty_cache()
+    return entry
+
+
+# The LM head's GEMM (ops/head.py) at the two full-logits cells' (rows, d,
+# vocab): the bench model's (timed; the kernels line's entry) and gpt2-xl's,
+# whose G rows (50,257 values, not 16-byte aligned) load through registers.
+HEAD_CELLS = {"smoke-bench": (16384, 2048, 32768), "gpt2-xl": (8192, 1600, 50257)}
+HEAD_TIMED = "smoke-bench"
+HEAD_ITERS = 5
+# Against an f64 product of the same inputs, over its RMS: the RMS error at
+# most 2x, the largest at most 4x, those of torch.matmul in f32 (TF32 off).
+HEAD_RMS_RATIO, HEAD_MAX_RATIO = 2.0, 4.0
+
+
+def head_operands(layout: str, rows: int, d: int, vocab: int) -> tuple:
+    """A product's operands as the head forms them: X (rows, d) at a norm's
+    scale and E (vocab, d) at GPT-2's init for the logits X . E^T (nt); G
+    (rows, vocab) at a mean loss's gradient scale with E for dX = G . E
+    (nn), with X for dE = G^T . X (tn)."""
+    gen = torch.Generator(device="cuda").manual_seed(rows + d + vocab)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    x, e = randn(rows, d), randn(vocab, d, scale=0.02)
+    if layout == "nt":
+        return x, e
+    g = randn(rows, vocab, scale=1e-4)
+    return (g, e) if layout == "nn" else (g, x)
+
+
+def head_library(layout: str, a, b):
+    """The product by torch.matmul: f32 on the CUDA cores, or f64."""
+    return {"nt": lambda: a @ b.T, "nn": lambda: a @ b, "tn": lambda: a.T @ b}[layout]()
+
+
+def head_errors(got, want) -> tuple[float, float]:
+    """RMS and largest |got - want| over want's RMS."""
+    diff = got.double() - want
+    rms = want.square().mean().sqrt()
+    return float(diff.square().mean().sqrt() / rms), float(diff.abs().max() / rms)
+
+
+def phase_head_kernel() -> dict:
+    """The head's GEMM in its three layouts, and its plain version (the
+    same three TF32 passes as PyTorch products), against f64 at
+    HEAD_CELLS, each held to the f32 product's own error; returns the
+    kernels line's entry: the three layouts at the bench model's shape,
+    summed as one full-logits step runs them."""
+    from k8s_device_plugin_tpu_torch.ops import head
+    from k8s_device_plugin_tpu_torch.ops.microbench import TF32_PEAK_FLOPS
+
+    entry = None
+    for cell, (rows, d, vocab) in HEAD_CELLS.items():
+        timed = cell == HEAD_TIMED
+        layouts = {}
+        for layout in ("nt", "nn", "tn"):
+            m, n, k = {"nt": (rows, vocab, d), "nn": (rows, d, vocab),
+                       "tn": (vocab, d, rows)}[layout]
+            a, b = head_operands(layout, rows, d, vocab)
+            kernel = getattr(head, f"head_matmul_{layout}")
+            plain = getattr(head, f"head_matmul_{layout}_plain")
+            want = head_library(layout, a.double(), b.double())
+            errs = {}
+            for side, fn in (("kernel", kernel), ("plain", plain),
+                             ("library", lambda a, b: head_library(layout, a, b))):
+                got = fn(a, b)
+                torch.cuda.synchronize()
+                errs[side] = head_errors(got, want)
+                del got
+            del want
+            line = {"kernel": "head_gemm", "cell": cell, "layout": layout, "shape": [m, n, k],
+                    "dtype": "float32",
+                    **{f"{key}_{side}": errs[side][i] for side in errs
+                       for i, key in enumerate(("rms_err", "max_err"))},
+                    "tolerance": f"against f64: RMS error <= {HEAD_RMS_RATIO}x, largest <= "
+                                 f"{HEAD_MAX_RATIO}x torch.matmul f32's (TF32 off)"}
+            if timed:
+                bound_ms, bound_by = bound(3 * 2.0 * m * n * k, TF32_PEAK_FLOPS,
+                                           4.0 * (a.numel() + b.numel() + m * n))
+                line.update(
+                    kernel_ms=time_ms(lambda: kernel(a, b), HEAD_ITERS),
+                    plain_ms=time_ms(lambda: plain(a, b), 1, reps=3),
+                    library_ms=time_ms(lambda: head_library(layout, a, b), HEAD_ITERS),
+                    library_call="torch.matmul f32, TF32 off (cuBLAS sgemm)",
+                    bound_ms=bound_ms, bound_by=bound_by)
+                line["bound_share"] = bound_ms / line["kernel_ms"]
+                layouts[layout] = line
+            emit(line)
+            lib_rms, lib_max = errs["library"]
+            bad = [side for side in ("kernel", "plain")
+                   if not (errs[side][0] <= HEAD_RMS_RATIO * lib_rms
+                           and errs[side][1] <= HEAD_MAX_RATIO * lib_max)]
+            if bad:
+                fail(f"head_gemm {layout} at {cell}'s shape: {bad} against f64 beyond "
+                     f"the f32 product's error: {line}")
+            del a, b
+            torch.cuda.empty_cache()
+        if timed:
+            keys = ("kernel_ms", "plain_ms", "bound_ms", "library_ms")
+            sums = {key: sum(line[key] for line in layouts.values()) for key in keys}
+            entry = {
+                "name": "head_gemm",
+                "route": "cuda",
+                "source": "k8s_device_plugin_tpu_torch/" + KERNELS["head_gemm"][0],
+                "replaces": KERNELS["head_gemm"][1],
+                "shape": [rows, d, vocab],
+                "rms_err": max(line["rms_err_kernel"] for line in layouts.values()),
+                "max_err": max(line["max_err_kernel"] for line in layouts.values()),
+                "ms": sums["kernel_ms"],
+                "plain_ms": sums["plain_ms"],
+                "bound_ms": sums["bound_ms"],
+                "bound_by": "/".join(sorted({line["bound_by"] for line in layouts.values()})),
+                "library_ms": sums["library_ms"],
+                "by_layout": {lay: {key: line[key] for key in keys + ("bound_share",)}
+                              for lay, line in layouts.items()},
+            }
     return entry
 
 
@@ -1038,16 +1206,16 @@ def drive_path(cfg, steps: int = 10) -> tuple[dict, dict, int]:
 
 
 def phase_main() -> tuple[dict, dict, int]:
-    """The bench step: each flash kernel launched, the RMSNorm kernel (off
-    in ``ModelConfig.bench()``) not at all."""
+    """The bench step: each flash kernel once a layer a step, the head's
+    GEMM three times a step, the RMSNorm kernel (off in
+    ``ModelConfig.bench()``) not at all."""
     from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
 
-    report, launches, steps = drive_path(ModelConfig.bench())
-    for name in FLASH:
-        if launches[name] <= 0:
-            fail(f"kernel {name} never launched on the main path")
-    if launches["rmsnorm"] != 0:
-        fail(f"the RMSNorm kernel launched {launches['rmsnorm']} times with use_pallas_norm off")
+    cfg = ModelConfig.bench()
+    report, launches, steps = drive_path(cfg)
+    want = step_launches(cfg, steps)
+    if launches != want:
+        fail(f"main path launches {launches}, expected {want}")
     return report, launches, steps
 
 
@@ -1059,8 +1227,7 @@ def phase_norm_path(main_report: dict) -> tuple[dict, int]:
 
     cfg = dataclasses.replace(ModelConfig.bench(), use_pallas_norm=True)
     report, launches, steps = drive_path(cfg)
-    want = {"rmsnorm": (2 * cfg.n_layers + 1) * steps,
-            **{name: cfg.n_layers * steps for name in FLASH}}
+    want = step_launches(cfg, steps)
     if launches != want:
         fail(f"norm path launches {launches}, expected {want}")
     keys = ("step_time_s", "tokens_per_s", "mfu", "first_loss", "final_loss")
@@ -1089,7 +1256,7 @@ def phase_multi_step() -> tuple[dict, int]:
     A/B, then graphed against eager steps from one seed."""
     from k8s_device_plugin_tpu_torch.ops import LAUNCHES, reset_launches
     from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
-    from k8s_device_plugin_tpu_torch.workload.smoke import run_smoke
+    from k8s_device_plugin_tpu_torch.workload.smoke import AB_PAIRS, run_smoke
 
     cfg = ModelConfig.bench()
     # The eager step at the same batch, for the graph's step time.
@@ -1107,7 +1274,10 @@ def phase_multi_step() -> tuple[dict, int]:
     if not (report["ok"] and "vs_plain_step" in ab and "error" not in ab):
         fail(f"multi-step run_smoke not ok: {report}")
     steps = report["steps_run"]
-    want = {"rmsnorm": 0, **{name: cfg.n_layers * steps for name in FLASH}}
+    # The head's GEMM in every full-logits step: the main run's and the
+    # A/B's AB_PAIRS windows of main steps; none in the chunked variant's.
+    chunked_steps = ab["steps_run"] - AB_PAIRS * MULTI_STEP["inner_steps"]
+    want = step_launches(cfg, steps, steps - chunked_steps)
     if launches != want or report["kernel_launches"] != launches:
         fail(f"multi-step launches {launches} (reported {report['kernel_launches']}), "
              f"expected {want} over {steps} steps")
@@ -1169,8 +1339,12 @@ def phase_generation() -> tuple[dict, dict]:
     if not (report["ok"] is True and report["kv_prefill_logits_maxdiff"] < DECODE_LOGITS_TOL
             and report["prompt_preserved"] and report["tokens_in_vocab"]):
         fail(f"dense generation not ok: {report}")
-    if any(dense_launches.values()):
-        fail(f"dense generation launched a kernel: {dense_launches}")
+    # The full forward's logits (16384 rows a token, then the prompt's 2048
+    # for the prefill parity check) take the head's GEMM; the KV decoder's
+    # 8 rows a token keep the einsum.
+    want = step_launches(dense, 0, forwards=2 * GENERATION["steps"] + 1)
+    if dense_launches != want:
+        fail(f"dense generation launches {dense_launches}, expected {want}")
 
     cfg = dataclasses.replace(ModelConfig.bench(), use_pallas_norm=True)
     reset_launches()
@@ -1178,7 +1352,7 @@ def phase_generation() -> tuple[dict, dict]:
     flash_launches = dict(LAUNCHES)
     n = GENERATION["steps"]
     want = {"flash_fwd": cfg.n_layers * n, "flash_dq": 0, "flash_dkv": 0,
-            "flash_bwd_delta": 0, "rmsnorm": (2 * cfg.n_layers + 1) * n}
+            "flash_bwd_delta": 0, "rmsnorm": (2 * cfg.n_layers + 1) * n, "head_gemm": n}
     shape = [GENERATION["batch"], GENERATION["prompt_len"] + n]
     if not (report["prompt_preserved"] and report["tokens_in_vocab"]
             and report["output_shape"] == shape):
@@ -1288,7 +1462,8 @@ def phase_sharded(main_report: dict) -> tuple[dict, int]:
     torch.cuda.empty_cache()
     n_steps = 1 + SHARDED_STEPS
     rel = [abs(a - b) / abs(b) for a, b in zip(sharded, plain)]
-    want = {"rmsnorm": 0, **{name: cfg.n_layers * n_steps for name in FLASH}}
+    # FSDP2 hands the loss whole (plain) parameters, so the head's GEMM runs.
+    want = step_launches(cfg, n_steps)
     emit({"sharded": {
         "mesh": axis_sizes(mesh), "backend": dist.get_backend(),
         "main_path_mesh": main_report["mesh"],
@@ -1333,7 +1508,7 @@ def phase_moe() -> tuple[dict, int]:
     torch.cuda.reset_peak_memory_stats()
     report, launches, steps = drive_path(cfg, MOE_STEPS)
     peak = torch.cuda.max_memory_allocated()
-    want = {"rmsnorm": 0, **{name: cfg.n_layers * steps for name in FLASH}}
+    want = step_launches(cfg, steps)
     # The aux loss of run_smoke's first batch at its seed's weights.
     gen = torch.Generator().manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (1, 8, cfg.max_seq_len), generator=gen)[0].cuda()
@@ -1436,8 +1611,10 @@ def phase_ring() -> tuple[dict, int]:
             fail(f"the ring model at q_chunk {chunk} disagrees with the dense one: {run}")
     if rel[0] > RING_RTOL:
         fail(f"the chunked ring's first loss disagrees with the unchunked one: {rel}")
-    if any(launches.values()):
-        fail(f"the ring path launched a kernel: {launches}")
+    # Per q chunk: one forward for the logits, then the train steps.
+    want = step_launches(dense_cfg, 2 * RING_STEPS, forwards=2)
+    if launches != want:
+        fail(f"ring path launches {launches}, expected {want}")
     return launches, 2 * RING_STEPS
 
 
@@ -1487,7 +1664,7 @@ def phase_resume(main_report: dict) -> tuple[dict, int]:
     stitched = first["losses"] + second["losses"]
     rel = [abs(a - b) / abs(b) for a, b in zip(stitched, full["losses"])]
     resumed_steps = RESUME_STEPS - RESUME_STOP
-    want = {"rmsnorm": 0, **{name: cfg.n_layers * resumed_steps for name in FLASH}}
+    want = step_launches(cfg, resumed_steps)
     loop_step_s = statistics.median(full["step_s"][1:])
     emit({"resume": {
         "card": nvidia_smi(),
@@ -1654,7 +1831,7 @@ def phase_kv_sweep(entries: dict) -> dict:
     timed = sum("timing" in r for r in report["rows"])
     calls = timed * (1 + report["iters"] * report["inner"])
     want = {"flash_fwd": calls + len(SWEEP_SEQS), "flash_dq": calls, "flash_dkv": calls,
-            "flash_bwd_delta": calls, "rmsnorm": 0}
+            "flash_bwd_delta": calls, "rmsnorm": 0, "head_gemm": 0}
     if launches != want:
         fail(f"kv sweep launches {launches}, expected {want}")
     return launches
@@ -2654,7 +2831,6 @@ def phase_plugin_pod(main_report: dict) -> dict:
         if rc != 0 or report is None:
             print(err[-4000:], file=sys.stderr, flush=True)
             fail(f"the pod exited {rc} with report {report}")
-        n_layers = ModelConfig.bench().n_layers
         launches = report["kernel_launches"]
         line.update({
             "pod": {k: report.get(k) for k in (
@@ -2666,8 +2842,7 @@ def phase_plugin_pod(main_report: dict) -> dict:
         })
         if not (report["ok"] and report["expected_devices"] == 1 and report["devices_match"]):
             fail(f"the pod's report is not ok on the allocated card: {line['pod']}")
-        want = {name: n_layers * report["steps_run"] for name in FLASH}
-        want["rmsnorm"] = 0
+        want = bench_pod_launches(report["steps_run"])
         if launches != want:
             fail(f"the pod launched {launches}, expected {want}")
         if footprint is None:
@@ -2997,7 +3172,6 @@ def phase_dra_pod(main_report: dict) -> dict:
         if rc != 0 or report is None:
             print(err[-4000:], file=sys.stderr, flush=True)
             fail(f"the claim's pod exited {rc} with report {report}")
-        n_layers = ModelConfig.bench().n_layers
         launches = report["kernel_launches"]
         line["pod"] = {k: report.get(k) for k in (
             "ok", "device_kind", "device_uuid", "expected_devices", "devices_match", "steps_run",
@@ -3008,8 +3182,7 @@ def phase_dra_pod(main_report: dict) -> dict:
             fail(f"the claim's pod is not ok: {line['pod']}")
         if report.get("device_uuid") != uuid:
             fail(f"the claim's pod ran on {report.get('device_uuid')}, not the claim's {uuid}")
-        want = {name: n_layers * report["steps_run"] for name in FLASH}
-        want["rmsnorm"] = 0
+        want = bench_pod_launches(report["steps_run"])
         if launches != want:
             fail(f"the claim's pod launched {launches}, expected {want}")
 
@@ -3824,8 +3997,7 @@ def run_member_pod(stub, podres, bind, member: str, node: str, ids, count: int,
     if report.get("device_uuid") not in ids:
         fail_with(f"{member}'s pod ran on {report.get('device_uuid')}, not on an allocated "
                   f"card {ids}")
-    want = {name: ModelConfig.bench().n_layers * report["steps_run"] for name in FLASH}
-    want["rmsnorm"] = 0
+    want = bench_pod_launches(report["steps_run"])
     if launches != want:
         fail_with(f"{member}'s pod launched {launches}, expected {want}")
     return launches
@@ -5652,8 +5824,7 @@ def phase_brownout(main_report: dict) -> dict:
         t_report, report = final[-1]
         t_first = next(t for t, snap in pod_lines if snap.get("partial") == "first_step")
         launches = report["kernel_launches"]
-        want = {name: ModelConfig.bench().n_layers * report["steps_run"] for name in FLASH}
-        want["rmsnorm"] = 0
+        want = bench_pod_launches(report["steps_run"])
         step, main_step = report.get("step_time_s"), main_report.get("step_time_s")
         control_step = control_report["step_time_s"]
         line["pod"] = {k: report.get(k) for k in (
@@ -5998,6 +6169,7 @@ def main() -> int:
     dist.destroy_process_group()
     path_launches = {name: (launches[name], steps) for name in FLASH}
     path_launches["rmsnorm"] = (norm_launches["rmsnorm"], norm_steps)
+    path_launches["head_gemm"] = (launches["head_gemm"], steps)
     by_path = {"bench": launches, "norm": norm_launches, "multi_step": multi_launches,
                "generate_dense": dense_gen, "generate_flash": flash_gen,
                "sharded": sharded_launches, "moe": moe_launches, "ring": ring_launches,

@@ -38,6 +38,7 @@ CACHE_DIR_ENV = "TPU_WORKLOAD_COMPILATION_CACHE_DIR"
 # Launches of each hand-written kernel since the last reset_launches().
 LAUNCHES = {
     "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_bwd_delta": 0, "rmsnorm": 0,
+    "head_gemm": 0,
 }
 
 NVCC_FLAGS = (

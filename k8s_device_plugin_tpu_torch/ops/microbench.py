@@ -19,7 +19,14 @@ Cases, in order (most valuable first, so a budget cut drops the tail):
 - ``rmsnorm_<rows>x<d>``: the RMSNorm kernel (``ops/rmsnorm.py``) fwd+bwd
   against the plain PyTorch formulation under autograd, bf16. The baseline
   here is that plain formulation, not a compiler's fusion, so the sides are
-  ``kernel`` and ``plain`` and the ratio ``speedup_vs_plain``.
+  ``kernel`` and ``plain`` and the ratio ``speedup_vs_plain``;
+- ``head_<layout>_<m>x<n>x<k>``: the LM head's 3xTF32 GEMM (``ops/head.py``)
+  in each of its three layouts at the full-logits cells' shapes (smoke
+  bench, gpt2-xl), against its plain version (the same three TF32 passes as
+  PyTorch products) and the ``library`` f32 product (``torch.matmul``, TF32
+  off), with the bound 3 * 2mnk / 495 TFLOP/s and its share, and each
+  side's error against an f64 product of the same inputs (RMS and largest,
+  over the f64 result's RMS). The full tier runs them.
 
 Output is one JSON line (plus, with ``--stream``, a partial line after
 every case). Each side reports its median ms per call; the ratio of the
@@ -258,6 +265,59 @@ def _rmsnorm_case(rows: int, d: int, iters: int, inner: int, hbm_gbps: float,
     return out
 
 
+# The LM head's (rows, d, vocab) at the full-logits cells (gpubench/):
+# smoke-bench.train and gpt2-xl.train.
+HEAD_CELLS = ((16384, 2048, 32768), (8192, 1600, 50257))
+TF32_PEAK_FLOPS = 495e12
+
+
+def _head_case(layout: str, rows: int, d: int, vocab: int, iters: int, inner: int,
+               device: torch.device) -> dict:
+    """One of the head's three products at (rows, d, vocab): ``nt`` the
+    logits X E^T, ``nn`` dX = G E, ``tn`` dE = G^T X."""
+    from . import head
+
+    m, n, k = {"nt": (rows, vocab, d), "nn": (rows, d, vocab), "tn": (vocab, d, rows)}[layout]
+    x = _randn((rows, d), 21, device, torch.float32)
+    e = _randn((vocab, d), 22, device, torch.float32, 0.02)
+    if layout == "nt":
+        a, b = x, e
+    else:
+        g = _randn((rows, vocab), 23, device, torch.float32, 1e-4)
+        a, b = (g, e) if layout == "nn" else (g, x)
+    del x, e
+    kernel = getattr(head, f"head_matmul_{layout}")
+    plain = getattr(head, f"head_matmul_{layout}_plain")
+
+    def library(a_, b_):
+        return {"nt": lambda: a_ @ b_.T, "nn": lambda: a_ @ b_, "tn": lambda: a_.T @ b_}[layout]()
+
+    flops = 2.0 * m * n * k
+    out = {"shape": [m, n, k], "layout": layout, "dtype": "float32",
+           "bound_ms": float(f"{3 * flops / TF32_PEAK_FLOPS * 1e3:.4g}")}
+    for side, fn in (("kernel", kernel), ("plain", plain), ("library", library)):
+        out[side] = _bench_side(lambda fn=fn: fn(a, b), inner, iters, device)
+        _flops_check(out[side], flops, 0.0)
+    if out["kernel"].get("ms"):
+        out["bound_share"] = float(f"{out['bound_ms'] / out['kernel']['ms']:.4g}")
+    _speedup(out, "library", "kernel", "speedup_vs_library")
+    # Errors against f64 of the same inputs, after the timings (the f64
+    # product and a difference hold four times the output's bytes).
+    want = library(a.double(), b.double())
+    scale = want.square().mean().sqrt()
+    for side, fn in (("kernel", kernel), ("library", library)):
+        if "error" in out[side]:
+            continue
+        diff = fn(a, b).double() - want
+        out[side]["rms_err"] = float(diff.square().mean().sqrt() / scale)
+        out[side]["max_err"] = float(diff.abs().max() / scale)
+        del diff
+    del want
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
 def _update_verdict(report: dict) -> None:
     """Set ``ok`` false on a failed guard, a failed case or a failed kernel
     side, and ``timing_suspect`` on an implausible side."""
@@ -316,6 +376,7 @@ def run_microbench(
     inner_xent = inner or 8
     inner_norm = inner or 128
     inner_matmul = inner or 64
+    inner_head = inner or 2
     if tier == "micro":
         iters = min(iters, 3)
     report = {
@@ -375,6 +436,17 @@ def run_microbench(
              lambda: _rmsnorm_case(*rmsnorm_shape, iters, inner_norm, hbm_gbps, dev),
              30.0),
         ]
+    # The head at the cells' shapes on the card, at the xent case's tiny
+    # shape on the CPU.
+    head_shapes = HEAD_CELLS if dev.type == "cuda" else ((64, 32, 128),)
+    head_cases = [
+        (f"head_{layout}_%dx%dx%d" % {"nt": (r, v, d), "nn": (r, d, v), "tn": (v, d, r)}[layout],
+         (lambda lay=layout, r=r, d=d, v=v: _head_case(lay, r, d, v, iters, inner_head, dev)),
+         20.0)
+        for r, d, v in head_shapes for layout in ("nt", "nn", "tn")
+    ]
+    if tier == "full":
+        cases += head_cases
     for name, fn, min_budget in cases:
         if budget_left() < min_budget:
             report["kernels"][name] = {"skipped": "budget exhausted"}

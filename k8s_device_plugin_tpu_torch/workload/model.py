@@ -65,7 +65,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from ..ops import flash_attention
+from ..ops import flash_attention, head
 from ..ops.rmsnorm import rmsnorm
 from ..parallel.collectives import enter_split, gather_split, leave_split
 
@@ -411,8 +411,15 @@ def embed_tokens(cfg: ModelConfig, embed, pos, tokens):
 
 
 def unembed(x, embed):
-    """Tied-embedding logits projection, in f32 for the softmax."""
-    return torch.einsum("bsd,vd->bsv", x.float(), embed)
+    """Tied-embedding logits projection, in f32 for the softmax. On the
+    card, for plain tensors of at least ``ops/head.py``'s ``MIN_ROWS`` rows
+    (``takes``), the f32 product and its two gradients run on the 3xTF32
+    kernel, as accurate as the f32 product; elsewhere (the CPU, DTensors,
+    decoding's few rows) the einsum."""
+    x = x.float()
+    if head.takes(x, embed):
+        return head.head_logits(x, embed)
+    return torch.einsum("bsd,vd->bsv", x, embed)
 
 
 class TransformerLM(nn.Module):

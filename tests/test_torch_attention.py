@@ -147,7 +147,8 @@ def test_cpu_path_launches_no_kernel():
     q, k, v = (torch.from_numpy(x).requires_grad_() for x in _inputs((1, 2, 32, 16), 5))
     tattn.flash_attention(q, k, v).sum().backward()
     assert LAUNCHES == {
-        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_bwd_delta": 0, "rmsnorm": 0}
+        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_bwd_delta": 0, "rmsnorm": 0,
+        "head_gemm": 0}
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():

@@ -23,6 +23,7 @@ import torch
 
 from k8s_device_plugin_tpu_torch.ops import LAUNCHES, _build, reset_launches
 from k8s_device_plugin_tpu_torch.ops import attention as tattn
+from k8s_device_plugin_tpu_torch.ops import head as thead
 from k8s_device_plugin_tpu_torch.ops import rmsnorm as trms
 
 
@@ -192,7 +193,8 @@ def test_every_ring_depth_matches_plain_on_card(cuda_device, shape):
             agree = tattn.bf16_agreement(got, want)
             assert agree["ok"], (stages, agree)
     assert LAUNCHES == {"flash_fwd": len(tattn.FWD_STAGES), "flash_dq": len(tattn.BWD_STAGES),
-                        "flash_dkv": len(tattn.BWD_STAGES), "flash_bwd_delta": 0, "rmsnorm": 0}
+                        "flash_dkv": len(tattn.BWD_STAGES), "flash_bwd_delta": 0, "rmsnorm": 0,
+                        "head_gemm": 0}
 
 
 @pytest.mark.cuda
@@ -229,7 +231,8 @@ def test_autograd_function_launches_each_kernel_once(cuda_device):
     tattn.flash_attention(q, k, v).float().sum().backward()
     torch.cuda.synchronize()
     assert LAUNCHES == {
-        "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1, "flash_bwd_delta": 1, "rmsnorm": 0}
+        "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1, "flash_bwd_delta": 1, "rmsnorm": 0,
+        "head_gemm": 0}
     assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v))
 
 
@@ -272,7 +275,8 @@ def test_rmsnorm_launches_the_kernel_once_per_forward(cuda_device):
     y.float().square().sum().backward()
     torch.cuda.synchronize()
     assert LAUNCHES == {
-        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_bwd_delta": 0, "rmsnorm": 1}
+        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_bwd_delta": 0, "rmsnorm": 1,
+        "head_gemm": 0}
     assert y.dtype == torch.bfloat16 and y.shape == x.shape
     assert x.grad.dtype == torch.bfloat16 and scale.grad.dtype == torch.float32
     assert torch.isfinite(x.grad.float()).all() and torch.isfinite(scale.grad).all()
@@ -315,8 +319,9 @@ def test_graphed_steps_match_eager_and_count_replayed_launches(cuda_device):
     reset_launches()
     graphed = step(stack)
     torch.cuda.synchronize()
+    # 512 rows a step: fewer than the head kernel takes (ops/head.py MIN_ROWS)
     per_step = {"flash_fwd": 2, "flash_dq": 2, "flash_dkv": 2, "flash_bwd_delta": 2,
-                "rmsnorm": 5}
+                "rmsnorm": 5, "head_gemm": 0}
     assert isinstance(step, train.GraphedTrainStep) and step.capture_s > 0
     assert step.launches == per_step
     assert LAUNCHES == {name: 6 * n for name, n in per_step.items()}
@@ -400,6 +405,240 @@ def test_tp_and_fsdp_over_size_one_axes_leave_the_bench_loss(cuda_device):
         sharded = float(train.loss_fn(model, tokens))
     assert LAUNCHES["flash_fwd"] == cfg.n_layers
     assert sharded == pytest.approx(plain, rel=1e-5)
+
+
+# The LM head's products (ops/head.py) at the two full-logits cells'
+# shapes: (rows, d, vocab).
+HEAD_CELLS = {"smoke-bench": (16384, 2048, 32768), "gpt2-xl": (8192, 1600, 50257)}
+HEAD_LAYOUTS = ("nt", "nn", "tn")
+
+
+def _head_shapes(layout, m, n, k):
+    """The operands' shapes of the product ``layout`` with an (m, n) output
+    and depth k."""
+    return {"nt": ((m, k), (n, k)), "nn": ((m, k), (k, n)), "tn": ((k, m), (k, n))}[layout]
+
+
+def _head_product(layout, a, b):
+    return {"nt": lambda: a @ b.T, "nn": lambda: a @ b, "tn": lambda: a.T @ b}[layout]()
+
+
+def _head_errors(got, want):
+    """RMS and largest error over the f64 result's RMS."""
+    d = got.double() - want
+    rms = want.square().mean().sqrt()
+    return float(d.square().mean().sqrt() / rms), float(d.abs().max() / rms)
+
+
+def _head_cell_operands(layout, rows, d, vocab, device):
+    """X (rows, d) at a norm's scale, E (vocab, d) at GPT-2's init and G
+    (rows, vocab) at a mean loss's gradient scale, as each product takes
+    them."""
+    gen = torch.Generator(device=device).manual_seed(11)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    if layout == "nt":
+        return randn(rows, d), randn(vocab, d, scale=0.02)
+    g = randn(rows, vocab, scale=1e-4)
+    return (g, randn(vocab, d, scale=0.02)) if layout == "nn" else (g, randn(rows, d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", HEAD_LAYOUTS)
+@pytest.mark.parametrize("cell", sorted(HEAD_CELLS))
+def test_head_gemm_is_as_accurate_as_f32_at_the_cells_shapes(cuda_device, cell, layout):
+    """Each of the head's three products at each full-logits cell's shape,
+    against an f64 product of the same inputs: the kernel's RMS error at
+    most twice that of torch.matmul in f32 (TF32 off), its largest at most
+    four times."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rows, d, vocab = HEAD_CELLS[cell]
+    a, b = _head_cell_operands(layout, rows, d, vocab, cuda_device)
+    reset_launches()
+    got = getattr(thead, f"head_matmul_{layout}")(a, b)
+    f32 = _head_product(layout, a, b)
+    torch.cuda.synchronize()
+    assert LAUNCHES["head_gemm"] == 1
+    want = _head_product(layout, a.double(), b.double())
+    del a, b
+    rms, big = _head_errors(got, want)
+    del got
+    rms32, big32 = _head_errors(f32, want)
+    assert rms <= 2 * rms32 and big <= 4 * big32, (rms, rms32, big, big32)
+
+
+# Ragged (m, n, k) for each layout: outputs past a tile's edge and depths
+# that end inside a stage. b's rows (and nt's a's) are 16-byte aligned, as
+# the kernel needs; a's are not in the nn and tn shapes with k, or m, not a
+# multiple of 4 (the 4-byte copy path gpt2-xl's G takes).
+HEAD_RAGGED = {
+    "nt": [(1, 4, 4), (300, 520, 76), (257, 164, 1604), (129, 332, 36), (64, 1600, 3144)],
+    "nn": [(1, 4, 1), (300, 520, 77), (257, 164, 1601), (129, 332, 36), (64, 1600, 3141)],
+    "tn": [(1, 4, 1), (300, 520, 77), (257, 164, 1601), (129, 332, 36), (63, 1600, 3141)],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,mnk", [(lay, mnk) for lay, shapes in HEAD_RAGGED.items()
+                                        for mnk in shapes],
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_head_gemm_masks_every_ragged_edge_on_card(cuda_device, layout, mnk):
+    """Held to the f64 product as at the cells' shapes, with the split's own
+    2^-22 allowed beside the f32 error where the depth is a few values."""
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    a, b = (torch.randn(s, generator=gen, device=cuda_device)
+            for s in _head_shapes(layout, *mnk))
+    got = getattr(thead, f"head_matmul_{layout}")(a, b)
+    want = _head_product(layout, a.double(), b.double())
+    rms, big = _head_errors(got, want)
+    rms32, big32 = _head_errors(_head_product(layout, a, b), want)
+    assert got.shape == want.shape
+    assert rms <= 2 * rms32 + 2.0 ** -22 and big <= 4 * big32 + 4 * 2.0 ** -22, (rms, rms32,
+                                                                                  big, big32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout,mnk", [("nt", (2048, 4096, 1600)), ("nn", (2048, 1600, 50257)),
+                                        ("tn", (50257, 1600, 2048)), ("nn", (4096, 2048, 8192)),
+                                        ("tn", (8192, 2048, 4096))],
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else v)
+def test_head_gemm_repeats_bit_for_bit_on_card(cuda_device, layout, mnk):
+    """One owner per output and no atomics: ten launches on the same inputs
+    give the same bits, on the TMA path and on the register path of an A
+    with unaligned rows (a 50,257-wide G), where the producer's threads
+    drift apart the most."""
+    gen = torch.Generator(device=cuda_device).manual_seed(17)
+    a, b = (torch.randn(s, generator=gen, device=cuda_device)
+            for s in _head_shapes(layout, *mnk))
+    fn = getattr(thead, f"head_matmul_{layout}")
+    first = fn(a, b)
+    for _ in range(10):
+        assert torch.equal(fn(a, b), first)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", HEAD_LAYOUTS)
+def test_head_gemm_stores_nothing_past_the_output(cuda_device, layout):
+    """Through the C entry point, the output inside a larger buffer (row
+    stride n + 7, three rows more): every value outside the (m, n) output
+    keeps its canary."""
+    m, n, k = 130, 172, 40
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    a, b = (torch.randn(s, generator=gen, device=cuda_device)
+            for s in _head_shapes(layout, m, n, k))
+    buf = torch.full((m + 3, n + 7), 12345.0, device=cuda_device)
+    fn = _build.bind("head_gemm", "head_gemm", [thead._I, thead._P, thead._L, thead._P, thead._L,
+                                                thead._P, thead._L] + [thead._I] * 3 + [thead._P])
+    err = fn(thead._LAYOUTS[layout], a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0),
+             buf.data_ptr(), n + 7, m, n, k, torch.cuda.current_stream().cuda_stream)
+    _build.check(err, "head_gemm")
+    torch.cuda.synchronize()
+    assert (buf[m:] == 12345.0).all() and (buf[:, n:] == 12345.0).all()
+    assert _head_errors(buf[:m, :n], _head_product(layout, a.double(), b.double()))[0] < 1e-5
+
+
+@pytest.mark.cuda
+def test_head_gemm_refuses_what_it_does_not_take_on_card(cuda_device):
+    a = torch.zeros(64, 32, device=cuda_device)
+    with pytest.raises(TypeError, match="float32"):
+        thead.head_matmul_nt(a.to(torch.bfloat16), a)
+    with pytest.raises(ValueError, match="16-byte aligned rows"):
+        thead.head_matmul_nn(a, torch.zeros(32, 7, device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        thead.head_matmul_nn(a, a.T.contiguous().T)
+    with pytest.raises(ValueError, match="CUDA"):
+        thead.head_matmul_tn(a, a.cpu())
+
+
+@pytest.mark.cuda
+def test_head_product_gradients_match_the_einsum_on_card(cuda_device):
+    """HeadProduct's logits and its two gradients (the nn and tn kernels)
+    against autograd of the f32 einsum, both held to autograd of the f64
+    einsum: the kernel's error at most twice the einsum's (plus the split's
+    2^-22)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(14)
+    x = torch.randn(4, 700, 320, generator=gen, device=cuda_device)
+    embed = torch.randn(1000, 320, generator=gen, device=cuda_device) * 0.02
+    w = torch.randn(4, 700, 1000, generator=gen, device=cuda_device)
+    results = []
+    for dtype, fn in ((torch.float32, thead.head_logits),
+                      (torch.float32, lambda a, e: torch.einsum("bsd,vd->bsv", a, e)),
+                      (torch.float64, lambda a, e: torch.einsum("bsd,vd->bsv", a, e))):
+        xa = x.detach().to(dtype, copy=True).requires_grad_()
+        ea = embed.detach().to(dtype, copy=True).requires_grad_()
+        reset_launches()
+        logits = fn(xa, ea)
+        (logits * w.to(dtype)).sum().backward()
+        torch.cuda.synchronize()
+        results.append((logits.detach(), xa.grad, ea.grad, LAUNCHES["head_gemm"]))
+    (ours, ref, exact) = results
+    assert ours[3] == 3 and ref[3] == 0
+    for i in range(3):
+        mine = _head_errors(ours[i], exact[i])[0]
+        theirs = _head_errors(ref[i], exact[i])[0]
+        assert mine <= 2 * theirs + 2.0 ** -22, (i, mine, theirs)
+
+
+def _head_cfg():
+    """A model whose full-logits loss takes the head kernel: 33 sequences
+    of 256 give 8448 rows, over ``ops/head.py``'s MIN_ROWS."""
+    from k8s_device_plugin_tpu_torch.workload.model import ModelConfig
+
+    return ModelConfig(vocab_size=4096, d_model=256, n_heads=2, n_layers=1, d_ff=512,
+                       max_seq_len=256, use_flash_attention=True)
+
+
+@pytest.mark.cuda
+def test_head_kernel_launches_three_times_a_full_logits_step(cuda_device, monkeypatch):
+    """One full-logits train_step launches the head kernel three times (the
+    logits, dX, dE) with a loss within 1e-6 of the einsum's; the chunked
+    loss and decoding's few rows launch it not at all."""
+    from k8s_device_plugin_tpu_torch.workload import train
+    from k8s_device_plugin_tpu_torch.workload.model import unembed
+
+    cfg = _head_cfg()
+    gen = torch.Generator().manual_seed(15)
+    tokens = torch.randint(0, cfg.vocab_size, (33, cfg.max_seq_len), generator=gen).cuda()
+    model, optimizer = train.make_train_state(cfg, cuda_device, seed=1)
+    reset_launches()
+    loss = float(train.train_step(model, optimizer, tokens))
+    torch.cuda.synchronize()
+    assert LAUNCHES["head_gemm"] == 3
+    with monkeypatch.context() as m:
+        m.setattr(thead, "takes", lambda x, embed: False)
+        model, optimizer = train.make_train_state(cfg, cuda_device, seed=1)
+        assert float(train.train_step(model, optimizer, tokens)) == pytest.approx(loss, rel=1e-6)
+    reset_launches()
+    train.train_step(model, optimizer, tokens, xent_chunk=1024)
+    with torch.no_grad():
+        unembed(torch.randn(8, 1, cfg.d_model, device=cuda_device), model.tied_embedding())
+    torch.cuda.synchronize()
+    assert LAUNCHES["head_gemm"] == 0
+
+
+@pytest.mark.cuda
+def test_graphed_step_counts_the_head_kernel(cuda_device):
+    """The graphed step captures the head kernel's three launches a step;
+    its losses match the eager steps' within 1e-6 relative (the kernel has
+    one owner per output and no atomics)."""
+    from k8s_device_plugin_tpu_torch.workload import train
+
+    cfg = _head_cfg()
+    gen = torch.Generator().manual_seed(16)
+    stack = torch.randint(0, cfg.vocab_size, (4, 33, cfg.max_seq_len), generator=gen).cuda()
+    model, optimizer = train.make_train_state(cfg, cuda_device, seed=2)
+    eager = torch.stack([train.train_step(model, optimizer, t) for t in stack])
+    model, optimizer = train.make_train_state(cfg, cuda_device, seed=2)
+    step = train.make_multi_train_step(model, optimizer, 4)
+    reset_launches()
+    graphed = step(stack)
+    torch.cuda.synchronize()
+    assert isinstance(step, train.GraphedTrainStep) and step.launches["head_gemm"] == 3
+    assert LAUNCHES["head_gemm"] == 4 * 3
+    rel = ((graphed - eager).abs() / eager.abs()).cpu()
+    assert rel.max() <= 1e-6, rel
 
 
 # The bench widths cut to 2 layers, on the bench's global batch of 8.

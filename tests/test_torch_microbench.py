@@ -18,7 +18,11 @@ def test_tiny_shapes_report_every_case():
     assert list(k) == [
         "matmul_256", "attention_seq128", "attention_agreement",
         "xent_64x32x128", "rmsnorm_64x128",
+        "head_nt_64x128x32", "head_nn_64x32x128", "head_tn_128x32x64",
     ]
+    for name in ("head_nt_64x128x32", "head_nn_64x32x128", "head_tn_128x32x64"):
+        assert {"kernel", "plain", "library", "bound_ms"} <= set(k[name])
+        assert k[name]["kernel"]["rms_err"] < 1e-5
     assert k["xent_64x32x128"]["ok"] is True
     assert k["attention_agreement"]["ok"] is True
     assert "speedup_vs_dense" in k["attention_seq128"]

@@ -31,7 +31,8 @@ def test_run_smoke_on_cpu_tiny_is_ok():
     assert report["first_loss_sane"] and report["loss_decreased"]
     assert report["backend"] == "cpu" and report["mfu"] is None
     assert report["kernel_launches"] == {
-        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_bwd_delta": 0, "rmsnorm": 0}
+        "flash_fwd": 0, "flash_dq": 0, "flash_dkv": 0, "flash_bwd_delta": 0, "rmsnorm": 0,
+        "head_gemm": 0}
     assert report["xent_chunk"] == 0
     assert [s["partial"] for s in streamed] == ["devices_up", "first_step"]
     assert all(s["ok"] is None for s in streamed)
@@ -119,7 +120,8 @@ def test_nvcc_missing_raises(monkeypatch, tmp_path):
 
 def test_every_kernel_source_carries_its_note():
     sources = sorted((PACKAGE / "ops" / "csrc").glob("*.cu"))
-    assert [s.name for s in sources] == ["flash_bwd.cu", "flash_fwd.cu", "rmsnorm.cu"]
+    assert [s.name for s in sources] == ["flash_bwd.cu", "flash_fwd.cu", "head_gemm.cu",
+                                         "rmsnorm.cu"]
     for src in sources:
         text = src.read_text()
         for needle in ("Replaces:", "What bounds", "What the design does"):
