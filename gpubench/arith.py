@@ -14,7 +14,9 @@ yardstick it is measured by:
   written once, the larger of operations over peak and bytes over the
   memory rate;
 - the kernel groups of ``workload/step_profile.py``'s ``GROUPS``, checked
-  in order, the first match naming the group.
+  in order, the first match naming the group, after the benchmark's own
+  first group, ``collective``: NCCL's kernels (``nccl`` in the name, any
+  case), the model axis's sums on a cell of several cards.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ PEAK_F32_FLOPS = 67e12
 MEMORY_BYTES_PER_S = 3.35e12
 
 GROUPS = (
+    ("collective", re.compile(r"nccl", re.I)),
     ("flash_fwd", re.compile(r"flash::fwd_kernel")),
     ("flash_bwd", re.compile(r"flash::\w*(dq|dkv|bwd)\w*")),
     ("rmsnorm", re.compile(r"rmsnorm::fwd_kernel")),

@@ -17,6 +17,11 @@ Three numbers are read on each side and compared:
   are f32 where the blocks' are bf16: the blocks' rounding sets
   ``grad_gap``'s worst leaf and would hide a coarser head.
 
+On a mesh (a cell of several cards) each rank reads its own slices, and
+``whole`` makes the whole model's readings of them: a leaf split over the
+model axis has the norm of its slices together, a replicated leaf is read
+once, on the first rank.
+
 Each has a limit of its own per cell (``limits/<cell>.json``), set from the
 program's readings over a dozen seeds and more and from the control's and
 the faults' (``calibrate.py``); a number over its limit, or not finite,
@@ -47,7 +52,8 @@ class Readings:
 
 def _norms(tensors: dict[str, torch.Tensor], scale: float = 1.0) -> dict[str, float]:
     names = list(tensors)
-    values = torch.stack([torch.linalg.vector_norm(tensors[n].float()) for n in names])
+    first = tensors[names[0]].device
+    values = torch.stack([torch.linalg.vector_norm(tensors[n].float()).to(first) for n in names])
     return dict(zip(names, (values * scale).tolist()))
 
 
@@ -72,18 +78,39 @@ def program_readings(model, optimizer, step, batches, initial_weights, beta1: fl
     return Readings(torch.stack(losses).tolist(), grads, changes)
 
 
+def whole(ranks: list[Readings], split) -> Readings:
+    """The whole model's readings from each rank's readings of its own
+    slices, by rank: the norm of a leaf named in ``split`` is that of its
+    slices together; every other leaf, replicated, and the losses (the
+    global batch's on every rank) are read on the first rank."""
+
+    def together(norms: list[dict[str, float]]) -> dict[str, float]:
+        return {n: math.sqrt(sum(r[n] ** 2 for r in norms)) if n in split else v
+                for n, v in norms[0].items()}
+
+    return Readings(ranks[0].losses, together([r.grad_norms for r in ranks]),
+                    together([r.change_norms for r in ranks]))
+
+
 def reference_readings(family, sz, seed: int, batches, optimizer: dict, device,
-                       precision: str = "stated") -> Readings:
+                       precision: str = "stated", devices=None) -> Readings:
     """The same readings of the family's plain reference, from the same
-    seed's weights, on the same batches."""
+    seed's weights, on the same batches; over ``devices`` (the family's
+    ``place``) where given, on ``device`` alone otherwise. The weights are
+    drawn on ``device``."""
+    devices = devices or [device]
     losses, grads, params = [], None, None
-    steps = family.reference_steps(sz, family.initial_weights(sz, seed, device), batches,
-                                   optimizer, precision)
+    weights = family.place(sz, family.initial_weights(sz, seed, device), devices)
+    # Over several devices the step-0 weights are kept as placed: drawn again
+    # on the first device once it holds its share of the state, they would
+    # need one block of the whole weights' size there.
+    kept = {n: w.clone() for n, w in weights.items()} if len(devices) > 1 else None
+    steps = family.reference_steps(sz, weights, batches, optimizer, precision)
     for i, (loss, g, params) in enumerate(steps):
-        losses.append(loss)
+        losses.append(loss.to(device))
         if i == 0:
             grads = _norms(g)
-    changes = _changes(params, family.initial_weights(sz, seed, device))
+    changes = _changes(params, kept or family.initial_weights(sz, seed, device))
     return Readings(torch.stack(losses).tolist(), grads, changes)
 
 

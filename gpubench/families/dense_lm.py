@@ -17,6 +17,12 @@ equations and imports nothing of the program:
     logits = RMSNorm(x) E^T in f32; loss = mean next-token cross-entropy
     AdamW (decoupled decay), in f32
 
+With several devices (``placement``) the reference lays layer i on
+device ``devices[len(devices) * i // layers]``, the embedding and the
+positions on the first and the final norm and head on the last, and moves
+the activations between them with ``.to()``: the same equations, a card's
+share of the state each. With one device it is the one-device reference.
+
 The reference states the precision the configuration states (f32
 parameters, optimizer, norms, softmax, head and loss with TF32 off; bf16
 operands for the blocks' products, accumulated in f32) and computes
@@ -122,9 +128,14 @@ def flops_per_step(sz: Sizes, batch: int) -> float:
     return 3.0 * batch * s * per_token
 
 
-def flash_shape(sz: Sizes, batch: int) -> tuple[int, int, int, int]:
-    """(batch, heads, seq, head_dim) of every flash launch of a step."""
-    return batch, sz.heads, sz.seq, sz.head_dim
+def flash_shape(sz: Sizes, batch: int, mesh=(1, 1, 1)) -> tuple[int, int, int, int]:
+    """(batch, heads, seq, head_dim) of every flash launch of a step on one
+    card of a (data, fsdp, model) ``mesh``: its rows of the batch, and its
+    share of the heads where the model axis divides them (the port keeps
+    them whole where it does not)."""
+    data, fsdp, model = mesh
+    heads = sz.heads // model if sz.heads % model == 0 else sz.heads
+    return batch // (data * fsdp), heads, sz.seq, sz.head_dim
 
 
 # --- the program -----------------------------------------------------------
@@ -153,6 +164,29 @@ def load_weights(model: torch.nn.Module, weights: dict[str, torch.Tensor]) -> No
 
 
 # --- the plain reference ---------------------------------------------------
+
+def placement(sz: Sizes, devices) -> dict[str, torch.device]:
+    """The device of each leaf when the reference runs over ``devices``:
+    layer i on ``devices[len(devices) * i // layers]``, the embedding and
+    the positions on the first, the final norm (and the head) on the last."""
+    devices = [torch.device(d) for d in devices]
+    out = {"embed": devices[0], "pos": devices[0], "norm.scale": devices[-1]}
+    for name, _, _ in leaves(sz):
+        if name.startswith("blocks."):
+            out[name] = devices[len(devices) * int(name.split(".")[1]) // sz.layers]
+    return out
+
+
+def place(sz: Sizes, weights: dict[str, torch.Tensor], devices) -> dict[str, torch.Tensor]:
+    """``weights`` as the reference holds them over ``devices``
+    (``placement``): on one device, the tensors themselves; on several, each
+    leaf a copy of its own on its device, so that no leaf keeps the flat
+    buffer of ``initial_weights`` alive."""
+    if len(devices) == 1:
+        return weights
+    where = placement(sz, devices)
+    return {n: w.to(where[n], copy=True) for n, w in weights.items()}
+
 
 class _Fp8(torch.autograd.Function):
     """Rounds a tensor to fp8 e4m3, and its gradient to fp8 e5m2."""
@@ -228,18 +262,22 @@ def reference_loss(p: dict[str, torch.Tensor], tokens: torch.Tensor, sz: Sizes,
     """Mean next-token cross-entropy of ``tokens`` (batch, seq) under the
     parameters ``p``, a layer at a time: each block's activations are
     recomputed in the backward (``checkpoint``), so that the dense
-    attention fits beside the step's state at the timed sizes. ``low``:
+    attention fits beside the step's state at the timed sizes. Each block
+    runs where its leaves are, the head where the final norm is
+    (``placement``); ``tokens`` lie with the embedding. ``low``:
     the blocks' products in fp8; ``head_tf32``: the head's in TF32."""
     s = tokens.shape[1]
     x = (p["embed"][tokens] + p["pos"][:s][None]).to(torch.bfloat16)
     block = functools.partial(_block, sz=sz, low=low)
     for i in range(sz.layers):
         args = [p[f"blocks.{i}.{leaf}"] for leaf in _BLOCK_LEAVES]
-        x = checkpoint(block, x, *args, use_reentrant=False)
-    h = _rms(x[:, :-1], p["norm.scale"])
+        x = checkpoint(block, x.to(args[0].device), *args, use_reentrant=False)
+    scale = p["norm.scale"]
+    h = _rms(x[:, :-1].to(scale.device), scale)
     h = h.reshape(-1, sz.d_model)
-    logits = _Tf32Head.apply(h, p["embed"]) if head_tf32 else h @ p["embed"].T
-    return F.cross_entropy(logits, tokens[:, 1:].reshape(-1))
+    embed = p["embed"].to(scale.device)
+    logits = _Tf32Head.apply(h, embed) if head_tf32 else h @ embed.T
+    return F.cross_entropy(logits, tokens[:, 1:].reshape(-1).to(scale.device))
 
 
 @contextlib.contextmanager

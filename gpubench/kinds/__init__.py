@@ -7,8 +7,13 @@ has
   seed and driven through whatever ``check`` compares;
 - ``counters() -> dict[str, float]``: the program's counters now, which a
   run reads before and after its untraced window;
-- ``check(cell, seed, device, evidence) -> dict[str, float]``: once the
-  program is freed, each number compared against ``limits/<cell>.json``.
+- ``check(cell, seed, device, evidence, devices=None) -> dict[str,
+  float]``: once the program is freed, each number compared against
+  ``limits/<cell>.json``; over ``devices``, the cards of a cell of several.
+
+A kind that runs on several cards (``ranks.py``) also takes the rank's
+mesh as ``start(cell, seed, device, mesh)`` and has ``gather(evidence) ->
+evidence``, the whole program's evidence from each rank's, by rank.
 """
 
 from __future__ import annotations

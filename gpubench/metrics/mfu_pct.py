@@ -1,7 +1,8 @@
-"""The whole step's share of the card's bf16 peak: the step's analytic
-FLOPs (``families/<family>.flops_per_step``, frozen) over 989 TFLOP/s x the
-seconds a step of the untraced window (all its steps over all its time, on
-the host clock), which the profiler does not slow."""
+"""The whole step's share of the cards' bf16 peak: the step's analytic
+FLOPs (``families/<family>.flops_per_step``, frozen) over 989 TFLOP/s x
+the cell's cards x the seconds a step of the untraced window (all its
+steps over all its time, on the host clock), which the profiler does not
+slow."""
 
 from gpubench import arith
 
@@ -12,4 +13,4 @@ def read(ctx):
         return None
     flops = ctx.family.flops_per_step(ctx.sizes, ctx.traffic["batch"])
     step_s = ctx.window["seconds"] / ctx.window["steps"]
-    return 100.0 * flops / (arith.PEAK_BF16_FLOPS * step_s)
+    return 100.0 * flops / (arith.PEAK_BF16_FLOPS * ctx.chips * step_s)

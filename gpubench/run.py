@@ -26,9 +26,14 @@ metrics, or with ``--trace 1`` its per-layer ones, each read by
 ``breakdown``, and last ``checks``, each compared number beside its limit,
 which also end standard error.
 
+A cell of several cards (``chips`` > 1) runs one rank process a card
+(``ranks.py``); the rest of this module is then what each rank and the
+launcher share.
+
 Exit codes: 0 with a result; 2 without the cell's cards; 3 when ``jax``,
 ``jaxlib``, ``flax`` or the JAX package ``k8s_device_plugin_tpu`` was
-loaded; 1 on any other failure. No result is printed unless the code is 0.
+loaded (in this process or in a rank); 1 on any other failure. No result
+is printed unless the code is 0.
 """
 
 from __future__ import annotations
@@ -118,6 +123,29 @@ def forbidden_modules() -> list[str]:
     return sorted({m.split(".")[0] for m in sys.modules} & set(FORBIDDEN))
 
 
+class Forbidden(RuntimeError):
+    """A rank of the run loaded one of ``FORBIDDEN`` (``found``)."""
+
+    def __init__(self, found: list[str]):
+        super().__init__(", ".join(found))
+        self.found = found
+
+
+class _Solo:
+    """When a window of a run in one process ends: by its own clock."""
+
+    def until(self, label: str, seconds: float, least: int = 0):
+        """``done(steps, elapsed_s)`` of the window ``label``: true once
+        ``seconds`` have passed and at least ``least`` steps were taken."""
+        return lambda n, elapsed: elapsed >= seconds and n >= least
+
+    def post(self, label: str, value: str) -> None:
+        """Tell the other ranks ``value`` under ``label``: no one to tell."""
+
+
+SOLO = _Solo()
+
+
 class _Marks:
     """Step ends: CUDA events recorded on the stream on the card, the host
     clock on the CPU (whose steps are synchronous)."""
@@ -148,10 +176,13 @@ def _sync(cuda: bool) -> None:
         torch.cuda.synchronize()
 
 
-def _window(step, pool, first: int, seconds: float, cuda: bool, counters) -> dict:
+def _window(step, pool, first: int, seconds: float, cuda: bool, counters, team=SOLO) -> dict:
     """Steps over ``pool`` from input ``first`` until ``seconds`` of host
     time have passed, and at least two steps for a percentile, then a
-    synchronise; with the change of the program's ``counters()``."""
+    synchronise; with the change of the program's ``counters()``. Over
+    several ranks, ``team`` (``ranks.Team``) ends it on every rank after
+    the same step."""
+    done = team.until("window", seconds, 2)
     marks_of = _Marks(cuda)
     _sync(cuda)
     before = counters()
@@ -166,7 +197,7 @@ def _window(step, pool, first: int, seconds: float, cuda: bool, counters) -> dic
         marks.append(marks_of.mark())
         dispatch.append(b - a)
         i += 1
-        if b - t0 >= seconds and i - first >= 2:
+        if done(i - first, b - t0):
             break
     _sync(cuda)
     t1 = time.perf_counter()
@@ -195,10 +226,14 @@ def _port_spans():
         found.extend(sp for sp in tracing.COLLECTOR.spans() if sp["start_ns"] >= since)
 
 
-def _traced(step, pool, first: int, cuda: bool):
+def _traced(step, pool, first: int, cuda: bool, team=SOLO):
     """``TRACE_SECONDS`` of steps under the profiler, after one traced step
     that is not read (``trace.py`` says how the window is marked); with the
-    port's spans that started in the window."""
+    port's spans that started in the window. A trace that lost one of its
+    markers (``trace.MarkerLost``) is taken once more, said on standard
+    error; a second loss fails the run. Over several ranks this runs on the
+    first, and ``team`` tells the others each attempt's end and outcome
+    (``ranks.follow_traced``)."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from . import trace
@@ -206,24 +241,37 @@ def _traced(step, pool, first: int, cuda: bool):
     if cuda:
         import torch
 
-        activities, mark, scope = [ProfilerActivity.CUDA], lambda: torch.cuda._sleep(1), None
+        activities, mark = [ProfilerActivity.CUDA], lambda: torch.cuda._sleep(1)
     else:
-        activities, mark, scope = [ProfilerActivity.CPU], lambda: None, record_function(trace.WINDOW)
-    with profile(activities=activities) as prof:
-        step(pool[first % len(pool)])
-        _sync(cuda)
-        i = first + 1
-        with scope or contextlib.nullcontext(), _port_spans() as spans:
-            mark()
-            t0 = time.perf_counter()
-            while True:
-                step(pool[i % len(pool)])
-                i += 1
-                if time.perf_counter() - t0 >= TRACE_SECONDS:
-                    break
-            mark()
+        activities, mark = [ProfilerActivity.CPU], lambda: None
+    for attempt in (1, 2):
+        scope = None if cuda else record_function(trace.WINDOW)
+        done = team.until(f"trace{attempt}", TRACE_SECONDS)
+        with profile(activities=activities) as prof:
+            step(pool[first % len(pool)])
             _sync(cuda)
-    return trace.summarize(prof, i - first - 1), spans
+            i = first + 1
+            with scope or contextlib.nullcontext(), _port_spans() as spans:
+                mark()
+                t0 = time.perf_counter()
+                while True:
+                    step(pool[i % len(pool)])
+                    i += 1
+                    if done(i - first - 1, time.perf_counter() - t0):
+                        break
+                mark()
+                _sync(cuda)
+        try:
+            summary = trace.summarize(prof, i - first - 1)
+        except trace.MarkerLost as e:
+            if attempt == 2:
+                raise
+            print(f"gpubench: {e}; tracing the window once more", file=sys.stderr)
+            team.post(f"trace{attempt}", "again")
+            first = i
+            continue
+        team.post(f"trace{attempt}", "done")
+        return summary, spans
 
 
 @dataclasses.dataclass
@@ -233,9 +281,11 @@ class Context:
     card, ``dispatch_s`` of each step's call on the host, ``counters``: the
     change of the kind's ``counters()``), the program's ``units_per_step``,
     ``peak_bytes`` over the window (None off the card), ``setup_s``, and
-    the cell's ``family``, ``sizes`` and ``traffic``. A traced run also:
-    ``summary`` (``trace.Summary``: groups, flash kernels, every event of
-    the traced window) and ``spans``, the port's own that started there."""
+    the cell's ``family``, ``sizes`` and ``traffic``, and the ``chips`` it
+    runs on. A traced run also: ``summary`` (``trace.Summary``: groups,
+    flash kernels, every event of the traced window) and ``spans``, the
+    port's own that started there. Over several cards all but ``chips`` and
+    ``peak_bytes`` (the fullest card's) are the first rank's."""
 
     window: dict
     units_per_step: float
@@ -246,16 +296,21 @@ class Context:
     traffic: dict
     summary: object = None
     spans: list = dataclasses.field(default_factory=list)
+    chips: int = 1
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "cuda",
              start: float | None = None) -> dict:
     """One run of ``cell``: the result line's object, ``checks`` last."""
+    if cell.chips > 1:
+        from . import ranks
+
+        return ranks.run_cell(cell, seed, seconds, trace, device, start)
     import torch
 
     from k8s_device_plugin_tpu_torch.device import resolve_device
 
-    from . import correct, families, kinds
+    from . import families, kinds
 
     start = time.monotonic() if start is None else start
     kind = kinds.load(cell.traffic["kind"])
@@ -289,7 +344,21 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
         torch.cuda.empty_cache()
 
     found = kind.check(cell, seed, dev, evidence)
-    found["failed_steps"] = failed
+    return result(cell, ctx, found, failed, trace, {
+        "platform": "gpu" if cuda else "cpu",
+        "kind": torch.cuda.get_device_name(dev) if cuda else "cpu",
+        "count": 1,
+        "memory_peak_bytes": peak or 0,
+    })
+
+
+def result(cell: Cell, ctx: Context, found: dict, failed: int, trace: bool, device: dict) -> dict:
+    """The result line's object of a run that read ``ctx``, whose kind's
+    check gave ``found`` and whose window had ``failed`` steps that were
+    not finite; ``device`` as the line gives it. ``checks`` last."""
+    from . import correct
+
+    found = {**found, "failed_steps": failed}
     checks = correct.checks(found, {**cell.limits, "failed_steps": 0})
 
     metrics = {}
@@ -298,24 +367,20 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device: str = "
         if value is not None:
             metrics[m["name"]] = {"value": value, "unit": m["unit"]}
 
-    result = {
+    summary = ctx.summary
+    out = {
         "correct": all(c["ok"] for c in checks.values()),
-        "attempted": win["steps"],
+        "attempted": ctx.window["steps"],
         "failed": failed,
         "metrics": metrics,
-        "device": {
-            "platform": "gpu" if cuda else "cpu",
-            "kind": torch.cuda.get_device_name(dev) if cuda else "cpu",
-            "count": 1,
-            "memory_peak_bytes": peak or 0,
-        },
+        "device": device,
     }
     if summary is not None:
-        result["device"].update(busy_s=summary.busy_s, window_s=summary.window_s)
-        result["breakdown"] = {"device_ops": summary.device_ops, "idle_gaps": summary.idle_gaps}
-    result["checks"] = {k: {"value": c["value"] if math.isfinite(c["value"]) else None,
-                            "limit": c["limit"]} for k, c in checks.items()}
-    return result
+        out["device"].update(busy_s=summary.busy_s, window_s=summary.window_s)
+        out["breakdown"] = {"device_ops": summary.device_ops, "idle_gaps": summary.idle_gaps}
+    out["checks"] = {k: {"value": c["value"] if math.isfinite(c["value"]) else None,
+                         "limit": c["limit"]} for k, c in checks.items()}
+    return out
 
 
 def _parse(argv):
@@ -342,8 +407,11 @@ def main(argv=None) -> int:
         print(f"gpubench: {cell.name} needs {cell.chips} CUDA card(s), found {n}",
               file=sys.stderr)
         return 2
-    result = run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda", start)
-    found = forbidden_modules()
+    try:
+        result = run_cell(cell, args.seed, args.seconds, bool(args.trace), "cuda", start)
+        found = forbidden_modules()
+    except Forbidden as e:
+        found = e.found
     if found:
         print(f"gpubench: loaded {', '.join(found)}: the port may not load JAX or its package",
               file=sys.stderr)

@@ -68,7 +68,7 @@ def test_marker_kernels_bound_the_window_on_the_card():
 
 
 FAMILY = types.SimpleNamespace(flops_per_step=lambda sz, batch: 1e6 * batch,
-                               flash_shape=lambda sz, batch: (batch, 1, 64, 64))
+                               flash_shape=lambda sz, batch, mesh: (batch, 1, 64, 64))
 
 
 def context(summary, dispatch_s=(), steps=1, seconds=1.0, step_s=(1.0,), peak=None, spans=()):

@@ -15,6 +15,10 @@ its middle: a CUDA call, or none (the host in Python and PyTorch). Every
 operation of the window is kept as an ``Event`` for metrics that read
 kernels or host ranges of their own. On the CPU, which has no device
 activity, a host range named ``WINDOW`` marks the window instead.
+
+The profiler has been seen to drop a marker; a trace of the card with a
+count of markers other than two raises ``MarkerLost``, which the run
+answers by tracing the window once more (``run._traced``).
 """
 
 from __future__ import annotations
@@ -33,6 +37,10 @@ MARKER = "spin_kernel"
 # up one by one.
 GAP_LOOKUP_US = 5.0
 TOP = 10
+
+
+class MarkerLost(RuntimeError):
+    """The card's trace holds some ``MARKER`` kernels, but not two."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,7 +102,7 @@ def _window(events, device_type):
                      if e.device_type == device_type.CUDA and MARKER in e.name)
     if markers:
         if len(markers) != 2:
-            raise RuntimeError(f"the trace holds {len(markers)} {MARKER} markers, not 2")
+            raise MarkerLost(f"the trace holds {len(markers)} {MARKER} markers, not 2")
         return markers[0][1], markers[1][0]
     window = [e for e in events if e.name == WINDOW and e.device_type == device_type.CPU]
     if len(window) != 1:
