@@ -636,6 +636,10 @@ BENCH_SHAPE = (8, 16, 2048, 128)
 # deals its (b*h, q block) items to the blocks differently at b*h = 64.
 MULTI_STEP_SHAPE = (4, 16, 2048, 128)
 RAGGED_SHAPE = (2, 4, 100, 64)
+# Multi-head latent attention's flash shape, (batch, heads, seq, q.k head,
+# v head): the Moonlight cell's (gpubench), q.k heads of 192 over v heads
+# of 128 at 8,192 positions.
+MLA_SHAPE = (2, 16, 8192, 192, 128)
 # bf16 outputs are held element by element to the rule of
 # ops/attention.py (A.bf16_agreement); lse is f32 in both versions.
 LSE_ATOL = 1e-4
@@ -951,6 +955,83 @@ def phase_kernels() -> dict:
         torch.cuda.empty_cache()
     entries["rmsnorm"] = phase_norm_kernel()
     entries["head_gemm"] = phase_head_kernel()
+    return entries
+
+
+def mla_bound(shape, kind: str) -> tuple[float, str]:
+    """Least time in ms of a flash pass at MLA's head widths: as
+    ``attention_bound`` with the products' widths split (fwd: Q K^T over
+    d_qk, P V over d_v; dq: 2 d_qk + d_v; dkv: 2 d_qk + 2 d_v) and each
+    input read and output written once at its own width (delta: O and dO
+    of d_v)."""
+    b, h, seq, d, dv = shape
+    rows = b * h * seq
+    if kind == "delta":
+        return bound(2.0 * rows * dv, card().peak_f32_flops, 2 * rows * dv * 2 + rows * 4)
+    a, c = {"fwd": (1, 1), "dq": (2, 1), "dkv": (2, 2)}[kind]
+    flops = 2.0 * causal_pairs(seq) * (a * d + c * dv) * b * h
+    n_qk, n_v, n_f32 = {"fwd": (2, 2, 1), "dq": (3, 2, 2), "dkv": (3, 3, 2)}[kind]
+    return bound(flops, card().peak_bf16_flops, rows * (2 * (n_qk * d + n_v * dv) + 4 * n_f32))
+
+
+def phase_mla_kernels() -> dict:
+    """K1, delta, K2 and K3 at MLA_SHAPE against their plain versions, timed
+    as ``phase_kernels`` times the bench shape's (the forward at its
+    deepest ring for these widths, 3); returns their kernels-line
+    entries."""
+    from k8s_device_plugin_tpu_torch.ops import attention as A
+
+    b, h, seq, d, dv = MLA_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(sum(MLA_SHAPE))
+    q, k = (torch.randn(b, h, seq, d, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    v, do = (torch.randn(b, h, seq, dv, generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    o_p, lse_p = A.flash_attention_fwd_plain(q, k, v)
+    bwd = (q, k, v, o_p, lse_p, do)
+    delta = A.flash_bwd_delta_kernel(o_p, do)
+    runs = {
+        "flash_fwd": (lambda: A.flash_fwd_kernel(q, k, v),
+                      lambda: A.flash_attention_fwd_plain(q, k, v), ("o", "lse")),
+        "flash_bwd_delta": (lambda: (A.flash_bwd_delta_kernel(o_p, do),),
+                            lambda: (A.flash_bwd_delta_plain(o_p, do),), ("delta",)),
+        "flash_dq": (lambda: (A.flash_dq_kernel(*bwd, delta=delta),),
+                     lambda: (A.flash_dq_plain(*bwd),), ("dq",)),
+        "flash_dkv": (lambda: A.flash_dkv_kernel(*bwd, delta=delta),
+                      lambda: A.flash_dkv_plain(*bwd), ("dk", "dv")),
+    }
+    entries = {}
+    for name, (kernel, plain, labels) in runs.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        line = {"kernel": name, "shape": list(MLA_SHAPE), "dtype": "bfloat16"}
+        bad = []
+        for label, g, w in zip(labels, got, want):
+            if label in ("lse", "delta"):
+                err = float((g - w).abs().max())
+                limit = LSE_ATOL if label == "lse" else A.DELTA_RTOL * float(w.abs().max())
+                line[f"max_abs_err_{label}"] = err
+                if not err <= limit:
+                    bad.append(f"{label} max err {err} > {limit}")
+                continue
+            agree = A.bf16_agreement(g, w)
+            for key in ("worst_share", "rms_share_needed", "rel_err"):
+                line[f"{key}_{label}"] = agree[key]
+            if not agree["ok"]:
+                bad.append(f"{label} {agree}")
+        del got, want
+        kind = name.removeprefix("flash_").removeprefix("bwd_")
+        bound_ms, bound_by = mla_bound(MLA_SHAPE, kind)
+        line.update(kernel_ms=time_ms(kernel, 50 if kind == "delta" else FLASH_ITERS),
+                    plain_ms=time_ms(plain, 1, reps=1), bound_ms=bound_ms, bound_by=bound_by)
+        line["share"] = line["bound_ms"] / line["kernel_ms"]
+        entries[name] = line
+        emit(line)
+        torch.cuda.empty_cache()
+        if bad:
+            fail(f"{name} at {MLA_SHAPE} disagrees with its plain version: {bad}")
+    del q, k, v, do, o_p, lse_p, bwd, delta, runs
+    torch.cuda.empty_cache()
     return entries
 
 
@@ -6142,6 +6223,7 @@ def main() -> int:
     phase_lint()
     phase_build()
     entries = phase_kernels()
+    phase_mla_kernels()
     phase_model()
     main_report, launches, steps = phase_main()
     norm_launches, norm_steps = phase_norm_path(main_report)

@@ -5,11 +5,14 @@ On a CUDA tensor each pass launches a hand-written CUDA kernel for
 ``sm_90a`` (``csrc/flash_fwd.cu``; the backward's delta prepass, dQ and
 dK/dV kernels in ``csrc/flash_bwd.cu``); on a CPU tensor it runs the
 kernel's plain PyTorch version below, which computes the same function
-with the same casts. The kernels take bf16, contiguous inputs
-with head_dim 64 or 128; anything else on the card raises.
+with the same casts. The kernels take bf16, contiguous inputs whose (q.k,
+v) head widths are one of ``HEAD_WIDTHS``: equal heads of 64 or 128, or
+multi-head latent attention's q.k heads of 192 (128 latent and 64 rotary
+dims) over v heads of 128; anything else on the card raises. q and k share
+the q.k width, v, o and dO the v width.
 
 Numerics, as in the TPU kernels: scores ``scale * q.k`` in f32 with
-``scale = 1/sqrt(head_dim)`` as a Python float, causal entries masked to
+``scale = 1/sqrt(d_qk)`` (the q.k head's width) as a Python float, causal entries masked to
 -1e30, the probabilities rounded to the input dtype before each product
 with V, dO or Q, and the logsumexp ``lse`` kept in f32 for the backward.
 ``lse`` is stored as ``(batch*heads, seq)``.
@@ -17,9 +20,11 @@ with V, dO or Q, and the logsumexp ``lse`` kept in f32 for the backward.
 The depth of each kernel's ring of streamed tiles is a template parameter
 of the CUDA source, built for a fixed set of depths (``FWD_STAGES``,
 ``BWD_STAGES``) and chosen per call, as the JAX ``flash_attention`` takes
-its tiling per call; the defaults are the depths the main path runs. On
-a CPU tensor a depth is checked and then has no effect: the plain version
-has no ring.
+its tiling per call; the defaults are the depths the main path runs (the
+forward's deepest that fits the head widths: at q.k heads of 192 four
+stages pass a block's shared memory, so that pair is built for 2 and 3).
+On a CPU tensor a depth is checked and then has no effect: the plain
+version has no ring.
 
 Each kernel wrapper counts its launches in the shared ``LAUNCHES`` table
 of ``_build.py`` (and nowhere else; every depth under its kernel's name),
@@ -41,14 +46,17 @@ NEG_INF = -1e30
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
-_SUPPORTED_HEAD_DIMS = (64, 128)
+# The (q.k, v) head widths the kernels are built for.
+HEAD_WIDTHS = ((64, 64), (128, 128), (192, 128))
 # Ring depths the kernels are built for (csrc/flash_fwd.cu: the K/V ring;
 # csrc/flash_bwd.cu: the streamed tiles of dQ and dK/dV), and the ones the
-# main path runs.
+# main path runs; the forward's at (192, 128) stop at 3
+# (``fwd_stages_for``).
 FWD_STAGES = (2, 3, 4)
 BWD_STAGES = (2, 3)
 DEFAULT_FWD_STAGES = 4
 DEFAULT_BWD_STAGES = 2
+MLA_FWD_STAGES = (2, 3)
 
 
 def check_stages(fwd_stages: int = DEFAULT_FWD_STAGES,
@@ -58,6 +66,20 @@ def check_stages(fwd_stages: int = DEFAULT_FWD_STAGES,
         raise ValueError(f"forward ring depth {fwd_stages!r} not in {FWD_STAGES}")
     if bwd_stages not in BWD_STAGES:
         raise ValueError(f"backward ring depth {bwd_stages!r} not in {BWD_STAGES}")
+
+
+def fwd_stages_for(d_qk: int, d_v: int, stages: int | None = None) -> int:
+    """The forward's ring depth at these head widths: ``stages``, checked
+    (``check_stages``, and at most 3 where the q.k head is wider than the v
+    head), or by default the deepest built for them."""
+    split = d_qk != d_v
+    if stages is None:
+        return MLA_FWD_STAGES[-1] if split else DEFAULT_FWD_STAGES
+    check_stages(fwd_stages=stages)
+    if split and stages not in MLA_FWD_STAGES:
+        raise ValueError(f"forward ring depth {stages!r} not in {MLA_FWD_STAGES} at head "
+                         f"widths ({d_qk}, {d_v})")
+    return stages
 
 
 def _scale(d: int) -> float:
@@ -202,45 +224,55 @@ def _check_rows_f32(name, t, ref, b, h, seq):
                          "(batch*heads, seq) tensor on the inputs' device")
 
 
-def _check_kernel_inputs(*tensors: torch.Tensor, lse: torch.Tensor | None = None,
+def _check_kernel_inputs(qk, vo, lse: torch.Tensor | None = None,
                          delta: torch.Tensor | None = None):
-    """Raise on anything the kernels do not take."""
-    ref = tensors[0]
+    """Raise on anything the kernels do not take. ``qk`` holds the
+    tensors of the q.k head's width (q, k; may be empty), ``vo`` those of
+    the v head's (v, o, dO). Returns (batch, heads, seq, d_qk, d_v), d_qk
+    None where ``qk`` is empty."""
+    ref = (qk or vo)[0]
     if ref.dim() != 4:
         raise ValueError(f"expected (batch, heads, seq, head_dim), got {tuple(ref.shape)}")
-    b, h, seq, d = ref.shape
-    if d not in _SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"flash kernels take head_dim in {_SUPPORTED_HEAD_DIMS}, got {d}")
+    b, h, seq = ref.shape[:3]
+    d = qk[0].shape[-1] if qk else None
+    dv = vo[0].shape[-1]
+    if qk and (d, dv) not in HEAD_WIDTHS:
+        raise ValueError(f"flash kernels take (q.k, v) head_dim pairs in {HEAD_WIDTHS}, "
+                         f"got {(d, dv)}")
+    if not qk and dv not in {w for _, w in HEAD_WIDTHS}:
+        raise ValueError(f"flash kernels take v head_dim in {sorted({w for _, w in HEAD_WIDTHS})}, "
+                         f"got {dv}")
     if seq < 1 or b * h < 1 or b * h > 65535 or b * h * seq >= 2 ** 31:
         raise ValueError(f"unsupported batch*heads {b * h} or seq {seq}")
-    for t in tensors:
-        if t.device != ref.device or t.device.type != "cuda":
-            raise ValueError("flash kernel inputs must share one CUDA device")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash kernels take bfloat16, got {t.dtype}")
-        if t.shape != ref.shape:
-            raise ValueError(f"shape mismatch {tuple(t.shape)} vs {tuple(ref.shape)}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError("flash kernel inputs must be contiguous and 16-byte aligned")
+    for group, width in ((qk, d), (vo, dv)):
+        for t in group:
+            if t.device != ref.device or t.device.type != "cuda":
+                raise ValueError("flash kernel inputs must share one CUDA device")
+            if t.dtype != torch.bfloat16:
+                raise TypeError(f"flash kernels take bfloat16, got {t.dtype}")
+            if t.shape != (b, h, seq, width):
+                raise ValueError(f"shape mismatch {tuple(t.shape)} vs {(b, h, seq, width)}")
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError("flash kernel inputs must be contiguous and 16-byte aligned")
     if lse is not None:
         _check_rows_f32("lse", lse, ref, b, h, seq)
     if delta is not None:
         _check_rows_f32("delta", delta, ref, b, h, seq)
-    return b, h, seq, d
+    return b, h, seq, d, dv
 
 
-def flash_fwd_kernel(q, k, v, stages=DEFAULT_FWD_STAGES):
+def flash_fwd_kernel(q, k, v, stages=None):
     """(o, lse) from the CUDA forward kernel (replaces the TPU
-    ``_fwd_kernel``), its K/V ring ``stages`` deep."""
-    check_stages(fwd_stages=stages)
-    b, h, seq, d = _check_kernel_inputs(q, k, v)
-    o = torch.empty_like(q)
+    ``_fwd_kernel``), its K/V ring ``stages`` deep (``fwd_stages_for``)."""
+    stages = fwd_stages_for(q.shape[-1], v.shape[-1], stages)
+    b, h, seq, d, dv = _check_kernel_inputs((q, k), (v,))
+    o = torch.empty_like(v)
     lse = torch.empty(b * h, seq, dtype=torch.float32, device=q.device)
-    fn = _build.bind("flash_fwd", "flash_fwd", [_P] * 5 + [_I, _I, _I, _I, _F, _P])
+    fn = _build.bind("flash_fwd", "flash_fwd", [_P] * 5 + [_I] * 5 + [_F, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), b * h, seq, d, stages, _scale(d), stream)
+                 lse.data_ptr(), b * h, seq, d, dv, stages, _scale(d), stream)
     _build.check(err, "flash_fwd")
     LAUNCHES["flash_fwd"] += 1
     return o, lse
@@ -249,7 +281,7 @@ def flash_fwd_kernel(q, k, v, stages=DEFAULT_FWD_STAGES):
 def flash_bwd_delta_kernel(o, do):
     """delta = rowsum(dO * O), f32 ``(b*h, seq)``, from the CUDA prepass
     (the per-tile delta of the TPU ``_dq_kernel`` and ``_dkv_kernel``)."""
-    b, h, seq, d = _check_kernel_inputs(o, do)
+    b, h, seq, _, d = _check_kernel_inputs((), (o, do))
     delta = torch.empty(b * h, seq, dtype=torch.float32, device=o.device)
     fn = _build.bind("flash_bwd", "flash_bwd_delta", [_P] * 3 + [_I, _I, _P])
     with torch.cuda.device(o.device):
@@ -265,15 +297,15 @@ def flash_dq_kernel(q, k, v, o, lse, do, delta=None, stages=DEFAULT_BWD_STAGES):
     ring of kv tiles ``stages`` deep. Without ``delta`` it launches the
     prepass first."""
     check_stages(bwd_stages=stages)
-    b, h, seq, d = _check_kernel_inputs(q, k, v, o, do, lse=lse, delta=delta)
+    b, h, seq, d, dv = _check_kernel_inputs((q, k), (v, o, do), lse=lse, delta=delta)
     if delta is None:
         delta = flash_bwd_delta_kernel(o, do)
     dq = torch.empty_like(q)
-    fn = _build.bind("flash_bwd", "flash_dq", [_P] * 7 + [_I, _I, _I, _I, _F, _P])
+    fn = _build.bind("flash_bwd", "flash_dq", [_P] * 7 + [_I] * 5 + [_F, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dq.data_ptr(), b * h, seq, d, stages, _scale(d), stream)
+                 delta.data_ptr(), dq.data_ptr(), b * h, seq, d, dv, stages, _scale(d), stream)
     _build.check(err, "flash_dq")
     LAUNCHES["flash_dq"] += 1
     return dq
@@ -284,16 +316,16 @@ def flash_dkv_kernel(q, k, v, o, lse, do, delta=None, stages=DEFAULT_BWD_STAGES)
     ``_dkv_kernel``), its ring of q tiles ``stages`` deep. Without
     ``delta`` it launches the prepass first."""
     check_stages(bwd_stages=stages)
-    b, h, seq, d = _check_kernel_inputs(q, k, v, o, do, lse=lse, delta=delta)
+    b, h, seq, d, d_v = _check_kernel_inputs((q, k), (v, o, do), lse=lse, delta=delta)
     if delta is None:
         delta = flash_bwd_delta_kernel(o, do)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    fn = _build.bind("flash_bwd", "flash_dkv", [_P] * 8 + [_I, _I, _I, _I, _F, _P])
+    fn = _build.bind("flash_bwd", "flash_dkv", [_P] * 8 + [_I] * 5 + [_F, _P])
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, seq, d, stages,
+                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b * h, seq, d, d_v, stages,
                  _scale(d), stream)
     _build.check(err, "flash_dkv")
     LAUNCHES["flash_dkv"] += 1
@@ -304,10 +336,11 @@ def flash_dkv_kernel(q, k, v, o, lse, do, delta=None, stages=DEFAULT_BWD_STAGES)
 # Dispatch and autograd
 # ---------------------------------------------------------------------------
 
-def flash_attention_fwd(q, k, v, stages=DEFAULT_FWD_STAGES):
-    """(o, lse): the CUDA kernel of ring depth ``stages`` for CUDA
-    tensors, the plain version for CPU tensors."""
-    check_stages(fwd_stages=stages)
+def flash_attention_fwd(q, k, v, stages=None):
+    """(o, lse): the CUDA kernel of ring depth ``stages``
+    (``fwd_stages_for``) for CUDA tensors, the plain version for CPU
+    tensors."""
+    stages = fwd_stages_for(q.shape[-1], v.shape[-1], stages)
     if uses_kernel(q):
         return flash_fwd_kernel(q, k, v, stages)
     return flash_attention_fwd_plain(q, k, v)
@@ -333,7 +366,7 @@ class FlashAttention(torch.autograd.Function):
     ring depth the forward was given."""
 
     @staticmethod
-    def forward(ctx, q, k, v, fwd_stages=DEFAULT_FWD_STAGES, bwd_stages=DEFAULT_BWD_STAGES):
+    def forward(ctx, q, k, v, fwd_stages=None, bwd_stages=DEFAULT_BWD_STAGES):
         o, lse = flash_attention_fwd(q, k, v, fwd_stages)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.bwd_stages = bwd_stages
@@ -347,15 +380,17 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    fwd_stages: int = DEFAULT_FWD_STAGES,
+                    fwd_stages: int | None = None,
                     bwd_stages: int = DEFAULT_BWD_STAGES) -> torch.Tensor:
     """Causal attention over (batch, heads, seq, head_dim) tensors, the
-    layout of the JAX package's ``flash_attention``. Inputs are made
+    layout of the JAX package's ``flash_attention``; v (and the output) may
+    have a narrower head than q and k (``HEAD_WIDTHS``). Inputs are made
     contiguous, as the kernels read rows of the (b*h, seq, d) layout.
-    ``fwd_stages`` and ``bwd_stages`` pick the kernels' ring depths (the
-    counterpart of the JAX function's ``block_q`` and ``block_kv``), checked
-    on every device."""
-    check_stages(fwd_stages, bwd_stages)
+    ``fwd_stages`` (default: ``fwd_stages_for``'s) and ``bwd_stages`` pick
+    the kernels' ring depths (the counterpart of the JAX function's
+    ``block_q`` and ``block_kv``), checked on every device."""
+    fwd_stages = fwd_stages_for(q.shape[-1], v.shape[-1], fwd_stages)
+    check_stages(bwd_stages=bwd_stages)
     return FlashAttention.apply(q.contiguous(), k.contiguous(), v.contiguous(),
                                 fwd_stages, bwd_stages)
 

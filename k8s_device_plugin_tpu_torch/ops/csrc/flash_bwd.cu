@@ -73,6 +73,12 @@
 //    quarter, which caps every thread at 168 registers) and a separate
 //    wait for each of the two register-A products all spilled as much or
 //    more.
+//  - Head widths. DQK (q, k, dQ, dK) and DV (v, o, dO, dV) are template
+//    parameters: (64, 64), (128, 128), and (192, 128) for multi-head
+//    latent attention. At (192, 128) dQ += dS K is one m64n192 product
+//    (96 accumulators a thread) and a dK/dV consumer holds 96 + 64; S and
+//    S^T take 12 16-deep steps, dP and dP^T 8. The delta prepass runs over
+//    DV.
 //  - Each output row has one owner and there are no atomics: the outputs
 //    are the same bits from launch to launch.
 #include "sm90.cuh"
@@ -97,13 +103,16 @@ constexpr float kNegInf = -1e30f;  // the JAX kernels' mask value: exp() gives 0
 constexpr int kVecBox = kStep + 4;
 constexpr int kVecPad = 96;
 
-template <int D, int kStages, bool kAligned>
+// DQK: the width of a q and k head (and of dQ, dK); DV: of a v, o and dO
+// head (and of dV).
+template <int DQK, int DV, int kStages, bool kAligned>
 struct DkvSmem {
-  static constexpr int kPanels = D / 64;
+  static constexpr int kPanels = DQK / 64;  // of a q or k row
+  static constexpr int kPanelsV = DV / 64;  // of a v or dO row
   Panel<kBlock> k[kPanels];
-  Panel<kBlock> v[kPanels];
+  Panel<kBlock> v[kPanelsV];
   Panel<kStep> q[kStages][kPanels];
-  Panel<kStep> d_o[kStages][kPanels];
+  Panel<kStep> d_o[kStages][kPanelsV];
   float lse[kStages][kAligned ? kStep : kVecPad];
   float delta[kStages][kAligned ? kStep : kVecPad];
   uint64_t kv_full;
@@ -111,13 +120,14 @@ struct DkvSmem {
   uint64_t empty[kStages];
 };
 
-template <int D, int kStages>
+template <int DQK, int DV, int kStages>
 struct DqSmem {
-  static constexpr int kPanels = D / 64;
+  static constexpr int kPanels = DQK / 64;
+  static constexpr int kPanelsV = DV / 64;
   Panel<kBlock> q[kPanels];
-  Panel<kBlock> d_o[kPanels];
+  Panel<kBlock> d_o[kPanelsV];
   Panel<kStep> k[kStages][kPanels];
-  Panel<kStep> v[kStages][kPanels];
+  Panel<kStep> v[kStages][kPanelsV];
   uint64_t qd_full;
   uint64_t full[kStages];
   uint64_t empty[kStages];
@@ -140,8 +150,8 @@ __device__ __forceinline__ void load_pair(float (&x)[2], const float* p) {
 // The consumer warpgroups of dkv_kernel: S^T, dP^T, then dV and dK.
 // kAligned: seq is a multiple of 4, so every lse and delta box starts at
 // its tile's first value.
-template <int D, int kStages, bool kAligned>
-__device__ __forceinline__ void dkv_consume(DkvSmem<D, kStages, kAligned>& sm,
+template <int DQK, int DV, int kStages, bool kAligned>
+__device__ __forceinline__ void dkv_consume(DkvSmem<DQK, DV, kStages, kAligned>& sm,
                                             bf16* __restrict__ dk, bf16* __restrict__ dv, int bh,
                                             int k0, int i0, int n_tiles, int seq, float scale) {
   regs_alloc<kConsumerRegs>();
@@ -156,9 +166,11 @@ __device__ __forceinline__ void dkv_consume(DkvSmem<D, kStages, kAligned>& sm,
   // Where a tile's lse and delta start in their boxes.
   const int vec0 = kAligned ? 0 : (bh * seq) & 3;
 
-  float acc_k[D / 2], acc_v[D / 2];
+  float acc_k[DQK / 2], acc_v[DV / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  for (int i = 0; i < DQK / 2; ++i) acc_k[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) acc_v[i] = 0.f;
 
   mbar_wait(&sm.kv_full, 0);
   for (int it = 0; it < n_tiles; ++it) {
@@ -180,9 +192,9 @@ __device__ __forceinline__ void dkv_consume(DkvSmem<D, kStages, kAligned>& sm,
       // S^T = K Q^T and dP^T = V dO^T for this warpgroup's 64 kv rows.
       float st[kCols / 2], dpt[kCols / 2];
       wgmma_fence();
-      product_ss<D, kCols>(st, sm.k, wg * 64, sm.q[s], kCols * h);
+      product_ss<DQK, kCols>(st, sm.k, wg * 64, sm.q[s], kCols * h);
       wgmma_commit();
-      product_ss<D, kCols>(dpt, sm.v, wg * 64, sm.d_o[s], kCols * h);
+      product_ss<DV, kCols>(dpt, sm.v, wg * 64, sm.d_o[s], kCols * h);
       wgmma_commit();
 
       // P^T (columns are q rows) from lse while dP^T is in flight; masked
@@ -224,8 +236,8 @@ __device__ __forceinline__ void dkv_consume(DkvSmem<D, kStages, kAligned>& sm,
 
       // dV += bf16(P^T) dO and dK += bf16(dS^T) Q, the q rows as the depth.
       wgmma_fence();
-      product_rs<D>(acc_v, a_p, sm.d_o[s], kCols * h);
-      product_rs<D>(acc_k, a_ds, sm.q[s], kCols * h);
+      product_rs<DV>(acc_v, a_p, sm.d_o[s], kCols * h);
+      product_rs<DQK>(acc_k, a_ds, sm.q[s], kCols * h);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc_v);
@@ -234,35 +246,43 @@ __device__ __forceinline__ void dkv_consume(DkvSmem<D, kStages, kAligned>& sm,
     mbar_arrive(&sm.empty[s]);
   }
 
-  bf16* dkb = dk + (size_t)bh * seq * D;
-  bf16* dvb = dv + (size_t)bh * seq * D;
+  bf16* dkb = dk + (size_t)bh * seq * DQK;
+  bf16* dvb = dv + (size_t)bh * seq * DV;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DQK / 8; ++j) {
     const int col = 8 * j + 2 * t;
     if (kv_a < seq) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)kv_a * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)kv_a * DQK + col) =
           __floats2bfloat162_rn(scale * acc_k[4 * j], scale * acc_k[4 * j + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)kv_a * D + col) =
+    }
+    if (kv_b < seq) {
+      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)kv_b * DQK + col) =
+          __floats2bfloat162_rn(scale * acc_k[4 * j + 2], scale * acc_k[4 * j + 3]);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < DV / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (kv_a < seq) {
+      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)kv_a * DV + col) =
           __floats2bfloat162_rn(acc_v[4 * j], acc_v[4 * j + 1]);
     }
     if (kv_b < seq) {
-      *reinterpret_cast<__nv_bfloat162*>(dkb + (size_t)kv_b * D + col) =
-          __floats2bfloat162_rn(scale * acc_k[4 * j + 2], scale * acc_k[4 * j + 3]);
-      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)kv_b * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(dvb + (size_t)kv_b * DV + col) =
           __floats2bfloat162_rn(acc_v[4 * j + 2], acc_v[4 * j + 3]);
     }
   }
 }
 
 // dK, dV for one (b*h, 128-row kv block); q tiles stream through the ring.
-template <int D, int kStages, bool kAligned>
+template <int DQK, int DV, int kStages, bool kAligned>
 __global__ void __launch_bounds__(kThreads, 1)
     dkv_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
                const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
                const __grid_constant__ CUtensorMap tm_lse,
                const __grid_constant__ CUtensorMap tm_delta, bf16* __restrict__ dk,
                bf16* __restrict__ dv, int seq, float scale) {
-  using S = DkvSmem<D, kStages, kAligned>;
+  using S = DkvSmem<DQK, DV, kStages, kAligned>;
   S& sm = smem_as<S>();
   const int bh = blockIdx.x;
   const int k0 = blockIdx.y * kBlock;  // y = 0 is the heaviest block
@@ -282,9 +302,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x >= kConsumerThreads) {  // the producer warpgroup
     regs_dealloc<kProducerRegs>();
     if (threadIdx.x == kConsumerThreads) {
-      mbar_arrive_expect_tx(&sm.kv_full, 2 * S::kPanels * Panel<kBlock>::kBytes);
+      mbar_arrive_expect_tx(&sm.kv_full, (S::kPanels + S::kPanelsV) * Panel<kBlock>::kBytes);
       for (int p = 0; p < S::kPanels; ++p) {
         tma_load_3d(&sm.k[p], &tm_k, &sm.kv_full, 64 * p, k0, bh);
+      }
+      for (int p = 0; p < S::kPanelsV; ++p) {
         tma_load_3d(&sm.v[p], &tm_v, &sm.kv_full, 64 * p, k0, bh);
       }
       const int row0 = bh * seq;  // of lse and delta
@@ -293,11 +315,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
-        mbar_arrive_expect_tx(&sm.full[s], 2 * S::kPanels * Panel<kStep>::kBytes +
+        mbar_arrive_expect_tx(&sm.full[s], (S::kPanels + S::kPanelsV) * Panel<kStep>::kBytes +
                                                2 * kVecBytes);
         const int q0 = (i0 + it) * kStep;
         for (int p = 0; p < S::kPanels; ++p) {
           tma_load_3d(&sm.q[s][p], &tm_q, &sm.full[s], 64 * p, q0, bh);
+        }
+        for (int p = 0; p < S::kPanelsV; ++p) {
           tma_load_3d(&sm.d_o[s][p], &tm_do, &sm.full[s], 64 * p, q0, bh);
         }
         // Flat (b*h*seq) maps: a box past seq reads the next head's values,
@@ -307,13 +331,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
   } else {
-    dkv_consume<D, kStages, kAligned>(sm, dk, dv, bh, k0, i0, n_tiles, seq, scale);
+    dkv_consume<DQK, DV, kStages, kAligned>(sm, dk, dv, bh, k0, i0, n_tiles, seq, scale);
   }
 }
 
 // The consumer warpgroups of dq_kernel: S, dP, then dQ.
-template <int D, int kStages>
-__device__ __forceinline__ void dq_consume(DqSmem<D, kStages>& sm, const float* __restrict__ lse,
+template <int DQK, int DV, int kStages>
+__device__ __forceinline__ void dq_consume(DqSmem<DQK, DV, kStages>& sm, const float* __restrict__ lse,
                                            const float* __restrict__ delta, bf16* __restrict__ dq,
                                            int bh, int q0, int n_tiles, int seq, float scale) {
   regs_alloc<kConsumerRegs>();
@@ -331,9 +355,9 @@ __device__ __forceinline__ void dq_consume(DqSmem<D, kStages>& sm, const float* 
   const float delta_r[2] = {row_a < seq ? delta_bh[row_a] : 0.f,
                             row_b < seq ? delta_bh[row_b] : 0.f};
 
-  float acc[D / 2];
+  float acc[DQK / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DQK / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(&sm.qd_full, 0);
   for (int it = 0; it < n_tiles; ++it) {
@@ -348,8 +372,8 @@ __device__ __forceinline__ void dq_consume(DqSmem<D, kStages>& sm, const float* 
     // S = Q K^T and dP = dO V^T for this warpgroup's 64 q rows.
     float s_acc[32], dp[32];
     wgmma_fence();
-    product_ss<D, 64>(s_acc, sm.q, wg * 64, sm.k[s], 0);
-    product_ss<D, 64>(dp, sm.d_o, wg * 64, sm.v[s], 0);
+    product_ss<DQK, 64>(s_acc, sm.q, wg * 64, sm.k[s], 0);
+    product_ss<DV, 64>(dp, sm.d_o, wg * 64, sm.v[s], 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s_acc);
@@ -375,36 +399,36 @@ __device__ __forceinline__ void dq_consume(DqSmem<D, kStages>& sm, const float* 
 
     // dQ += bf16(dS) K, the kv rows as the depth.
     wgmma_fence();
-    product_rs<D>(acc, a_ds, sm.k[s], 0);
+    product_rs<DQK>(acc, a_ds, sm.k[s], 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
     mbar_arrive(&sm.empty[s]);
   }
 
-  bf16* out = dq + (size_t)bh * seq * D;
+  bf16* out = dq + (size_t)bh * seq * DQK;
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
+  for (int j = 0; j < DQK / 8; ++j) {
     const int col = 8 * j + 2 * t;
     if (row_a < seq) {
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row_a * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row_a * DQK + col) =
           __floats2bfloat162_rn(scale * acc[4 * j], scale * acc[4 * j + 1]);
     }
     if (row_b < seq) {
-      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row_b * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row_b * DQK + col) =
           __floats2bfloat162_rn(scale * acc[4 * j + 2], scale * acc[4 * j + 3]);
     }
   }
 }
 
 // dQ for one (b*h, 128-row q block); kv tiles stream through the ring.
-template <int D, int kStages>
+template <int DQK, int DV, int kStages>
 __global__ void __launch_bounds__(kThreads, 1)
     dq_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_do,
               const __grid_constant__ CUtensorMap tm_k, const __grid_constant__ CUtensorMap tm_v,
               const float* __restrict__ lse, const float* __restrict__ delta,
               bf16* __restrict__ dq, int seq, float scale) {
-  using S = DqSmem<D, kStages>;
+  using S = DqSmem<DQK, DV, kStages>;
   S& sm = smem_as<S>();
   // The blocks walk groups of kGroup heads, and each group's q blocks
   // heaviest first, so that the blocks resident at once share their heads'
@@ -430,23 +454,27 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (threadIdx.x >= kConsumerThreads) {  // the producer warpgroup
     regs_dealloc<kProducerRegs>();
     if (threadIdx.x == kConsumerThreads) {
-      mbar_arrive_expect_tx(&sm.qd_full, 2 * S::kPanels * Panel<kBlock>::kBytes);
+      mbar_arrive_expect_tx(&sm.qd_full, (S::kPanels + S::kPanelsV) * Panel<kBlock>::kBytes);
       for (int p = 0; p < S::kPanels; ++p) {
         tma_load_3d(&sm.q[p], &tm_q, &sm.qd_full, 64 * p, q0, bh);
+      }
+      for (int p = 0; p < S::kPanelsV; ++p) {
         tma_load_3d(&sm.d_o[p], &tm_do, &sm.qd_full, 64 * p, q0, bh);
       }
       for (int it = 0; it < n_tiles; ++it) {
         const int s = it % kStages;
         mbar_wait(&sm.empty[s], ((it / kStages) & 1) ^ 1);
-        mbar_arrive_expect_tx(&sm.full[s], 2 * S::kPanels * Panel<kStep>::kBytes);
+        mbar_arrive_expect_tx(&sm.full[s], (S::kPanels + S::kPanelsV) * Panel<kStep>::kBytes);
         for (int p = 0; p < S::kPanels; ++p) {
           tma_load_3d(&sm.k[s][p], &tm_k, &sm.full[s], 64 * p, it * kStep, bh);
+        }
+        for (int p = 0; p < S::kPanelsV; ++p) {
           tma_load_3d(&sm.v[s][p], &tm_v, &sm.full[s], 64 * p, it * kStep, bh);
         }
       }
     }
   } else {
-    dq_consume<D, kStages>(sm, lse, delta, dq, bh, q0, n_tiles, seq, scale);
+    dq_consume<DQK, DV, kStages>(sm, lse, delta, dq, bh, q0, n_tiles, seq, scale);
   }
 }
 
@@ -478,23 +506,24 @@ __global__ void __launch_bounds__(256)
   if (row < rows && threadIdx.x % kLanes == 0) delta[row] = acc;
 }
 
-template <int D, int kStages>
+template <int DQK, int DV, int kStages>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* d_o,
                        const void* lse, const void* delta, void* dk, void* dv, int bh, int seq,
                        float scale, cudaStream_t stream) {
   CUtensorMap tm_q, tm_do, tm_k, tm_v, tm_lse, tm_delta;
   cudaError_t err;
-  if ((err = map_rows_bf16(&tm_q, q, bh, seq, D, kStep)) != cudaSuccess) return err;
-  if ((err = map_rows_bf16(&tm_do, d_o, bh, seq, D, kStep)) != cudaSuccess) return err;
-  if ((err = map_rows_bf16(&tm_k, k, bh, seq, D, kBlock)) != cudaSuccess) return err;
-  if ((err = map_rows_bf16(&tm_v, v, bh, seq, D, kBlock)) != cudaSuccess) return err;
+  if ((err = map_rows_bf16(&tm_q, q, bh, seq, DQK, kStep)) != cudaSuccess) return err;
+  if ((err = map_rows_bf16(&tm_do, d_o, bh, seq, DV, kStep)) != cudaSuccess) return err;
+  if ((err = map_rows_bf16(&tm_k, k, bh, seq, DQK, kBlock)) != cudaSuccess) return err;
+  if ((err = map_rows_bf16(&tm_v, v, bh, seq, DV, kBlock)) != cudaSuccess) return err;
   const bool aligned = seq % 4 == 0;
   const int vec_box = aligned ? kStep : kVecBox;
   if ((err = map_vec_f32(&tm_lse, lse, (long long)bh * seq, vec_box)) != cudaSuccess) return err;
   if ((err = map_vec_f32(&tm_delta, delta, (long long)bh * seq, vec_box)) != cudaSuccess) return err;
-  const auto kernel = aligned ? dkv_kernel<D, kStages, true> : dkv_kernel<D, kStages, false>;
-  const int smem = (int)(aligned ? sizeof(DkvSmem<D, kStages, true>)
-                                 : sizeof(DkvSmem<D, kStages, false>)) + 1024;
+  const auto kernel =
+      aligned ? dkv_kernel<DQK, DV, kStages, true> : dkv_kernel<DQK, DV, kStages, false>;
+  const int smem = (int)(aligned ? sizeof(DkvSmem<DQK, DV, kStages, true>)
+                                 : sizeof(DkvSmem<DQK, DV, kStages, false>)) + 1024;
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh, (seq + kBlock - 1) / kBlock);
@@ -504,51 +533,51 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-template <int D, int kStages>
+template <int DQK, int DV, int kStages>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d_o,
                       const void* lse, const void* delta, void* dq, int bh, int seq, float scale,
                       cudaStream_t stream) {
   CUtensorMap tm_q, tm_do, tm_k, tm_v;
   cudaError_t err;
-  if ((err = map_rows_bf16(&tm_q, q, bh, seq, D, kBlock)) != cudaSuccess) return err;
-  if ((err = map_rows_bf16(&tm_do, d_o, bh, seq, D, kBlock)) != cudaSuccess) return err;
-  if ((err = map_rows_bf16(&tm_k, k, bh, seq, D, kStep)) != cudaSuccess) return err;
-  if ((err = map_rows_bf16(&tm_v, v, bh, seq, D, kStep)) != cudaSuccess) return err;
-  const int smem = (int)sizeof(DqSmem<D, kStages>) + 1024;
-  err = cudaFuncSetAttribute(dq_kernel<D, kStages>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
+  if ((err = map_rows_bf16(&tm_q, q, bh, seq, DQK, kBlock)) != cudaSuccess) return err;
+  if ((err = map_rows_bf16(&tm_do, d_o, bh, seq, DV, kBlock)) != cudaSuccess) return err;
+  if ((err = map_rows_bf16(&tm_k, k, bh, seq, DQK, kStep)) != cudaSuccess) return err;
+  if ((err = map_rows_bf16(&tm_v, v, bh, seq, DV, kStep)) != cudaSuccess) return err;
+  const int smem = (int)sizeof(DqSmem<DQK, DV, kStages>) + 1024;
+  err = cudaFuncSetAttribute(dq_kernel<DQK, DV, kStages>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(bh * ((seq + kBlock - 1) / kBlock));
-  dq_kernel<D, kStages><<<grid, kThreads, smem, stream>>>(
+  dq_kernel<DQK, DV, kStages><<<grid, kThreads, smem, stream>>>(
       tm_q, tm_do, tm_k, tm_v, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<bf16*>(dq), seq, scale);
   return cudaGetLastError();
 }
 
 // The dQ and dK/dV instances of ring depth `stages`: 2 or 3.
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_dq_stages(const void* q, const void* k, const void* v, const void* d_o,
                              const void* lse, const void* delta, void* dq, int bh, int seq,
                              int stages, float scale, cudaStream_t stream) {
   switch (stages) {
     case 2:
-      return launch_dq<D, 2>(q, k, v, d_o, lse, delta, dq, bh, seq, scale, stream);
+      return launch_dq<DQK, DV, 2>(q, k, v, d_o, lse, delta, dq, bh, seq, scale, stream);
     case 3:
-      return launch_dq<D, 3>(q, k, v, d_o, lse, delta, dq, bh, seq, scale, stream);
+      return launch_dq<DQK, DV, 3>(q, k, v, d_o, lse, delta, dq, bh, seq, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_dkv_stages(const void* q, const void* k, const void* v, const void* d_o,
                               const void* lse, const void* delta, void* dk, void* dv, int bh,
                               int seq, int stages, float scale, cudaStream_t stream) {
   switch (stages) {
     case 2:
-      return launch_dkv<D, 2>(q, k, v, d_o, lse, delta, dk, dv, bh, seq, scale, stream);
+      return launch_dkv<DQK, DV, 2>(q, k, v, d_o, lse, delta, dk, dv, bh, seq, scale, stream);
     case 3:
-      return launch_dkv<D, 3>(q, k, v, d_o, lse, delta, dk, dv, bh, seq, scale, stream);
+      return launch_dkv<DQK, DV, 3>(q, k, v, d_o, lse, delta, dk, dv, bh, seq, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -567,41 +596,49 @@ cudaError_t launch_delta(const void* o, const void* d_o, void* delta, int rows,
 
 }  // namespace flash
 
-// q, k, v, d_o, dq: [bh][seq][d] bf16, contiguous; lse, delta: [bh][seq]
-// f32 (delta from flash_bwd_delta). head_dim d in {64, 128}; stages, the
-// depth of the streamed tiles' ring, in {2, 3}. Returns the launch's
-// cudaGetLastError() (or the tensor-map encoding's error);
-// cudaErrorInvalidValue for any other d or stages.
+// q, k, dq: [bh][seq][d] bf16; v, d_o: [bh][seq][dv] bf16, all contiguous;
+// lse, delta: [bh][seq] f32 (delta from flash_bwd_delta). Head widths (d,
+// dv) in {(64, 64), (128, 128), (192, 128)}; stages, the depth of the
+// streamed tiles' ring, in {2, 3}. Returns the launch's cudaGetLastError()
+// (or the tensor-map encoding's error); cudaErrorInvalidValue for any other
+// widths or stages.
 extern "C" int flash_dq(const void* q, const void* k, const void* v, const void* d_o,
                         const void* lse, const void* delta, void* dq, int bh, int seq, int d,
-                        int stages, float scale, void* stream) {
+                        int dv, int stages, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return flash::launch_dq_stages<64>(q, k, v, d_o, lse, delta, dq, bh, seq, stages, scale, s);
-    case 128:
-      return flash::launch_dq_stages<128>(q, k, v, d_o, lse, delta, dq, bh, seq, stages, scale,
-                                          s);
-    default:
-      return cudaErrorInvalidValue;
+  if (d == 64 && dv == 64) {
+    return flash::launch_dq_stages<64, 64>(q, k, v, d_o, lse, delta, dq, bh, seq, stages, scale,
+                                           s);
   }
+  if (d == 128 && dv == 128) {
+    return flash::launch_dq_stages<128, 128>(q, k, v, d_o, lse, delta, dq, bh, seq, stages,
+                                             scale, s);
+  }
+  if (d == 192 && dv == 128) {
+    return flash::launch_dq_stages<192, 128>(q, k, v, d_o, lse, delta, dq, bh, seq, stages,
+                                             scale, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
-// As flash_dq, writing dk and dv ([bh][seq][d] bf16).
+// As flash_dq, writing dk ([bh][seq][d] bf16) and dv ([bh][seq][dv] bf16).
 extern "C" int flash_dkv(const void* q, const void* k, const void* v, const void* d_o,
                          const void* lse, const void* delta, void* dk, void* dv, int bh, int seq,
-                         int d, int stages, float scale, void* stream) {
+                         int d, int dv_width, int stages, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return flash::launch_dkv_stages<64>(q, k, v, d_o, lse, delta, dk, dv, bh, seq, stages,
-                                          scale, s);
-    case 128:
-      return flash::launch_dkv_stages<128>(q, k, v, d_o, lse, delta, dk, dv, bh, seq, stages,
-                                           scale, s);
-    default:
-      return cudaErrorInvalidValue;
+  if (d == 64 && dv_width == 64) {
+    return flash::launch_dkv_stages<64, 64>(q, k, v, d_o, lse, delta, dk, dv, bh, seq, stages,
+                                            scale, s);
   }
+  if (d == 128 && dv_width == 128) {
+    return flash::launch_dkv_stages<128, 128>(q, k, v, d_o, lse, delta, dk, dv, bh, seq, stages,
+                                              scale, s);
+  }
+  if (d == 192 && dv_width == 128) {
+    return flash::launch_dkv_stages<192, 128>(q, k, v, d_o, lse, delta, dk, dv, bh, seq, stages,
+                                              scale, s);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // delta = rowsum(d_o * o) in f32 for `rows` rows of head_dim d ([rows][d]

@@ -62,6 +62,13 @@
 //    the tensor cores; it then waits for P V, releases the stage and rounds
 //    the new P. The two consumer warpgroups fill each other's gaps on the
 //    SM's tensor cores.
+//  - Head widths. DQK (q and k) and DV (v and o) are template parameters:
+//    (64, 64) and (128, 128), and (192, 128) for multi-head latent
+//    attention, whose q.k heads join 128 latent and 64 rotary dims. There
+//    S = Q K^T takes 12 16-deep steps over three 64-column panels, and P V
+//    and the accumulator (DV / 2 registers a thread) are as at 128. Four
+//    stages and the two Q buffers would take 256 KiB of shared memory, so
+//    that instance runs at most three (216 KiB).
 //  - Epilogue. O = acc / l is stored as bf16 and lse by one thread a row,
 //    both only for rows below seq: a ragged q block writes nothing into the
 //    next head's rows. Each row has one owner and there are no atomics, so
@@ -107,12 +114,14 @@ constexpr float kNegInf = -1e30f;  // the JAX kernel's mask value: exp() gives 0
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <int D, int kStages>
+// DQK: the width of a q and k head; DV: of a v (and o) head.
+template <int DQK, int DV, int kStages>
 struct FwdSmem {
-  static constexpr int kPanels = D / 64;
+  static constexpr int kPanels = DQK / 64;  // of a q or k row
+  static constexpr int kPanelsV = DV / 64;
   Panel<kBlock> q[2][kPanels];  // this item's Q and the next one's
   Panel<kStep> k[kStages][kPanels];
-  Panel<kStep> v[kStages][kPanels];
+  Panel<kStep> v[kStages][kPanelsV];
   uint64_t q_full[2];
   uint64_t q_empty[2];
   uint64_t full[kStages];
@@ -221,8 +230,8 @@ __device__ __forceinline__ int item_tiles(int q0, int seq) {
 // The consumer warpgroups: for each item of this block, S, the softmax,
 // then O += P V per kv tile, and the item's O and lse. `tile` counts the
 // ring's tiles over the items, as the producer does.
-template <int D, int kStages>
-__device__ __forceinline__ void fwd_consume(FwdSmem<D, kStages>& sm, Items items,
+template <int DQK, int DV, int kStages>
+__device__ __forceinline__ void fwd_consume(FwdSmem<DQK, DV, kStages>& sm, Items items,
                                             bf16* __restrict__ o, float* __restrict__ lse, int seq,
                                             float scale) {
   regs_alloc<kConsumerRegs>();
@@ -253,9 +262,9 @@ __device__ __forceinline__ void fwd_consume(FwdSmem<D, kStages>& sm, Items items
     float m[2] = {kNegInf, kNegInf};
     float l[2] = {0.f, 0.f};  // this thread's partial sums, reduced at the end
     float alpha[2];
-    float acc[D / 2];
+    float acc[DV / 2];
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
     float s_acc[32];
     uint32_t a_p[4][4];
 
@@ -263,7 +272,7 @@ __device__ __forceinline__ void fwd_consume(FwdSmem<D, kStages>& sm, Items items
     mbar_wait(&sm.q_full[n & 1], (n >> 1) & 1);
     mbar_wait(&sm.full[stage(tile)], phase(tile));
     wgmma_fence();
-    product_ss<D, 64>(s_acc, q, wg * 64, sm.k[stage(tile)], 0);
+    product_ss<DQK, 64>(s_acc, q, wg * 64, sm.k[stage(tile)], 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(s_acc);
@@ -279,11 +288,11 @@ __device__ __forceinline__ void fwd_consume(FwdSmem<D, kStages>& sm, Items items
       // runs) O += P V of the previous tile; the softmax of S runs while
       // P V is on the tensor cores.
       wgmma_fence();
-      product_ss<D, 64>(s_acc, q, wg * 64, sm.k[s], 0);
+      product_ss<DQK, 64>(s_acc, q, wg * 64, sm.k[s], 0);
       wgmma_commit();
       rescale(acc, alpha);
       wgmma_fence();
-      product_rs<D>(acc, a_p, sm.v[prev], 0);
+      product_rs<DV>(acc, a_p, sm.v[prev], 0);
       wgmma_commit();
       wgmma_wait<1>();
       fence_regs(s_acc);
@@ -297,7 +306,7 @@ __device__ __forceinline__ void fwd_consume(FwdSmem<D, kStages>& sm, Items items
     const int last = stage(tile + n_live - 1);
     rescale(acc, alpha);
     wgmma_fence();
-    product_rs<D>(acc, a_p, sm.v[last], 0);
+    product_rs<DV>(acc, a_p, sm.v[last], 0);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
@@ -319,16 +328,16 @@ __device__ __forceinline__ void fwd_consume(FwdSmem<D, kStages>& sm, Items items
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       l[r] = fmaxf(l[r], 1e-30f);
     }
-    bf16* ob = o + (size_t)bh * seq * D;
+    bf16* ob = o + (size_t)bh * seq * DV;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const int col = 8 * j + 2 * t;
       if (row_a < seq) {
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row_a * D + col) =
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row_a * DV + col) =
             __floats2bfloat162_rn(acc[4 * j] / l[0], acc[4 * j + 1] / l[0]);
       }
       if (row_b < seq) {
-        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row_b * D + col) =
+        *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)row_b * DV + col) =
             __floats2bfloat162_rn(acc[4 * j + 2] / l[1], acc[4 * j + 3] / l[1]);
       }
     }
@@ -340,12 +349,12 @@ __device__ __forceinline__ void fwd_consume(FwdSmem<D, kStages>& sm, Items items
 }
 
 // O, lse for this block's items; their kv tiles stream through the ring.
-template <int D, int kStages>
+template <int DQK, int DV, int kStages>
 __global__ void __launch_bounds__(kThreads, 1)
     fwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
                float* __restrict__ lse, int bh_total, int seq, float scale) {
-  using S = FwdSmem<D, kStages>;
+  using S = FwdSmem<DQK, DV, kStages>;
   S& sm = smem_as<S>();
   const int n_q = (seq + kBlock - 1) / kBlock;
   const Items items{n_q, bh_total * n_q};
@@ -381,55 +390,70 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int it = 0; it < n_tiles; ++it, ++tile) {
           const int s = tile % kStages;
           mbar_wait(&sm.empty[s], ((tile / kStages) & 1) ^ 1);
-          mbar_arrive_expect_tx(&sm.full[s], 2 * S::kPanels * Panel<kStep>::kBytes);
+          mbar_arrive_expect_tx(&sm.full[s],
+                                (S::kPanels + S::kPanelsV) * Panel<kStep>::kBytes);
           for (int p = 0; p < S::kPanels; ++p) {
             tma_load_3d(&sm.k[s][p], &tm_k, &sm.full[s], 64 * p, it * kStep, bh);
+          }
+          for (int p = 0; p < S::kPanelsV; ++p) {
             tma_load_3d(&sm.v[s][p], &tm_v, &sm.full[s], 64 * p, it * kStep, bh);
           }
         }
       }
     }
   } else {
-    fwd_consume<D, kStages>(sm, items, o, lse, seq, scale);
+    fwd_consume<DQK, DV, kStages>(sm, items, o, lse, seq, scale);
   }
 }
 
-template <int D, int kStages>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                       int seq, float scale, cudaStream_t stream) {
-  CUtensorMap tm_q, tm_k, tm_v;
-  cudaError_t err;
-  if ((err = map_rows_bf16(&tm_q, q, bh, seq, D, kBlock)) != cudaSuccess) return err;
-  if ((err = map_rows_bf16(&tm_k, k, bh, seq, D, kStep)) != cudaSuccess) return err;
-  if ((err = map_rows_bf16(&tm_v, v, bh, seq, D, kStep)) != cudaSuccess) return err;
-  const int smem = (int)sizeof(FwdSmem<D, kStages>) + 1024;
-  err = cudaFuncSetAttribute(fwd_kernel<D, kStages>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem);
-  if (err != cudaSuccess) return err;
-  // One block an SM (each takes most of an SM's shared memory and
-  // registers), or one a pair of items where there are fewer.
-  int device, sms;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  const int pairs = (bh * ((seq + kBlock - 1) / kBlock) + 1) / 2;
-  const dim3 grid(pairs < sms ? pairs : sms);
-  fwd_kernel<D, kStages><<<grid, kThreads, smem, stream>>>(
-      tm_q, tm_k, tm_v, static_cast<bf16*>(o), static_cast<float*>(lse), bh, seq, scale);
-  return cudaGetLastError();
+// Whether the ring of kStages stages fits beside the two Q buffers in a
+// block's 227 KiB of shared memory (with the alignment slack).
+template <int DQK, int DV, int kStages>
+constexpr bool fwd_fits() {
+  return sizeof(FwdSmem<DQK, DV, kStages>) + 1024 <= 232448;
 }
 
-// The instance of ring depth `stages`: 2, 3 or 4.
-template <int D>
+template <int DQK, int DV, int kStages>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                       int seq, float scale, cudaStream_t stream) {
+  if constexpr (!fwd_fits<DQK, DV, kStages>()) {
+    return cudaErrorInvalidValue;
+  } else {
+    CUtensorMap tm_q, tm_k, tm_v;
+    cudaError_t err;
+    if ((err = map_rows_bf16(&tm_q, q, bh, seq, DQK, kBlock)) != cudaSuccess) return err;
+    if ((err = map_rows_bf16(&tm_k, k, bh, seq, DQK, kStep)) != cudaSuccess) return err;
+    if ((err = map_rows_bf16(&tm_v, v, bh, seq, DV, kStep)) != cudaSuccess) return err;
+    const int smem = (int)sizeof(FwdSmem<DQK, DV, kStages>) + 1024;
+    err = cudaFuncSetAttribute(fwd_kernel<DQK, DV, kStages>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    // One block an SM (each takes most of an SM's shared memory and
+    // registers), or one a pair of items where there are fewer.
+    int device, sms;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+    const int pairs = (bh * ((seq + kBlock - 1) / kBlock) + 1) / 2;
+    const dim3 grid(pairs < sms ? pairs : sms);
+    fwd_kernel<DQK, DV, kStages><<<grid, kThreads, smem, stream>>>(
+        tm_q, tm_k, tm_v, static_cast<bf16*>(o), static_cast<float*>(lse), bh, seq, scale);
+    return cudaGetLastError();
+  }
+}
+
+// The instance of ring depth `stages`: 2, 3 or 4 (4 only where it fits:
+// not at q.k heads of 192).
+template <int DQK, int DV>
 cudaError_t launch_fwd_stages(const void* q, const void* k, const void* v, void* o, void* lse,
                               int bh, int seq, int stages, float scale, cudaStream_t stream) {
   switch (stages) {
     case 2:
-      return launch_fwd<D, 2>(q, k, v, o, lse, bh, seq, scale, stream);
+      return launch_fwd<DQK, DV, 2>(q, k, v, o, lse, bh, seq, scale, stream);
     case 3:
-      return launch_fwd<D, 3>(q, k, v, o, lse, bh, seq, scale, stream);
+      return launch_fwd<DQK, DV, 3>(q, k, v, o, lse, bh, seq, scale, stream);
     case 4:
-      return launch_fwd<D, 4>(q, k, v, o, lse, bh, seq, scale, stream);
+      return launch_fwd<DQK, DV, 4>(q, k, v, o, lse, bh, seq, scale, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -437,19 +461,22 @@ cudaError_t launch_fwd_stages(const void* q, const void* k, const void* v, void*
 
 }  // namespace flash
 
-// q, k, v, o: [bh][seq][d] bf16, contiguous; lse: [bh][seq] f32.
-// head_dim d in {64, 128}; stages, the K/V ring's depth, in {2, 3, 4}.
+// q, k: [bh][seq][d] bf16, v, o: [bh][seq][dv] bf16, all contiguous; lse:
+// [bh][seq] f32. Head widths (d, dv) in {(64, 64), (128, 128), (192, 128)};
+// stages, the K/V ring's depth, in {2, 3, 4}, and in {2, 3} at (192, 128).
 // Returns the launch's cudaGetLastError() (or the tensor-map encoding's
-// error); cudaErrorInvalidValue for any other d or stages.
+// error); cudaErrorInvalidValue for any other widths or stages.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                         int seq, int d, int stages, float scale, void* stream) {
+                         int seq, int d, int dv, int stages, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return flash::launch_fwd_stages<64>(q, k, v, o, lse, bh, seq, stages, scale, s);
-    case 128:
-      return flash::launch_fwd_stages<128>(q, k, v, o, lse, bh, seq, stages, scale, s);
-    default:
-      return cudaErrorInvalidValue;
+  if (d == 64 && dv == 64) {
+    return flash::launch_fwd_stages<64, 64>(q, k, v, o, lse, bh, seq, stages, scale, s);
   }
+  if (d == 128 && dv == 128) {
+    return flash::launch_fwd_stages<128, 128>(q, k, v, o, lse, bh, seq, stages, scale, s);
+  }
+  if (d == 192 && dv == 128) {
+    return flash::launch_fwd_stages<192, 128>(q, k, v, o, lse, bh, seq, stages, scale, s);
+  }
+  return cudaErrorInvalidValue;
 }

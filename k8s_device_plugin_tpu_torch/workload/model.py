@@ -52,6 +52,17 @@ replicated over the group's axis.
 The config holds no mesh (JAX's ``ring_mesh`` and ``pipe_mesh``): a ring
 or pipeline model takes its groups from ``shard_model`` and raises when
 run without them.
+
+``DeepSeekV3Config`` (a ``ModelConfig`` with the fields of DeepSeek-V3's
+``config.json``; the JAX package has no counterpart) builds DeepSeek-V3's
+block on the same path: multi-head latent attention (``MlaAttention``,
+DeepSeek-V2 section 2.1, no query compression) with RoPE on its rotary
+dims and no position table, SwiGLU MLPs (``SwiGlu``) in the leading dense
+layers, DeepSeek-V3's routed layers (``workload/routed.py``) after them,
+RMSNorm at the config's epsilon, and an untied f32 head (``head``). It
+runs on one device, unsharded (``train.shard_model`` refuses an axis
+larger than 1), and the routed layer computes the share of the experts it
+is told it holds.
 """
 
 from __future__ import annotations
@@ -88,6 +99,20 @@ PARAM_AXES = {
     "moe.w2": ("expert", "mlp", "embed"),
     "embed": ("vocab", "embed"),
     "pos": ("seq", "embed"),
+    # DeepSeekV3Config's leaves, which shard_model never splits.
+    "attn.wdkv": (None, None),
+    "attn.wukv": (None, None, None),
+    "mlp.w_gate": (None, None),
+    "mlp.w_up": (None, None),
+    "mlp.w_down": (None, None),
+    "moe.router": (None, None),
+    "moe.w_gate": (None, None, None),
+    "moe.w_up": (None, None, None),
+    "moe.w_down": (None, None, None),
+    "moe.shared.w_gate": (None, None),
+    "moe.shared.w_up": (None, None),
+    "moe.shared.w_down": (None, None),
+    "head": (None, None),
 }
 PALLAS_NORM_AXES = ("embed",)
 
@@ -214,6 +239,77 @@ class ModelConfig:
         return 3.0 * batch * self.max_seq_len * self.fwd_flops_per_token()
 
 
+@dataclasses.dataclass(frozen=True)
+class DeepSeekV3Config(ModelConfig):
+    """DeepSeek-V3's architecture (HF ``modeling_deepseek_v3`` with
+    ``q_lora_rank`` null, sigmoid routing, ``noaux_tc``, ``seq_aux``):
+    ``n_heads`` heads of multi-head latent attention whose q.k heads are
+    ``qk_nope_head_dim + qk_rope_head_dim`` wide and v heads
+    ``v_head_dim``, over a shared latent of ``kv_lora_rank``; RoPE at
+    ``rope_theta`` on the rotary dims; ``first_dense`` SwiGLU layers of
+    width ``d_ff``, then routed layers of ``n_routed_experts`` SwiGLU
+    experts of width ``expert_d_ff``, ``moe_top_k`` a token, with
+    ``n_shared_experts`` of them as one shared SwiGLU; RMSNorm at
+    ``norm_eps``; an untied head. This device holds the experts
+    ``held_experts`` (first, count) of every routed layer; the router
+    scores all of them. ``moe_aux_weight`` weighs the sequence-wise balance
+    loss (alpha), ``bias_update_speed`` is the routing bias's step (gamma).
+    ``max_seq_len`` is the context RoPE's table covers."""
+
+    vocab_size: int = 256
+    d_model: int = 64
+    n_heads: int = 4
+    n_layers: int = 2
+    d_ff: int = 128
+    max_seq_len: int = 32
+    use_flash_attention: bool = True
+    moe_top_k: int = 2
+    moe_aux_weight: float = 1e-4
+    kv_lora_rank: int = 32
+    qk_nope_head_dim: int = 24
+    qk_rope_head_dim: int = 8
+    v_head_dim: int = 16
+    rope_theta: float = 50000.0
+    norm_eps: float = 1e-5
+    first_dense: int = 1
+    n_routed_experts: int = 8
+    held_experts: tuple[int, int] = (0, 8)
+    expert_d_ff: int = 32
+    n_shared_experts: int = 2
+    routed_scaling_factor: float = 2.446
+    bias_update_speed: float = 1e-3
+
+    def __post_init__(self):
+        super().__post_init__()
+        first, count = self.held_experts
+        if not (0 <= first and 0 < count and first + count <= self.n_routed_experts):
+            raise ValueError(f"held_experts {self.held_experts} outside the "
+                             f"{self.n_routed_experts} routed experts")
+        if not 0 < self.moe_top_k <= self.n_routed_experts:
+            raise ValueError(f"moe_top_k {self.moe_top_k} of {self.n_routed_experts} experts")
+        if self.qk_rope_head_dim % 2:
+            raise ValueError("RoPE pairs the rotary dims: qk_rope_head_dim must be even")
+        if not self.use_flash_attention or self.decode or self.use_ring_attention:
+            raise ValueError("multi-head latent attention runs on the flash path alone "
+                             "(use_flash_attention, no decode, no ring)")
+        if self.n_experts or self.pipeline_microbatches or self.xent_chunk:
+            raise ValueError("DeepSeekV3Config takes none of n_experts, "
+                             "pipeline_microbatches or xent_chunk")
+
+    @staticmethod
+    def tiny() -> "DeepSeekV3Config":
+        """The CPU tests' size: d 64, 4 heads of 24 + 8 q.k and 16 v, latent
+        32, 8 experts (top 2, 2 shared), vocabulary 256, seq 32."""
+        return DeepSeekV3Config()
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    def is_routed(self, layer: int) -> bool:
+        return layer >= self.first_dense
+
+
 def _xavier_uniform(shape, generator, device) -> torch.Tensor:
     """flax's xavier_uniform: fans over the last two axes, times the
     receptive field of the leading ones."""
@@ -229,17 +325,19 @@ class Norm(nn.Module):
     with ``use_pallas_norm``, the RMSNorm kernel, whose output has x's
     dtype (the JAX ``Norm`` under ``use_pallas_norm``)."""
 
-    def __init__(self, d: int, device=None, use_pallas_norm: bool = False):
+    def __init__(self, d: int, device=None, use_pallas_norm: bool = False,
+                 eps: float = RMS_EPS):
         super().__init__()
         self.use_pallas_norm = use_pallas_norm
+        self.eps = eps
         self.scale = nn.Parameter(torch.ones(d, dtype=torch.float32, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.use_pallas_norm:
-            return rmsnorm(x, self.scale, RMS_EPS)
+            return rmsnorm(x, self.scale, self.eps)
         x32 = x.float()
         var = x32.square().mean(-1, keepdim=True)
-        return x32 * (torch.rsqrt(var + RMS_EPS) * self.scale)
+        return x32 * (torch.rsqrt(var + self.eps) * self.scale)
 
 
 class Attention(nn.Module):
@@ -360,13 +458,104 @@ class Mlp(nn.Module):
         return out
 
 
+def rope_tables(seq: int, dim: int, theta: float, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin), f32 (seq, dim), of DeepSeek-V3's rotary embedding:
+    frequencies theta^(-2i/dim) for i < dim/2, each repeated over the two
+    halves (HF ``DeepseekV3RotaryEmbedding``)."""
+    inv_freq = 1.0 / theta ** (torch.arange(0, dim, 2, device=device, dtype=torch.float32) / dim)
+    freqs = torch.outer(torch.arange(seq, device=device, dtype=torch.float32), inv_freq)
+    emb = torch.cat((freqs, freqs), dim=-1)
+    return emb.cos(), emb.sin()
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """RoPE on x (batch, seq, heads, dim) in f32 as DeepSeek-V3's
+    ``apply_rotary_pos_emb`` takes it: the pairs (2i, 2i+1) gathered into
+    the two halves (evens, then odds), then ``x cos + rotate_half(x) sin``.
+    The output keeps that halves layout, for q and k alike."""
+    b, s, h, d = x.shape
+    x = x.reshape(b, s, h, d // 2, 2).transpose(-1, -2).reshape(b, s, h, d)
+    half = torch.cat((-x[..., d // 2:], x[..., : d // 2]), dim=-1)
+    return x * cos[None, :s, None] + half * sin[None, :s, None]
+
+
+class MlaAttention(nn.Module):
+    """Multi-head latent attention with no query compression (HF
+    ``DeepseekV3Attention`` at ``q_lora_rank`` null):
+
+        q = h Wq, (n_heads, nope + rope) a token, split into q_nope, q_rope
+        [c, k_r] = h Wdkv, c of kv_lora_rank, k_r of rope (one for all heads)
+        [k_nope, v] = RMSNorm(c) Wukv, (n_heads, nope + v_head_dim)
+        q_rope, k_r = RoPE(q_rope), RoPE(k_r)
+        o = softmax(causal([q_nope, q_rope] . [k_nope, k_r] / sqrt(nope + rope))) v
+        out = o Wo
+
+    The products take bf16 operands (f32 accumulation), the latent's norm
+    and RoPE run in f32, and attention is the flash path (``ops/
+    attention.py``: q.k heads of 192 over v heads of 128 at DeepSeek-V3's
+    widths)."""
+
+    def __init__(self, cfg: DeepSeekV3Config, generator=None, device=None):
+        super().__init__()
+        self.cfg = cfg
+        h, r, rope = cfg.n_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        self.wq = nn.Parameter(_xavier_uniform((cfg.d_model, h, cfg.qk_head_dim), generator,
+                                               device))
+        self.wdkv = nn.Parameter(_xavier_uniform((cfg.d_model, r + rope), generator, device))
+        self.kv_norm = Norm(r, device, eps=cfg.norm_eps)
+        self.wukv = nn.Parameter(_xavier_uniform(
+            (r, h, cfg.qk_nope_head_dim + cfg.v_head_dim), generator, device))
+        self.wo = nn.Parameter(_xavier_uniform((h, cfg.v_head_dim, cfg.d_model), generator,
+                                               device))
+
+    def forward(self, x: torch.Tensor, kv=None) -> torch.Tensor:
+        cfg = self.cfg
+        dt = cfg.dtype
+        nope, rope, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.kv_lora_rank
+        x = x.to(dt)
+        b, s, _ = x.shape
+        q = torch.einsum("bsd,dhk->bshk", x, self.wq.to(dt))
+        c, k_r = (x @ self.wdkv.to(dt)).split([r, rope], dim=-1)
+        kv = torch.einsum("bsr,rhk->bshk", self.kv_norm(c).to(dt), self.wukv.to(dt))
+        k_nope, v = kv.split([nope, cfg.v_head_dim], dim=-1)
+        cos, sin = rope_tables(s, rope, cfg.rope_theta, x.device)
+        q_rope = apply_rope(q[..., nope:].float(), cos, sin).to(dt)
+        k_rope = apply_rope(k_r[:, :, None].float(), cos, sin).to(dt)
+        q = torch.cat((q[..., :nope], q_rope), dim=-1)
+        k = torch.cat((k_nope, k_rope.expand(b, s, cfg.n_heads, rope)), dim=-1)
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+        return torch.einsum("bhsk,hkd->bsd", out, self.wo.to(dt))
+
+
+class SwiGlu(nn.Module):
+    """DeepSeek-V3's MLP: ``W_down(silu(x W_gate) * x W_up)``, bf16
+    operands; the dense layers' and the shared experts'."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype: torch.dtype = torch.bfloat16,
+                 generator=None, device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.w_gate = nn.Parameter(_xavier_uniform((d_model, d_ff), generator, device))
+        self.w_up = nn.Parameter(_xavier_uniform((d_model, d_ff), generator, device))
+        self.w_down = nn.Parameter(_xavier_uniform((d_ff, d_model), generator, device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        x = x.to(dt)
+        return (F.silu(x @ self.w_gate.to(dt)) * (x @ self.w_up.to(dt))) @ self.w_down.to(dt)
+
+
 class Block(nn.Module):
     """[norm -> attention -> norm -> MLP or MoE], each with its residual.
     ``forward`` returns the output and the MoE layer's load-balance term
-    (None for the dense MLP)."""
+    (None for the dense MLP). Under ``DeepSeekV3Config`` the attention is
+    ``MlaAttention`` and layer ``index`` is a SwiGLU or a routed layer."""
 
-    def __init__(self, cfg: ModelConfig, generator=None, device=None):
+    def __init__(self, cfg: ModelConfig, generator=None, device=None, index: int = 0):
         super().__init__()
+        if isinstance(cfg, DeepSeekV3Config):
+            self._init_latent(cfg, generator, device, index)
+            return
         self.norm1 = Norm(cfg.d_model, device, cfg.use_pallas_norm)
         self.attn = Attention(cfg, generator, device)
         self.norm2 = Norm(cfg.d_model, device, cfg.use_pallas_norm)
@@ -378,6 +567,19 @@ class Block(nn.Module):
                               cfg.moe_capacity_factor, cfg.dtype, generator, device)
         else:
             self.mlp = Mlp(cfg, generator, device)
+
+    def _init_latent(self, cfg: DeepSeekV3Config, generator, device, index: int) -> None:
+        from .routed import RoutedMoe
+
+        eps = cfg.norm_eps
+        self.norm1 = Norm(cfg.d_model, device, cfg.use_pallas_norm, eps)
+        self.attn = MlaAttention(cfg, generator, device)
+        self.norm2 = Norm(cfg.d_model, device, cfg.use_pallas_norm, eps)
+        self.is_moe = cfg.is_routed(index)
+        if self.is_moe:
+            self.moe = RoutedMoe(cfg, generator, device)
+        else:
+            self.mlp = SwiGlu(cfg.d_model, cfg.d_ff, cfg.dtype, generator, device)
 
     def forward(self, x: torch.Tensor, kv=None) -> tuple[torch.Tensor, torch.Tensor | None]:
         x = x + self.attn(self.norm1(x), kv)
@@ -405,7 +607,11 @@ def _run_stage(stage, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed_tokens(cfg: ModelConfig, embed, pos, tokens):
-    """Token + position embedding, summed in f32, then cast."""
+    """Token + position embedding, summed in f32, then cast; the token
+    embedding alone where the model has no position table (``pos`` None:
+    RoPE)."""
+    if pos is None:
+        return embed[tokens].to(cfg.dtype)
     seq = tokens.shape[1]
     return (embed[tokens] + pos[:seq][None, :, :]).to(cfg.dtype)
 
@@ -427,18 +633,33 @@ class TransformerLM(nn.Module):
                  device=None):
         super().__init__()
         self.cfg = cfg
+        latent = isinstance(cfg, DeepSeekV3Config)
         self.embed = nn.Parameter(
             torch.empty(cfg.vocab_size, cfg.d_model, device=device)
             .normal_(0.0, 0.02, generator=generator)
         )
-        self.pos = nn.Parameter(
-            torch.empty(cfg.max_seq_len, cfg.d_model, device=device)
-            .normal_(0.0, 0.02, generator=generator)
-        )
+        if latent:
+            self.register_parameter("pos", None)  # RoPE inside the attention
+        else:
+            self.pos = nn.Parameter(
+                torch.empty(cfg.max_seq_len, cfg.d_model, device=device)
+                .normal_(0.0, 0.02, generator=generator)
+            )
         self.blocks = nn.ModuleList(
-            Block(cfg, generator, device) for _ in range(cfg.n_layers)
+            Block(cfg, generator, device, i) for i in range(cfg.n_layers)
         )
-        self.norm = Norm(cfg.d_model, device, cfg.use_pallas_norm)
+        if latent:
+            self.norm = Norm(cfg.d_model, device, cfg.use_pallas_norm, cfg.norm_eps)
+            self.head = nn.Parameter(
+                torch.empty(cfg.vocab_size, cfg.d_model, device=device)
+                .normal_(0.0, 0.02, generator=generator)
+            )
+        else:
+            self.norm = Norm(cfg.d_model, device, cfg.use_pallas_norm)
+            self.register_parameter("head", None)  # the tied embedding unembeds
+        # The routed layers, whose routing bias train.train_step updates
+        # after each optimizer step.
+        self.routed_layers = tuple(b.moe for b in self.blocks if latent and b.is_moe)
         # Set by train.shard_model: the mesh; the model axis's group and
         # the dim each tensor-parallel parameter is split along, by name;
         # the expert axis's group and its split parameters likewise; the
@@ -459,6 +680,11 @@ class TransformerLM(nn.Module):
         if "embed" in self.tp_dims:
             return gather_split(self.embed, self.tp_group, self.tp_dims["embed"])
         return self.embed
+
+    def unembedding(self) -> torch.Tensor:
+        """The (vocab, d_model) weight of the logits: the untied ``head``
+        where the model has one, else ``tied_embedding()``."""
+        return self.head if self.head is not None else self.tied_embedding()
 
     def hidden_states(self, tokens: torch.Tensor, cache: KVCache | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor | None]:
@@ -514,7 +740,7 @@ class TransformerLM(nn.Module):
         x, _ = self.hidden_states(tokens, cache)
         if self.cfg.xent_chunk > 0 and not self.cfg.decode:
             return x
-        return unembed(x, self.tied_embedding())
+        return unembed(x, self.unembedding())
 
 
 @dataclasses.dataclass
@@ -562,4 +788,4 @@ def forward_with_aux(model: TransformerLM, tokens: torch.Tensor
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if model.cfg.xent_chunk > 0:
         return x, aux
-    return unembed(x, model.tied_embedding()), aux
+    return unembed(x, model.unembedding()), aux

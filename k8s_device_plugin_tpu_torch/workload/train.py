@@ -40,7 +40,10 @@ from ..parallel.mesh import (
 )
 from ..parallel.pipeline import stack_stages
 from ..utils import tracing
-from .model import Block, ElsewhereStage, ModelConfig, TransformerLM, init_model, param_axes, unembed
+from .model import (
+    Block, DeepSeekV3Config, ElsewhereStage, ModelConfig, TransformerLM, init_model, param_axes,
+    unembed,
+)
 
 # optax.adamw(lr)'s defaults, which the JAX step uses (train.py:104):
 # decay 1e-4 on every parameter. torch's AdamW defaults to decay 1e-2, so
@@ -56,7 +59,8 @@ WARMUP_STEPS = 3
 def loss_fn(model: TransformerLM, tokens: torch.Tensor,
             xent_chunk: int | None = None) -> torch.Tensor:
     """Next-token cross-entropy; the last position predicts nothing. A MoE
-    model adds ``moe_aux_weight`` times its layers' load-balance terms.
+    model adds ``moe_aux_weight`` times its layers' load-balance terms (a
+    DeepSeek-V3 model: the sequence-wise balance loss's).
 
     ``xent_chunk`` (default: the model's ``cfg.xent_chunk``) > 0 folds the
     tied unembedding into the chunked-vocab CE (``ops/xent.py``): the
@@ -65,7 +69,7 @@ def loss_fn(model: TransformerLM, tokens: torch.Tensor,
     chunk = model.cfg.xent_chunk if xent_chunk is None else xent_chunk
     hidden, aux = model.hidden_states(tokens)
     targets = tokens[:, 1:]
-    embed = model.tied_embedding()
+    embed = model.unembedding()
     if chunk > 0:
         loss = chunked_softmax_xent(hidden[:, :-1], embed, targets, chunk)
     else:
@@ -223,6 +227,10 @@ def shard_model(model: TransformerLM, mesh) -> TransformerLM:
     axes' groups for its load-balance loss. ``train_step`` then averages
     the loss over the mesh."""
     cfg, sizes = model.cfg, axis_sizes(mesh)
+    if isinstance(cfg, DeepSeekV3Config):
+        if any(size > 1 for size in sizes.values()):
+            raise NotImplementedError("a DeepSeek-V3 model runs unsharded: its routed layer "
+                                      "holds its share of the experts itself")
     if cfg.pipeline_microbatches > 0:
         model.pipe_group = mesh[PIPE_AXIS].get_group()
         if sizes[PIPE_AXIS] > 1:
@@ -296,10 +304,19 @@ def make_train_state(
     return model, make_optimizer(model, lr)
 
 
+def update_routing_biases(model: TransformerLM) -> None:
+    """After an optimizer step: each routed layer's routing bias moves by
+    the step's choice counts (``RoutedMoe.update_bias``); nothing for a
+    model without routed layers."""
+    for layer in getattr(model, "routed_layers", ()):
+        layer.update_bias()
+
+
 def _loss_and_update(model, optimizer, tokens, xent_chunk) -> torch.Tensor:
     loss = loss_fn(model, tokens, xent_chunk)
     loss.backward()
     optimizer.step()
+    update_routing_biases(model)
     return loss.detach()
 
 
@@ -324,8 +341,8 @@ def train_step(
     With tracing on (``utils.tracing``) the step records the span
     ``train.step`` around the whole call and, inside it, ``train.forward``
     (the loss), ``train.backward`` and ``train.optimizer``
-    (``optimizer.step()``), all of service ``workload``; off, each is one
-    bool check. A graph's capture (``GraphedTrainStep``) runs
+    (``optimizer.step()`` and the routing biases' update), all of service
+    ``workload``; off, each is one bool check. A graph's capture (``GraphedTrainStep``) runs
     ``_loss_and_update``, which records none."""
     with tracing.span("train.step", service="workload"):
         optimizer.zero_grad(set_to_none=True)
@@ -335,6 +352,7 @@ def train_step(
             loss.backward()
         with tracing.span("train.optimizer", service="workload"):
             optimizer.step()
+            update_routing_biases(model)
         # Dropping the autograd graph here, and not on return, keeps its
         # teardown (milliseconds at 48 layers) inside train.step.
         loss = loss.detach()

@@ -180,7 +180,8 @@ def test_doc_side_reads_the_shared_doc_and_the_addendum():
     assert scan.documented_metric_families() == jax_scan.documented_metric_families() | rows
     addendum = open(os.path.join(REPO, "docs", "torch", "observability.md")).read()
     spans = set(re.findall(r"^\| `([a-z][a-z0-9_.]*)` \|", addendum, re.M))
-    assert spans == {"train.step", "train.forward", "train.backward", "train.optimizer"}
+    assert spans == {"train.step", "train.forward", "train.backward", "train.optimizer",
+                     "moe.route", "moe.dispatch", "moe.experts", "moe.combine", "moe.backward"}
     assert (scan.documented_backticked("observability.md")
             == jax_scan.documented_backticked("observability.md") | spans)
     assert scan.doc_line_of("observability.md", "`train.step`") == 0

@@ -95,6 +95,77 @@ def test_kernels_match_plain_on_card(cuda_device, shape):
         assert agree["ok"], agree
 
 
+MLA_SHAPES = [
+    (2, 4, 100),  # ragged: the last q and kv tiles run past seq
+    (1, 2, 129),
+    (1, 1, 3),  # seq not a multiple of 4
+    (1, 132, 128),  # more heads than the card has SMs
+    (2, 16, 2048),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bhs", MLA_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_mla_head_widths_match_plain_on_card(cuda_device, bhs):
+    """q.k heads of 192 over v heads of 128 (multi-head latent attention):
+    the forward at each ring depth built for the pair (2, 3; 4 refused),
+    delta over the v width, and dQ and dK/dV at each depth, against the
+    plain versions under the same rule as the equal widths'."""
+    gen = torch.Generator(device=cuda_device).manual_seed(sum(bhs))
+    q, k = (torch.randn(*bhs, 192, generator=gen, device=cuda_device).to(torch.bfloat16)
+            for _ in range(2))
+    v, do = (torch.randn(*bhs, 128, generator=gen, device=cuda_device).to(torch.bfloat16)
+             for _ in range(2))
+    o_p, lse_p = tattn.flash_attention_fwd_plain(q, k, v)
+    assert o_p.shape[-1] == 128
+    for stages in tattn.MLA_FWD_STAGES:
+        o, lse = tattn.flash_fwd_kernel(q, k, v, stages)
+        torch.cuda.synchronize()
+        assert o.shape == v.shape
+        assert (lse - lse_p).abs().max() <= 1e-4, stages
+        agree = tattn.bf16_agreement(o, o_p)
+        assert agree["ok"], (stages, agree)
+    with pytest.raises(ValueError, match="ring depth"):
+        tattn.flash_fwd_kernel(q, k, v, 4)
+    bwd = (q, k, v, o_p, lse_p, do)
+    delta = tattn.flash_bwd_delta_kernel(o_p, do)
+    delta_p = tattn.flash_bwd_delta_plain(o_p, do)
+    torch.cuda.synchronize()
+    assert (delta - delta_p).abs().max() <= tattn.DELTA_RTOL * delta_p.abs().max()
+    grads_p = (tattn.flash_dq_plain(*bwd), *tattn.flash_dkv_plain(*bwd))
+    for stages in tattn.BWD_STAGES:
+        grads = (tattn.flash_dq_kernel(*bwd, delta=delta, stages=stages),
+                 *tattn.flash_dkv_kernel(*bwd, delta=delta, stages=stages))
+        torch.cuda.synchronize()
+        assert [g.shape[-1] for g in grads] == [192, 192, 128]
+        for got, want in zip(grads, grads_p):
+            agree = tattn.bf16_agreement(got, want)
+            assert agree["ok"], (stages, agree)
+
+
+@pytest.mark.cuda
+def test_mla_autograd_repeats_bit_for_bit(cuda_device):
+    """The (192, 128) kernels through ``flash_attention``: every launch
+    counted under its kernel's name, the same bits from run to run."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    q, k = (torch.randn(2, 4, 300, 192, generator=gen, device=cuda_device).to(torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn(2, 4, 300, 128, generator=gen, device=cuda_device).to(torch.bfloat16)
+    runs = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        reset_launches()
+        o = tattn.flash_attention(*leaves)
+        o.float().square().sum().backward()
+        torch.cuda.synchronize()
+        assert dict(LAUNCHES, rmsnorm=0, head_gemm=0) == {
+            "flash_fwd": 1, "flash_dq": 1, "flash_dkv": 1, "flash_bwd_delta": 1,
+            "rmsnorm": 0, "head_gemm": 0}
+        runs.append([o, *(t.grad for t in leaves)])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(2, 4, 100, 64), (2, 8, 1024, 128)])
 def test_backward_kernels_repeat_bit_for_bit(cuda_device, shape):
@@ -146,11 +217,11 @@ def test_forward_writes_nothing_past_each_heads_rows(cuda_device, seq):
     rows = 3 * seq
     o_buf = torch.full((rows + pad, 64), 7.0, dtype=torch.bfloat16, device=cuda_device)
     lse_buf = torch.full((rows + pad,), 7.0, dtype=torch.float32, device=cuda_device)
-    fn = _build.bind("flash_fwd", "flash_fwd", [tattn._P] * 5 + [tattn._I] * 4
+    fn = _build.bind("flash_fwd", "flash_fwd", [tattn._P] * 5 + [tattn._I] * 5
                      + [tattn._F, tattn._P])
     stream = torch.cuda.current_stream().cuda_stream
     _build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o_buf.data_ptr(),
-                    lse_buf.data_ptr(), 3, seq, 64, tattn.DEFAULT_FWD_STAGES, 64 ** -0.5,
+                    lse_buf.data_ptr(), 3, seq, 64, 64, tattn.DEFAULT_FWD_STAGES, 64 ** -0.5,
                     stream), "flash_fwd")
     o_p, lse_p = tattn.flash_attention_fwd_plain(q, k, v)
     torch.cuda.synchronize()
@@ -203,11 +274,11 @@ def test_a_depth_not_built_is_refused_on_card(cuda_device):
     q = torch.zeros(1, 1, 64, 64, device=cuda_device, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="ring depth"):
         tattn.flash_fwd_kernel(q, q, q, 5)
-    fn = _build.bind("flash_fwd", "flash_fwd", [tattn._P] * 5 + [tattn._I] * 4
+    fn = _build.bind("flash_fwd", "flash_fwd", [tattn._P] * 5 + [tattn._I] * 5
                      + [tattn._F, tattn._P])
     out, lse = torch.empty_like(q), torch.empty(1, 64, device=cuda_device)
     err = fn(q.data_ptr(), q.data_ptr(), q.data_ptr(), out.data_ptr(), lse.data_ptr(), 1, 64,
-             64, 5, 0.125, torch.cuda.current_stream().cuda_stream)
+             64, 64, 5, 0.125, torch.cuda.current_stream().cuda_stream)
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         _build.check(err, "flash_fwd")
 
